@@ -1,0 +1,90 @@
+"""Kernel K1 on the card: the fused three-pass cascade solver.
+
+Wrapper around csrc/cascade_lap.cu, which replaces the TPU kernel
+botsort_tpu/ops/assignment_pallas.py::_cascade_kernel. Its plain PyTorch
+version is ops/assignment.py::cascade_solve_plain; ``solve_cascade_masked``
+dispatches between the two by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from botsort_tpu_torch.ops.assignment import MAX_ITERS, half_limit
+from botsort_tpu_torch.runtime import kernels
+
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block can use
+
+
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load("cascade_lap")
+    fn = lib.cascade_lap_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.cascade_lap_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cascade_lap_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
+                       big: torch.Tensor, limits: Sequence[float],
+                       max_iters: int = MAX_ITERS
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """costs [B, 3, N, D] f32, masks [B, 3N+3D] int32, big [B] f32, all
+    contiguous on one CUDA device -> (cfr [B, 3, N], rfc [B, 3, D]) int32.
+
+    One thread block per problem, launched on the current stream; nothing
+    is synchronised. ``cascade_solve_cuda.launches`` counts launches.
+    """
+    if not costs.is_cuda:
+        raise ValueError("cascade_solve_cuda takes CUDA tensors; the plain "
+                         "version is ops.assignment.cascade_solve_plain")
+    if costs.dim() != 4 or costs.shape[1] != 3:
+        raise ValueError(f"costs must be [B, 3, N, D], got "
+                         f"{tuple(costs.shape)}")
+    bsz, _, n, d = costs.shape
+    if bsz < 1 or n < 1 or d < 1:
+        raise ValueError(f"empty problem {tuple(costs.shape)}")
+    dev = costs.device
+    _check(costs, "costs", torch.float32, (bsz, 3, n, d), dev)
+    _check(masks, "masks", torch.int32, (bsz, 3 * (n + d)), dev)
+    _check(big, "big", torch.float32, (bsz,), dev)
+    if len(limits) != 3:
+        raise ValueError("limits must hold the three pass limits")
+    lib = _lib()
+    smem = lib.cascade_lap_smem_bytes(n, d)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"N+D={n + d} needs {smem} B of shared memory "
+                         f"(limit {_SMEM_LIMIT})")
+    cfr = torch.empty((bsz, 3, n), dtype=torch.int32, device=dev)
+    rfc = torch.empty((bsz, 3, d), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.cascade_lap_launch(
+            costs.data_ptr(), masks.data_ptr(), big.data_ptr(),
+            cfr.data_ptr(), rfc.data_ptr(), bsz, n, d,
+            *(half_limit(x) for x in limits), int(max_iters), stream)
+    if rc != 0:
+        raise RuntimeError(f"cascade_lap launch failed: CUDA error {rc}")
+    cascade_solve_cuda.launches += 1
+    return cfr, rfc
+
+
+cascade_solve_cuda.launches = 0

@@ -1,0 +1,99 @@
+"""Model bundles (port of botsort_tpu/runtime/assets.py).
+
+``build_bundle`` builds the three networks at the repo's architectures —
+YOLOX-X (depth 1.33, width 1.25, four classes), FastReID SBS-S50 and the
+MobileNetV2 face encoder — or at the JAX package's MINI presets, with a
+numpy-seeded random init drawn by the JAX package's ``fake_params``
+recipe: conv and dense kernels normal x fan_in^-1/2, norm scales and
+variances 1, biases and means 0 (GeM's exponent keeps its init, 3).
+Random weights give no tracking accuracy, but non-degenerate detections
+flow through every stage. runtime/from_flax.py loads a Flax variable
+tree into a built network; loading converted checkpoints is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from botsort_tpu_torch.models.common import BatchNorm, cast_compute
+from botsort_tpu_torch.models.facereid import FaceReID
+from botsort_tpu_torch.models.fastreid import FastReIDSBS
+from botsort_tpu_torch.models.yolox import YOLOX
+from botsort_tpu_torch.pipeline.frame_step import ModelBundle
+
+# Reference model names; the detector's names embed NxCxHxW, the body
+# ReID's its crop size.
+DETECTOR_NAME_RE = re.compile(r"x(?P<h>\d+)x(?P<w>\d+)(?:_|\.)")
+REID_NAME_RE = re.compile(
+    r"(?P<train>mot\d+)_sbs_S50_NMx3x(?P<h>\d+)x(?P<w>\d+)")
+DEFAULT_DETECTOR = (
+    "yolox_x_body_head_hand_face_0076_0.5228_post_1x3x480x640_"
+    "score015_iou080_box050.onnx")
+DEFAULT_BODY_REID = "mot17_sbs_S50_NMx3x256x128_post_feature_only.onnx"
+DEFAULT_FACE_REID = (
+    "face-reidentification-retail-0095_NMx3x128x128_post_feature_only.onnx")
+
+# Miniature architectures for tests (the JAX package's MINI presets).
+MINI = {
+    "detector": dict(num_classes=4, depth=0.33, width=0.25),
+    "body": dict(stage_blocks=(1, 1, 1, 1), stage_widths=(8, 16, 32, 64),
+                 stem_width=8),
+    "face": dict(layout=((1, 8, 1, 1), (6, 16, 1, 2), (6, 32, 1, 2)),
+                 head_width=64),
+}
+FULL = {
+    "detector": dict(num_classes=4, depth=1.33, width=1.25),
+    "body": {},
+    "face": {},
+}
+
+
+def parse_detector_input_hw(name: str) -> Tuple[int, int]:
+    m = DETECTOR_NAME_RE.search(name)
+    return (int(m.group("h")), int(m.group("w"))) if m else (480, 640)
+
+
+def parse_body_reid_input_hw(name: str) -> Tuple[int, int]:
+    m = REID_NAME_RE.search(name)
+    return (int(m.group("h")), int(m.group("w"))) if m else (256, 128)
+
+
+def seeded_init_(module: nn.Module, rng: np.random.Generator) -> nn.Module:
+    """The ``fake_params`` recipe, drawn from ``rng`` in module order."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
+                w = m.weight
+                fan_in = max(math.prod(w.shape[1:]), 1)
+                draw = rng.standard_normal(tuple(w.shape), np.float32)
+                w.copy_(torch.from_numpy(draw * np.float32(fan_in ** -0.5)))
+                if m.bias is not None:
+                    m.bias.zero_()
+    return module
+
+
+def build_bundle(mini: bool = False, seed: int = 0,
+                 device: Any = "cpu", dtype: torch.dtype = torch.bfloat16
+                 ) -> ModelBundle:
+    """The three networks with seeded weights on ``device``,
+    convolutions and dense layers in ``dtype``."""
+    arch = MINI if mini else FULL
+    models = (YOLOX(**arch["detector"]), FastReIDSBS(**arch["body"]),
+              FaceReID(**arch["face"]))
+    rng = np.random.default_rng(seed)
+    for model in models:
+        seeded_init_(model, rng)
+        cast_compute(model, dtype).to(device).eval().requires_grad_(False)
+    return ModelBundle(*models)

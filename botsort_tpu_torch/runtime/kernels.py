@@ -1,0 +1,79 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/botsort_tpu_torch/`` at first use and loaded with ``ctypes`` —
+no PyTorch headers, so a build takes seconds. The library's file name
+carries a hash of the source and flags, so an edited source rebuilds.
+
+``--fmad=false`` keeps nvcc from contracting a*b+c into FMAs: the
+assignment kernel must reproduce its plain PyTorch version's float32
+operations bit for bit (ops/assignment.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "botsort_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# name -> (seconds spent building in this process, nvcc's output).
+BUILD_INFO: Dict[str, tuple] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels are built from csrc/ at first use")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Return the loaded library for ``csrc/<name>.cu``, building it first
+    if no library for the current source exists."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{name}_{digest}.so"
+    if not so.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src} (rc {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+        BUILD_INFO[name] = (time.perf_counter() - t0,
+                            proc.stdout + proc.stderr)
+    lib = ctypes.CDLL(str(so))
+    _LIBS[name] = lib
+    return lib

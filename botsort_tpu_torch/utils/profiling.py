@@ -1,0 +1,45 @@
+"""Per-stage wall-clock timers (port of botsort_tpu/utils/profiling.py).
+
+PyTorch returns before the card finishes, so on a CUDA device every stage
+ends with ``torch.cuda.synchronize()``: a stage's time then covers the
+device work it enqueued, not only the enqueueing.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import defaultdict
+from typing import Dict, Iterator
+
+import torch
+
+
+class StageTimers:
+    """Accumulates wall-clock per named stage; report() -> ms averages."""
+
+    def __init__(self, cuda_sync: bool = False):
+        self.cuda_sync = cuda_sync
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.cuda_sync:
+                torch.cuda.synchronize()
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def report(self) -> Dict[str, float]:
+        return {
+            name: 1000.0 * self.totals[name] / max(self.counts[name], 1)
+            for name in self.totals
+        }
+
+    def reset(self):
+        self.totals.clear()
+        self.counts.clear()
