@@ -1,19 +1,21 @@
 """botsort_tpu_torch — the PyTorch + CUDA port of botsort_tpu.
 
 The JAX package ``botsort_tpu`` is the reference; this package runs the
-same single-stream tracker on an NVIDIA GPU (or, with the plain PyTorch
-versions of its kernels, on the CPU for tests). Layout mirrors the JAX
-package so each module's counterpart is easy to find:
+same tracker, one stream or B streams per step, on an NVIDIA GPU (or,
+with the plain PyTorch versions of its kernels, on the CPU for tests).
+Layout mirrors the JAX package so each module's counterpart is easy to
+find:
 
   config.py   tracker, NMS and pipeline configuration
-  ops/        boxes, Kalman filter, assignment (plain + CUDA K1), crops,
-              NMS, box hierarchy
+  ops/        boxes, Kalman filter, assignment (plain + CUDA K1, K2, K3),
+              crops, NMS, box hierarchy
   models/     YOLOX, FastReID SBS-S50, FaceReID as ``torch.nn`` modules
   track/      tensor track store + the BoT-SORT association cascade
-  pipeline/   the per-frame step, the host facade, host box objects
+  pipeline/   the per-frame step (batched over streams), the host
+              facades, host box objects
   runtime/    kernel build/load, Flax weight bridge, model bundles
-  cli/        demo entry point
-  io/         video I/O and frame drawing for the demo (OpenCV)
+  cli/        demo and multitrack entry points
+  io/         video I/O and frame drawing for the CLIs (OpenCV)
   utils/      stage timers
   csrc/       hand-written CUDA kernels (built at first use)
 

@@ -1,7 +1,14 @@
-// K1: the association cascade's three chained thresholded LAPs in one launch.
+// K1 and K2: the association cascade's three chained thresholded LAPs in one
+// launch, for one stream (K1) or B streams (K2, one block per stream).
 //
-// Replaces the TPU kernel botsort_tpu/ops/assignment_pallas.py::_cascade_kernel
-// (entered through cascade_solve_pallas). Semantics are those of
+// Replaces the TPU kernels botsort_tpu/ops/assignment_pallas.py::
+// _cascade_kernel (K1, entered through cascade_solve_pallas) and
+// _cascade_kernel_ls (K2, the lockstep kernel that jax.vmap over the
+// multi-stream cascade reaches). The lockstep layout exists because one
+// TensorCore runs grid steps in order; here the B blocks run at once on B of
+// the 132 SMs, so a batch takes as long as its slowest stream without it.
+// Each stream keeps its own `big` (the grid kernel's semantics; the lockstep
+// kernel's shared maximum gives the same matchings). Semantics are those of
 // botsort_tpu/ops/assignment.py::solve_cascade_masked: three lap.lapjv
 // extend_cost/cost_limit solves, each an exact Jonker-Volgenant
 // shortest-augmenting-path solve of the (N+D) x (N+D) extended problem
@@ -22,74 +29,36 @@
 // L2-resident), one block argmin (warp shuffles, then across warps in
 // shared memory) and three __syncthreads — the solve is the latency of that
 // sequential pop chain. One block per problem means a single-stream frame
-// (B = 1) occupies one SM and leaves 131 idle; the multi-stream port of K2
-// runs one block per stream and fills them. The TPU kernel's column
+// (B = 1) occupies one SM and leaves 131 idle; a B-stream step (K2) keeps B
+// of them busy in the same time. The TPU kernel's column
 // reduction, leftover pairing and post-reduction resolve, which cut the pop
 // count, are not ported yet.
 //
 // Layout: costs [B,3,N,D] f32; masks [B, 3N+3D] i32 = pool[N], tracked[N],
 // unconf[N], high1[D], high3[D], low[D] (already feasibility pre-parked);
-// big [B] f32 -> cfr [B,3,N], rfc [B,3,D] i32 (-1 = unmatched).
+// big [B] f32 -> cfr [B,3,N], rfc [B,3,D] i32 (-1 = unmatched). The solver
+// loop itself is lap_common.cuh's, shared with K3 (jv_lap.cu).
 
-#include <cuda_runtime.h>
-#include <climits>
-#include <math.h>
+#include "lap_common.cuh"
 
 namespace {
 
-constexpr float kInf = 1e30f;  // the reference solver's "unreached" value
-
-__device__ __forceinline__ void take_min(float& val, int& idx, float oval,
-                                         int oidx) {
-  // Lowest index wins ties, as jnp.argmin / torch.argmin do.
-  if (oval < val || (oval == val && oidx < idx)) {
-    val = oval;
-    idx = oidx;
-  }
-}
-
-// Block-wide argmin of (val, idx); the result lands in *out_val/*out_idx and
-// is visible to every thread on return.
-__device__ void block_argmin(float val, int idx, float* wval, int* widx,
-                             float* out_val, int* out_idx) {
-  for (int off = 16; off > 0; off >>= 1) {
-    take_min(val, idx, __shfl_down_sync(0xffffffffu, val, off),
-             __shfl_down_sync(0xffffffffu, idx, off));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    wval[warp] = val;
-    widx[warp] = idx;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    val = lane < nw ? wval[lane] : INFINITY;
-    idx = lane < nw ? widx[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) {
-      take_min(val, idx, __shfl_down_sync(0xffffffffu, val, off),
-               __shfl_down_sync(0xffffffffu, idx, off));
+// Entry (r, j) of one pass's extended matrix, built on the fly from the
+// row class.
+struct CascadeExt {
+  const float* cost;
+  const int* rv;
+  const int* cv;
+  int n, d;
+  float half, big;
+  __device__ __forceinline__ float operator()(int r, int j) const {
+    if (r < n) {
+      if (rv[r]) return j < d ? (cv[j] ? cost[r * d + j] : big) : half;
+      return j < d ? big : 0.0f;  // parked real row
     }
-    if (lane == 0) {
-      *out_val = val;
-      *out_idx = idx;
-    }
+    return j < d ? (cv[j] ? half : 0.0f) : 0.0f;  // dummy row
   }
-  __syncthreads();
-}
-
-// Entry (r, j) of the extended matrix, built on the fly from the row class.
-__device__ __forceinline__ float ext_val(int r, int j, int n, int d,
-                                         const float* cost, const int* rv,
-                                         const int* cv, float half,
-                                         float big) {
-  if (r < n) {
-    if (rv[r]) return j < d ? (cv[j] ? cost[r * d + j] : big) : half;
-    return j < d ? big : 0.0f;  // parked real row
-  }
-  return j < d ? (cv[j] ? half : 0.0f) : 0.0f;  // dummy row
-}
+};
 
 __global__ void cascade_lap_kernel(const float* __restrict__ costs,
                                    const int* __restrict__ masks,
@@ -99,21 +68,12 @@ __global__ void cascade_lap_kernel(const float* __restrict__ costs,
                                    float h0, float h1, float h2,
                                    int max_iters) {
   extern __shared__ int smem[];
+  __shared__ lap::ArgminScratch sc;
   const int s = n + d;
-  float* minv = reinterpret_cast<float*>(smem);
-  float* u = minv + s;      // row duals
-  float* v = u + s;         // column duals
-  int* way = reinterpret_cast<int*>(v + s);
-  int* used = way + s;
-  int* onpath = used + s;   // rows whose dual rises this augmentation
-  int* p = onpath + s;      // owner row of each column, -1 free
-  int* rv = p + s;          // [n] live real rows of this pass
+  lap::JvState st;
+  int* rv = lap::carve_state(smem, s, st);  // [n] live real rows of a pass
   int* cv = rv + n;         // [d] live real cols of this pass
   int* m1 = cv + d;         // pass-1 result: cfr [n], rfc [d]
-  __shared__ float wval[32];
-  __shared__ int widx[32];
-  __shared__ float s_delta;
-  __shared__ int s_j1;
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -138,89 +98,34 @@ __global__ void cascade_lap_kernel(const float* __restrict__ costs,
     __syncthreads();
     // Designated parking at zero duals.
     for (int j = tid; j < s; j += nt) {
-      p[j] = j < d ? (cv[j] ? -1 : n + j) : (rv[j - d] ? -1 : j - d);
-      u[j] = 0.0f;
-      v[j] = 0.0f;
+      st.p[j] = j < d ? (cv[j] ? -1 : n + j) : (rv[j - d] ? -1 : j - d);
+      st.u[j] = 0.0f;
+      st.v[j] = 0.0f;
     }
     __syncthreads();
 
+    const CascadeExt ext{cost, rv, cv, n, d, half, big};
     for (int r = 0; r < s; ++r) {
       if (!(r < n ? rv[r] : cv[r - n])) continue;  // uniform: shared flags
-      for (int j = tid; j < s; j += nt) {
-        minv[j] = kInf;
-        way[j] = s;
-        used[j] = 0;
-        onpath[j] = 0;
-      }
-      __syncthreads();
-      int cur = r;
-      int jfrom = s;
-      bool done = false;
-      for (int it = 0; !done && it < max_iters; ++it) {
-        const float ucur = u[cur];
-        float best = INFINITY;
-        int bidx = INT_MAX;
-        for (int j = tid; j < s; j += nt) {
-          if (j == cur) onpath[j] = 1;
-          if (!used[j]) {
-            const float e = ext_val(cur, j, n, d, cost, rv, cv, half, big);
-            const float red = (e - ucur) - v[j];
-            if (red < minv[j]) {
-              minv[j] = red;
-              way[j] = jfrom;
-            }
-          }
-          const float m = used[j] ? kInf : minv[j];
-          if (m < best) {  // ascending j: first minimum in this thread
-            best = m;
-            bidx = j;
-          }
-        }
-        block_argmin(best, bidx, wval, widx, &s_delta, &s_j1);
-        const float delta = s_delta;
-        const int j1 = s_j1;
-        for (int j = tid; j < s; j += nt) {
-          if (onpath[j]) u[j] = u[j] + delta;
-          if (used[j]) {
-            v[j] = v[j] - delta;
-          } else {
-            minv[j] = minv[j] - delta;
-          }
-        }
-        if (j1 % nt == tid) used[j1] = 1;
-        const int nxt = p[j1];
-        done = nxt < 0;
-        if (!done) cur = nxt;
-        jfrom = j1;
-        __syncthreads();
-      }
-      if (tid == 0) {  // unwind the alternating path to the sentinel
-        int j0 = jfrom;
-        for (int it = 0; j0 < s && it < max_iters; ++it) {
-          const int jj = way[j0];
-          p[j0] = jj >= s ? r : p[jj];
-          j0 = jj;
-        }
-      }
-      __syncthreads();
+      lap::augment(r, s, ext, st, max_iters, sc);
     }
 
     // Extraction: rfc[j] = owning live real row; cfr is its inverse.
     int* cfr_b = cfr_out + (static_cast<size_t>(b) * 3 + pass) * n;
     int* rfc_b = rfc_out + (static_cast<size_t>(b) * 3 + pass) * d;
-    for (int i = tid; i < n; i += nt) onpath[i] = -1;
+    for (int i = tid; i < n; i += nt) st.onpath[i] = -1;
     __syncthreads();
     for (int j = tid; j < d; j += nt) {
-      const int o = p[j];
+      const int o = st.p[j];
       const int row = (cv[j] && o >= 0 && o < n && rv[o]) ? o : -1;
       rfc_b[j] = row;
-      if (row >= 0) onpath[row] = j;
+      if (row >= 0) st.onpath[row] = j;
       if (pass == 0) m1[n + j] = row;
     }
     __syncthreads();
     for (int i = tid; i < n; i += nt) {
-      cfr_b[i] = onpath[i];
-      if (pass == 0) m1[i] = onpath[i];
+      cfr_b[i] = st.onpath[i];
+      if (pass == 0) m1[i] = st.onpath[i];
     }
     __syncthreads();
   }
@@ -237,22 +142,11 @@ extern "C" int cascade_lap_launch(const float* costs, const int* masks,
                                   int batch, int n, int d, float half0,
                                   float half1, float half2, int max_iters,
                                   void* stream) {
-  const int s = n + d;
-  // One thread per column lane, in whole warps, up to what the kernel's
-  // register use allows in one block; past that each thread strides.
-  cudaFuncAttributes attr;
-  cudaError_t aerr = cudaFuncGetAttributes(&attr, cascade_lap_kernel);
-  if (aerr != cudaSuccess) return static_cast<int>(aerr);
-  const int cap = attr.maxThreadsPerBlock / 32 * 32;
-  int threads = ((s + 31) / 32) * 32;
-  if (threads > cap) threads = cap;
   const int smem = cascade_lap_smem_bytes(n, d);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cascade_lap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  int threads = 0;
+  const int err = lap::launch_shape(cascade_lap_kernel, n + d, smem, &threads);
+  if (err != 0) return err;
+  // One block per problem: K1 at batch 1, K2 (B streams at once) above.
   cascade_lap_kernel<<<batch, threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       costs, masks, big, cfr, rfc, n, d, half0, half1, half2, max_iters);

@@ -13,13 +13,19 @@ n+j owns column j) at zero duals, so only live rows are augmented, in
 ascending index order.
 
 ``solve_cascade_masked`` is the tracker's entry point: the cascade's three
-chained solves. For CUDA tensors it launches kernel K1
-(ops/assignment_cuda.py, csrc/cascade_lap.cu); for CPU tensors it runs
+chained solves, for one stream or for B streams at once. For CUDA tensors
+it launches the cascade kernel (ops/assignment_cuda.py, csrc/
+cascade_lap.cu: K1 at one stream, K2 at B); for CPU tensors it runs
 ``cascade_solve_plain``, the plain PyTorch version of the same function,
 which performs the kernel's float32 operations in the kernel's order and
 is the oracle the kernel is checked against. Both share ``prepare_cascade``
 (one ``big`` over all three passes, feasibility pre-parking per pass), so
 their matchings are equal, ties included.
+
+``solve_masked`` is one thresholded LAP. It dispatches the same way: CUDA
+tensors launch kernel K3 (csrc/jv_lap.cu) on the materialised square
+problem, CPU tensors take ``jv_solve_plain`` — the loop K1's plain version
+runs too, so the card has a second solver to hold K1 and K2 against.
 """
 
 from __future__ import annotations
@@ -65,75 +71,119 @@ def _ext_matrix(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,
     return ext
 
 
+def _parking(rv: torch.Tensor, cv: torch.Tensor):
+    """Designated parking of the extended problem for live rows rv [n] /
+    cols cv [d]: (p0 [S], live_order [S], n_live []) int32, S = n + d.
+    p0 is each column's pre-matched owner (-1 free): dummy row n+j owns
+    parked column j, parked row i owns dummy column d+i. live_order lists
+    the live extended rows (real, then dummy) ascending, then S."""
+    n, d = rv.shape[0], cv.shape[0]
+    s = n + d
+    dev = rv.device
+    p0 = torch.cat([torch.where(cv, -1, n + torch.arange(d, device=dev)),
+                    torch.where(rv, -1, torch.arange(n, device=dev))])
+    live = torch.cat([rv, cv])
+    live_order = torch.sort(torch.where(
+        live, torch.arange(s, device=dev), s)).values
+    i32 = torch.int32
+    return p0.to(i32), live_order.to(i32), live.sum().to(i32)
+
+
+def _extract(owner: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cfr [n], rfc [d]) int32 from the extended problem's column owners
+    [S]: column j's live real owner row, and its inverse."""
+    n, d = rv.shape[0], cv.shape[0]
+    o = owner[:d].long()
+    real = cv & (o >= 0) & (o < n) & rv[o.clamp(0, max(n - 1, 0))]
+    rfc = torch.where(real, o, -1)
+    cfr = torch.full((n + 1,), -1, dtype=torch.int64, device=owner.device)
+    cfr[torch.where(real, o, n)] = torch.arange(d, device=owner.device)
+    return cfr[:n].to(torch.int32), rfc.to(torch.int32)
+
+
+def jv_solve_plain(ext: torch.Tensor, p0: torch.Tensor,
+                   live_order: torch.Tensor, n_live: torch.Tensor,
+                   max_iters: int = MAX_ITERS) -> torch.Tensor:
+    """Plain PyTorch version of kernel K3 (csrc/jv_lap.cu), and the loop
+    K1's plain version runs: exact Jonker-Volgenant solves of square
+    extended problems.
+
+    ext [B, S, S] f32; p0 [B, S] int32 (pre-matched owner of each column,
+    -1 free); live_order [B, S] int32 (rows to augment, ascending, then
+    the sentinel S); n_live [B] int32 -> owner [B, S] int32, the row that
+    owns each column. Each live row is augmented by a shortest augmenting
+    path with dual potentials; the float32 operations are the kernel's,
+    in its order.
+    """
+    bsz, s, _ = ext.shape
+    dev = ext.device
+    inf = torch.tensor(_INF, dtype=torch.float32, device=dev)
+    owners = []
+    for b in range(bsz):
+        e = ext[b]
+        # p[j] = owner row of column j (-1 free); kept on the host because
+        # the augmenting loop branches on it every pop.
+        p: List[int] = p0[b].tolist()
+        u = torch.zeros(s, dtype=torch.float32, device=dev)
+        v = torch.zeros(s, dtype=torch.float32, device=dev)
+        for i in live_order[b, :int(n_live[b])].tolist():
+            minv = torch.full((s,), _INF, dtype=torch.float32, device=dev)
+            way = torch.full((s,), s, dtype=torch.int64, device=dev)
+            used = torch.zeros(s, dtype=torch.bool, device=dev)
+            on_path = torch.zeros(s, dtype=torch.bool, device=dev)
+            cur, j_from, done, it = i, s, False, 0
+            while not done and it < max_iters:
+                on_path[cur] = True
+                reduced = e[cur] - u[cur] - v
+                upd = ~used & (reduced < minv)
+                minv = torch.where(upd, reduced, minv)
+                way = torch.where(upd, j_from, way)
+                masked = torch.where(used, inf, minv)
+                j1 = int(torch.argmin(masked))
+                delta = masked[j1]
+                u = torch.where(on_path, u + delta, u)
+                v = torch.where(used, v - delta, v)
+                minv = torch.where(used, minv, minv - delta)
+                used[j1] = True
+                nxt = p[j1]
+                done = nxt < 0
+                if not done:
+                    cur = nxt
+                j_from = j1
+                it += 1
+            way_l = way.tolist()
+            j0, it = j_from, 0
+            while j0 < s and it < max_iters:
+                j1 = way_l[j0]
+                p[j0] = i if j1 >= s else p[j1]
+                j0 = j1
+                it += 1
+        owners.append(p)
+    return torch.tensor(owners, dtype=torch.int32,
+                        device=dev).reshape(bsz, s)
+
+
 def _jv_extended(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,
                  half: float, big: torch.Tensor,
                  max_iters: int = MAX_ITERS) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """Exact solve of the extended problem for live rows rv [n] / cols
-    cv [d] (bool). Returns (cfr [n], rfc [d]) int32."""
-    n, d = cost.shape
-    s = n + d
-    dev = cost.device
+    cv [d] (bool) with the plain solver. Returns (cfr [n], rfc [d])
+    int32."""
     ext = _ext_matrix(cost, rv, cv, half, big)
-    rv_l = rv.tolist()
-    cv_l = cv.tolist()
-    # p[j] = owner row of column j (-1 free); kept on the host because the
-    # augmenting loop branches on it every pop.
-    p: List[int] = ([-1 if cv_l[j] else n + j for j in range(d)]
-                    + [-1 if rv_l[i] else i for i in range(n)])
-    live_rows = ([i for i in range(n) if rv_l[i]]
-                 + [n + j for j in range(d) if cv_l[j]])
-    u = torch.zeros(s, dtype=torch.float32, device=dev)
-    v = torch.zeros(s, dtype=torch.float32, device=dev)
-    inf = torch.tensor(_INF, dtype=torch.float32, device=dev)
-    for i in live_rows:
-        minv = torch.full((s,), _INF, dtype=torch.float32, device=dev)
-        way = torch.full((s,), s, dtype=torch.int64, device=dev)
-        used = torch.zeros(s, dtype=torch.bool, device=dev)
-        on_path = torch.zeros(s, dtype=torch.bool, device=dev)
-        cur, j_from, done, it = i, s, False, 0
-        while not done and it < max_iters:
-            on_path[cur] = True
-            reduced = ext[cur] - u[cur] - v
-            upd = ~used & (reduced < minv)
-            minv = torch.where(upd, reduced, minv)
-            way = torch.where(upd, j_from, way)
-            masked = torch.where(used, inf, minv)
-            j1 = int(torch.argmin(masked))
-            delta = masked[j1]
-            u = torch.where(on_path, u + delta, u)
-            v = torch.where(used, v - delta, v)
-            minv = torch.where(used, minv, minv - delta)
-            used[j1] = True
-            nxt = p[j1]
-            done = nxt < 0
-            if not done:
-                cur = nxt
-            j_from = j1
-            it += 1
-        way_l = way.tolist()
-        j0, it = j_from, 0
-        while j0 < s and it < max_iters:
-            j1 = way_l[j0]
-            p[j0] = i if j1 >= s else p[j1]
-            j0 = j1
-            it += 1
-    rfc = [o if (cv_l[j] and 0 <= o < n and rv_l[o]) else -1
-           for j, o in enumerate(p[:d])]
-    cfr = [-1] * n
-    for j, o in enumerate(rfc):
-        if o >= 0:
-            cfr[o] = j
-    as_t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
-    return as_t(cfr), as_t(rfc)
+    p0, live_order, n_live = _parking(rv, cv)
+    owner = jv_solve_plain(ext[None], p0[None], live_order[None],
+                           n_live[None], max_iters)
+    return _extract(owner[0], rv, cv)
 
 
-def solve_masked(cost: torch.Tensor, row_valid: torch.Tensor,
-                 col_valid: torch.Tensor, cost_limit: float,
-                 max_iters: int = MAX_ITERS) -> AssignmentResult:
-    """One thresholded LAP over a padded cost [N, D] with validity masks
-    (botsort_tpu.ops.assignment.solve_masked): feasibility pre-parking,
-    ``big`` from this problem's valid entries, then the exact solve."""
+def masked_problem(cost: torch.Tensor, row_valid: torch.Tensor,
+                   col_valid: torch.Tensor, cost_limit: float):
+    """``solve_masked``'s square problem: feasibility pre-parking, ``big``
+    from the problem's valid entries, the extended matrix and its
+    parking. Returns (ext [S, S], p0 [S], live_order [S], n_live [],
+    row_valid, col_valid) with the pre-parked masks."""
     cost = cost.to(torch.float32)
     limit = torch.tensor(cost_limit, dtype=torch.float32, device=cost.device)
     valid_pair = row_valid[:, None] & col_valid[None, :]
@@ -143,9 +193,33 @@ def solve_masked(cost: torch.Tensor, row_valid: torch.Tensor,
     pair = row_valid[:, None] & col_valid[None, :]
     finite_max = torch.where(pair, cost.abs(), 0.0).amax()
     big = finite_max + limit.abs() + 1.0
-    cfr, rfc = _jv_extended(cost, row_valid, col_valid,
-                            half_limit(cost_limit), big, max_iters)
-    return AssignmentResult(cfr, rfc)
+    ext = _ext_matrix(cost, row_valid, col_valid, half_limit(cost_limit),
+                      big)
+    return (ext, *_parking(row_valid, col_valid), row_valid, col_valid)
+
+
+def solve_masked(cost: torch.Tensor, row_valid: torch.Tensor,
+                 col_valid: torch.Tensor, cost_limit: float,
+                 max_iters: int = MAX_ITERS) -> AssignmentResult:
+    """One thresholded LAP over a padded cost [N, D] with validity masks
+    (botsort_tpu.ops.assignment.solve_masked).
+
+    CUDA tensors launch kernel K3 (ops/assignment_cuda.py,
+    csrc/jv_lap.cu); CPU tensors take its plain version; any other device
+    raises.
+    """
+    ext, p0, live_order, n_live, rv, cv = masked_problem(
+        cost, row_valid, col_valid, cost_limit)
+    args = (ext[None], p0[None], live_order[None], n_live[None], max_iters)
+    if ext.is_cuda:
+        from botsort_tpu_torch.ops.assignment_cuda import jv_solve_cuda
+
+        owner = jv_solve_cuda(*args)
+    elif ext.device.type == "cpu":
+        owner = jv_solve_plain(*args)
+    else:
+        raise ValueError(f"no assignment solver for device {ext.device}")
+    return AssignmentResult(*_extract(owner[0], rv, cv))
 
 
 def prepare_cascade(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
@@ -158,26 +232,33 @@ def prepare_cascade(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
     matching and are pre-parked on their superset masks (tracked / high);
     the solver intersects them with pass 1's outcome.
 
-    Returns costs [3, N, D] f32, masks [3N+3D] int32 (pool, tracked,
-    unconf, high1, high3, low) and big [] f32.
+    Costs [..., N, D], row masks [..., N], column masks [..., D], with any
+    leading stream dimensions (each stream keeps its own ``big``).
+    Returns costs [..., 3, N, D] f32, masks [..., 3N+3D] int32 (pool,
+    tracked, unconf, high1, high3, low) and big [...] f32.
     """
     f32 = torch.float32
     lim = [torch.tensor(x, dtype=f32, device=dists1.device) for x in limits]
-    costs = torch.stack([dists1, iou_d, dists3]).to(f32)
+    costs = torch.stack([dists1, iou_d, dists3], dim=-3).to(f32)
     costs = torch.nan_to_num(costs, posinf=1e9, neginf=-1e9)
-    big = costs.abs().amax() + max(abs(float(x)) for x in limits) + 1.0
+    big = (costs.abs().amax(dim=(-3, -2, -1))
+           + max(abs(float(x)) for x in limits) + 1.0)
 
-    f1 = pool_m[:, None] & high_m[None, :] & (dists1.to(f32) <= lim[0])
-    f2 = tracked_m[:, None] & low_m[None, :] & (iou_d.to(f32) <= lim[1])
-    f3 = unconf_m[:, None] & high_m[None, :] & (dists3.to(f32) <= lim[2])
+    def feasible(rows, cols, cost, limit):
+        fits = cost.to(f32) <= limit
+        return rows[..., :, None] & cols[..., None, :] & fits
+
+    f1 = feasible(pool_m, high_m, dists1, lim[0])
+    f2 = feasible(tracked_m, low_m, iou_d, lim[1])
+    f3 = feasible(unconf_m, high_m, dists3, lim[2])
     masks = torch.cat([
-        pool_m & f1.any(dim=1),
-        tracked_m & f2.any(dim=1),
-        unconf_m & f3.any(dim=1),
-        high_m & f1.any(dim=0),
-        high_m & f3.any(dim=0),
-        low_m & f2.any(dim=0),
-    ]).to(torch.int32)
+        pool_m & f1.any(dim=-1),
+        tracked_m & f2.any(dim=-1),
+        unconf_m & f3.any(dim=-1),
+        high_m & f1.any(dim=-2),
+        high_m & f3.any(dim=-2),
+        low_m & f2.any(dim=-2),
+    ], dim=-1).to(torch.int32)
     return costs.contiguous(), masks, big.to(f32)
 
 
@@ -185,7 +266,8 @@ def cascade_solve_plain(costs: torch.Tensor, masks: torch.Tensor,
                         big: torch.Tensor, limits: Sequence[float],
                         max_iters: int = MAX_ITERS
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel K1 on ``prepare_cascade``'s output.
+    """Plain PyTorch version of kernels K1 and K2 on ``prepare_cascade``'s
+    output.
 
     costs [B, 3, N, D]; masks [B, 3N+3D]; big [B] -> (cfr [B, 3, N],
     rfc [B, 3, D]) int32. Pass 1: pool x high1; pass 2: (tracked & pass-1
@@ -220,21 +302,30 @@ def solve_cascade_masked(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
     Pass 3: unconf_m x (high_m & pass-1-col-unmatched) over dists3.
     Returns (res1, res2, res3) AssignmentResults.
 
-    CUDA tensors launch kernel K1; CPU tensors take the plain version.
-    There is no fallback between the two: a kernel that fails to build or
-    launch raises.
+    Costs [N, D] with masks [N] / [D] are one stream's cascade; costs
+    [B, N, D] with masks [B, N] / [B, D] are B streams' cascades, solved
+    together, and the results carry the leading [B].
+
+    CUDA tensors launch the cascade kernel once for all streams (K1 at one
+    stream, K2 at B); CPU tensors take the plain version; any other device
+    raises. There is no fallback between the two: a kernel that fails to
+    build or launch raises.
     """
     costs, masks, big = prepare_cascade(dists1, iou_d, dists3, pool_m,
                                         tracked_m, unconf_m, high_m, low_m,
                                         limits)
+    single = costs.dim() == 3
+    if single:
+        costs, masks, big = costs[None], masks[None], big[None]
     if costs.is_cuda:
         from botsort_tpu_torch.ops.assignment_cuda import cascade_solve_cuda
 
-        cfr, rfc = cascade_solve_cuda(costs[None], masks[None], big[None],
-                                      limits, max_iters)
+        cfr, rfc = cascade_solve_cuda(costs, masks, big, limits, max_iters)
     elif costs.device.type == "cpu":
-        cfr, rfc = cascade_solve_plain(costs[None], masks[None], big[None],
-                                       limits, max_iters)
+        cfr, rfc = cascade_solve_plain(costs, masks, big, limits, max_iters)
     else:
         raise ValueError(f"no cascade solver for device {costs.device}")
-    return tuple(AssignmentResult(cfr[0, k], rfc[0, k]) for k in range(3))
+    if single:
+        cfr, rfc = cfr[0], rfc[0]
+    return tuple(AssignmentResult(cfr[..., k, :], rfc[..., k, :])
+                 for k in range(3))

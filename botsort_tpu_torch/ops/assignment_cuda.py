@@ -1,9 +1,15 @@
-"""Kernel K1 on the card: the fused three-pass cascade solver.
+"""The assignment kernels on the card.
 
-Wrapper around csrc/cascade_lap.cu, which replaces the TPU kernel
-botsort_tpu/ops/assignment_pallas.py::_cascade_kernel. Its plain PyTorch
-version is ops/assignment.py::cascade_solve_plain; ``solve_cascade_masked``
-dispatches between the two by the tensors' device.
+``cascade_solve_cuda`` wraps csrc/cascade_lap.cu, the fused three-pass
+cascade solver: kernel K1 at one stream (replacing the TPU kernel
+botsort_tpu/ops/assignment_pallas.py::_cascade_kernel) and K2 at B streams
+in one launch (replacing ``_cascade_kernel_ls``). Its plain PyTorch version
+is ops/assignment.py::cascade_solve_plain. ``jv_solve_cuda`` wraps
+csrc/jv_lap.cu, kernel K3 (replacing ``_jv_kernel``): one square
+Jonker-Volgenant solve per problem; its plain version is
+ops/assignment.py::jv_solve_plain. ``solve_cascade_masked`` and
+``solve_masked`` dispatch between kernel and plain version by the tensors'
+device.
 """
 
 from __future__ import annotations
@@ -31,6 +37,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _jv_lib() -> ctypes.CDLL:
+    lib = kernels.load("jv_lap")
+    fn = lib.jv_lap_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.jv_lap_smem_bytes.argtypes = [ctypes.c_int]
+        lib.jv_lap_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -51,7 +69,9 @@ def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
     contiguous on one CUDA device -> (cfr [B, 3, N], rfc [B, 3, D]) int32.
 
     One thread block per problem, launched on the current stream; nothing
-    is synchronised. ``cascade_solve_cuda.launches`` counts launches.
+    is synchronised. ``cascade_solve_cuda.launches`` counts launches at
+    B = 1 (K1), ``cascade_solve_cuda.batched_launches`` those at B > 1
+    (K2).
     """
     if not costs.is_cuda:
         raise ValueError("cascade_solve_cuda takes CUDA tensors; the plain "
@@ -83,8 +103,56 @@ def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
             *(half_limit(x) for x in limits), int(max_iters), stream)
     if rc != 0:
         raise RuntimeError(f"cascade_lap launch failed: CUDA error {rc}")
-    cascade_solve_cuda.launches += 1
+    if bsz == 1:
+        cascade_solve_cuda.launches += 1
+    else:
+        cascade_solve_cuda.batched_launches += 1
     return cfr, rfc
 
 
 cascade_solve_cuda.launches = 0
+cascade_solve_cuda.batched_launches = 0
+
+
+def jv_solve_cuda(ext: torch.Tensor, p0: torch.Tensor,
+                  live_order: torch.Tensor, n_live: torch.Tensor,
+                  max_iters: int = MAX_ITERS) -> torch.Tensor:
+    """ext [B, S, S] f32, p0 [B, S] int32, live_order [B, S] int32,
+    n_live [B] int32, all contiguous on one CUDA device -> owner [B, S]
+    int32 (see ops.assignment.jv_solve_plain for the contract).
+
+    One thread block per problem, launched on the current stream; nothing
+    is synchronised. ``jv_solve_cuda.launches`` counts launches.
+    """
+    if not ext.is_cuda:
+        raise ValueError("jv_solve_cuda takes CUDA tensors; the plain "
+                         "version is ops.assignment.jv_solve_plain")
+    if ext.dim() != 3 or ext.shape[1] != ext.shape[2]:
+        raise ValueError(f"ext must be [B, S, S], got {tuple(ext.shape)}")
+    bsz, s, _ = ext.shape
+    if bsz < 1 or s < 1:
+        raise ValueError(f"empty problem {tuple(ext.shape)}")
+    dev = ext.device
+    _check(ext, "ext", torch.float32, (bsz, s, s), dev)
+    _check(p0, "p0", torch.int32, (bsz, s), dev)
+    _check(live_order, "live_order", torch.int32, (bsz, s), dev)
+    _check(n_live, "n_live", torch.int32, (bsz,), dev)
+    lib = _jv_lib()
+    smem = lib.jv_lap_smem_bytes(s)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"S={s} needs {smem} B of shared memory "
+                         f"(limit {_SMEM_LIMIT})")
+    owner = torch.empty((bsz, s), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.jv_lap_launch(
+            ext.data_ptr(), p0.data_ptr(), live_order.data_ptr(),
+            n_live.data_ptr(), owner.data_ptr(), bsz, s, int(max_iters),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"jv_lap launch failed: CUDA error {rc}")
+    jv_solve_cuda.launches += 1
+    return owner
+
+
+jv_solve_cuda.launches = 0

@@ -100,14 +100,16 @@ def gating_distance(mean: torch.Tensor, cov: torch.Tensor,
 def apply_affine(mean: torch.Tensor, cov: torch.Tensor,
                  affine_2x3: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Camera-motion compensation with a [2, 3] affine: R applied to all
-    four (x, y) state pairs plus t on the position; the covariance takes
-    the similarity scale s^2 = |det R| per block (the x/y-mixing rotation
-    terms are dropped — the block form cannot hold them)."""
-    r = affine_2x3[:, :2]
-    t = affine_2x3[:, 2]
-    s = torch.sqrt(torch.abs(r[0, 0] * r[1, 1] - r[0, 1] * r[1, 0]))
-    rt = r.T
+    """Camera-motion compensation with a [..., 2, 3] affine (one per
+    leading index of mean [..., N, 8] / cov [..., N, 4, 3]): R applied to
+    all four (x, y) state pairs plus t on the position; the covariance
+    takes the similarity scale s^2 = |det R| per block (the x/y-mixing
+    rotation terms are dropped — the block form cannot hold them)."""
+    r = affine_2x3[..., :, :2]
+    t = affine_2x3[..., None, :, 2]
+    s = torch.sqrt(torch.abs(r[..., 0, 0] * r[..., 1, 1]
+                             - r[..., 0, 1] * r[..., 1, 0]))
+    rt = r.transpose(-1, -2)
     new_mean = torch.cat([mean[..., 0:2] @ rt + t, mean[..., 2:4] @ rt,
                           mean[..., 4:6] @ rt, mean[..., 6:8] @ rt], dim=-1)
-    return new_mean, cov * (s * s)
+    return new_mean, cov * (s * s)[..., None, None, None]

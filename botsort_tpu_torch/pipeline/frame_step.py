@@ -1,14 +1,18 @@
 """The per-frame step (port of botsort_tpu/pipeline/frame_step.py).
 
-  uint8 frame -> cv2-exact bilinear resize -> YOLOX -> NMS -> rescale ->
+  uint8 frames -> cv2-exact bilinear resize -> YOLOX -> NMS -> rescale ->
   box hierarchy -> ReID crops -> body and face encoders -> association
-  cascade (kernel K1 on the card) -> track store update
+  cascade (kernel K1 at one stream, K2 at B on the card) -> track store
+  update
 
-All per-frame shapes are fixed (padded slots + masks), as in the JAX
-package. The ReID encoders run at a static bucket: the first ``bucket``
-body slots are embedded and the rest are zeros, which is exact whenever
-the bucket covers the live detections (the host facade guarantees that
-by re-running a frame that overflows its bucket).
+``frame_step_batched`` steps B independent streams at once, every stage
+batched over the stream axis; ``frame_step`` and the single-frame stage
+functions are its one-stream case. All per-frame shapes are fixed (padded
+slots + masks), as in the JAX package. The ReID encoders run at a static
+bucket: the first ``bucket`` body slots of every stream are embedded and
+the rest are zeros, which is exact whenever the bucket covers each
+stream's live detections (the host facades guarantee that by re-running a
+step that overflows its bucket).
 """
 
 from __future__ import annotations
@@ -24,8 +28,14 @@ from botsort_tpu_torch.models.facereid import FaceReID
 from botsort_tpu_torch.models.fastreid import FastReIDSBS, preprocess
 from botsort_tpu_torch.models.yolox import YOLOX
 from botsort_tpu_torch.ops import hierarchy, nms
-from botsort_tpu_torch.ops.crop import crop_and_resize
-from botsort_tpu_torch.track.cascade import TrackOutputs, tracker_update
+from botsort_tpu_torch.ops.crop import (  # noqa: F401 (one-frame form)
+    crop_and_resize,
+    crop_and_resize_batched,
+)
+from botsort_tpu_torch.track.cascade import (
+    TrackOutputs,
+    tracker_update_batched,
+)
 from botsort_tpu_torch.track.state import TrackStore
 
 BODIES, HEADS, HANDS, FACES = 0, 1, 2, 3
@@ -75,43 +85,50 @@ def reid_bucket_set(tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
 
 
 def _pad_slots(arr: torch.Tensor, dp: int, fill=0) -> torch.Tensor:
-    """Pad (or slice) dim 0 to dp slots."""
-    k = arr.shape[0]
+    """Pad (or slice) dim 1, the slot axis of [B, K, ...], to dp slots."""
+    k = arr.shape[1]
     if k >= dp:
-        return arr[:dp]
-    pad = torch.full((dp - k,) + tuple(arr.shape[1:]), fill,
+        return arr[:, :dp]
+    pad = torch.full((arr.shape[0], dp - k) + tuple(arr.shape[2:]), fill,
                      dtype=arr.dtype, device=arr.device)
-    return torch.cat([arr, pad])
+    return torch.cat([arr, pad], dim=1)
 
 
 def _encode_bucket(encode: Callable[[torch.Tensor], torch.Tensor],
                    tlbr: torch.Tensor, bucket: int,
                    out_dim: int) -> torch.Tensor:
-    """Embed the first ``bucket`` of tlbr [Dp, 4]; later slots are zeros
-    (every consumer of a det feature masks by det validity)."""
-    dp = tlbr.shape[0]
+    """Embed the first ``bucket`` slots of every frame's tlbr [B, Dp, 4]
+    (one encoder batch of B x bucket crops); later slots are zeros (every
+    consumer of a det feature masks by det validity)."""
+    bsz, dp = tlbr.shape[0], tlbr.shape[1]
     b = min(bucket, dp)
     if b <= 0:
-        return torch.zeros((dp, out_dim), dtype=torch.float32,
+        return torch.zeros((bsz, dp, out_dim), dtype=torch.float32,
                            device=tlbr.device)
-    return F.pad(encode(tlbr[:b]).float(), (0, 0, 0, dp - b))
+    return F.pad(encode(tlbr[:, :b]).float(), (0, 0, 0, dp - b))
 
 
 def _encode_faces(encode, face_tlbr: torch.Tensor, has_face: torch.Tensor,
                   bucket: int, out_dim: int) -> torch.Tensor:
-    """Face embeddings with real-face compaction: real faces sort to a
-    prefix so the bucket tracks the face count; every faceless body gets
-    encoder(zero crop), read from the first zero-crop slot in the bucket
-    (exact iff bucket >= faces + 1 when a faceless live body exists)."""
-    dp = face_tlbr.shape[0]
-    order = torch.argsort((~has_face).to(torch.int32), stable=True)
-    inv = torch.argsort(order)
-    n_face = has_face.sum()
-    feats = _encode_bucket(encode, face_tlbr[order], bucket, out_dim)
+    """Face embeddings with real-face compaction, per frame of [B, Dp]:
+    real faces sort to a prefix so the bucket tracks the face count (one
+    bucket for all frames, sized by the largest face count); every
+    faceless body gets encoder(zero crop), read from its frame's first
+    zero-crop slot in the bucket (exact iff bucket >= faces + 1 when a
+    faceless live body exists)."""
+    dp = face_tlbr.shape[1]
+    order = torch.argsort((~has_face).to(torch.int32), dim=1, stable=True)
+    inv = torch.argsort(order, dim=1)
+    n_face = has_face.sum(dim=1)                                  # [B]
+    sorted_tlbr = torch.gather(face_tlbr, 1,
+                               order[..., None].expand(-1, -1, 4))
+    feats = _encode_bucket(encode, sorted_tlbr, bucket, out_dim)
     zcap = max(min(bucket, dp) - 1, 0)
-    zero_feat = feats[torch.clamp(n_face, max=zcap)]
-    live = (torch.arange(dp, device=feats.device) < n_face)[:, None]
-    return torch.where(live, feats, zero_feat[None, :])[inv]
+    frame = torch.arange(feats.shape[0], device=feats.device)
+    zero_feat = feats[frame, torch.clamp(n_face, max=zcap)]       # [B, out]
+    live = torch.arange(dp, device=feats.device) < n_face[:, None]
+    feats = torch.where(live[..., None], feats, zero_feat[:, None, :])
+    return torch.gather(feats, 1, inv[..., None].expand(-1, -1, out_dim))
 
 
 def _rescale_to_source(boxes: torch.Tensor, in_hw, src_hw) -> torch.Tensor:
@@ -126,14 +143,27 @@ def _rescale_to_source(boxes: torch.Tensor, in_hw, src_hw) -> torch.Tensor:
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
-def postprocess_detections(cand_boxes: torch.Tensor,
-                           cand_scores: torch.Tensor, src_hw,
-                           tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
-                           pipe_cfg: PipelineConfig):
-    """Candidates [A, 4] / [A, C] in detector-input pixels -> (Detections,
-    det_boxes [C, K, 4] in source pixels, det_valid [C, K]): class-aware
-    NMS, the truncating rescale and the detector's score filter."""
-    dets = nms.multiclass_nms_dense(
+def _first(result):
+    """Frame 0 of a batched tuple of tensors, in the same tuple type."""
+    return type(result)(*(x[0] for x in result))
+
+
+def stream_result(result: FrameResult, s: int) -> FrameResult:
+    """Stream s of a batched FrameResult (tensors or numpy arrays)."""
+    tracks = TrackOutputs(*(x[s] for x in result.tracks))
+    return FrameResult(*(x[s] for x in result[:-1]), tracks)
+
+
+def postprocess_detections_batched(cand_boxes: torch.Tensor,
+                                   cand_scores: torch.Tensor, src_hw,
+                                   tracker_cfg: TrackerConfig,
+                                   nms_cfg: NMSConfig,
+                                   pipe_cfg: PipelineConfig):
+    """Candidates [B, A, 4] / [B, A, C] in detector-input pixels ->
+    (Detections [B, ...], det_boxes [B, C, K, 4] in source pixels,
+    det_valid [B, C, K]): class-aware NMS over all frames and classes at
+    once, the truncating rescale and the detector's score filter."""
+    dets = nms.multiclass_nms_dense_batched(
         cand_boxes, cand_scores,
         iou_threshold=nms_cfg.iou_threshold,
         score_threshold=nms_cfg.score_threshold,
@@ -145,18 +175,86 @@ def postprocess_detections(cand_boxes: torch.Tensor,
     return dets, det_boxes, det_valid
 
 
+def postprocess_detections(cand_boxes: torch.Tensor,
+                           cand_scores: torch.Tensor, src_hw,
+                           tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
+                           pipe_cfg: PipelineConfig):
+    """One frame: candidates [A, 4] / [A, C] -> (Detections, det_boxes
+    [C, K, 4], det_valid [C, K])."""
+    dets, det_boxes, det_valid = postprocess_detections_batched(
+        cand_boxes[None], cand_scores[None], src_hw, tracker_cfg, nms_cfg,
+        pipe_cfg)
+    return _first(dets), det_boxes[0], det_valid[0]
+
+
+def attach_hierarchy_batched(det_boxes: torch.Tensor,
+                             det_valid: torch.Tensor):
+    """(face_for_head, head_for_body, hand1_for_body, hand2_for_body),
+    each [B, K], for det_boxes [B, C, K, 4]: faces -> heads, heads ->
+    bodies, hands -> bodies (two per body). The 3B problems run as one
+    lockstep batch."""
+    problems = []
+    for s in range(det_boxes.shape[0]):
+        boxes, valid = det_boxes[s], det_valid[s]
+        problems += [
+            (boxes[HEADS], valid[HEADS], boxes[FACES], valid[FACES], 1),
+            (boxes[BODIES], valid[BODIES], boxes[HEADS], valid[HEADS], 1),
+            (boxes[BODIES], valid[BODIES], boxes[HANDS], valid[HANDS], 2),
+        ]
+    res = hierarchy.greedy_assign_batch(problems)
+    return tuple(torch.stack(picks) for picks in (
+        [r[0] for r in res[0::3]], [r[0] for r in res[1::3]],
+        [r[0] for r in res[2::3]], [r[1] for r in res[2::3]]))
+
+
 def attach_hierarchy(det_boxes: torch.Tensor, det_valid: torch.Tensor):
-    """(face_for_head, head_for_body, hand1_for_body, hand2_for_body):
-    faces -> heads, heads -> bodies, hands -> bodies (two per body)."""
-    results = hierarchy.greedy_assign_batch([
-        (det_boxes[HEADS], det_valid[HEADS],
-         det_boxes[FACES], det_valid[FACES], 1),
-        (det_boxes[BODIES], det_valid[BODIES],
-         det_boxes[HEADS], det_valid[HEADS], 1),
-        (det_boxes[BODIES], det_valid[BODIES],
-         det_boxes[HANDS], det_valid[HANDS], 2),
-    ])
-    return results[0][0], results[1][0], results[2][0], results[2][1]
+    """One frame's (face_for_head, head_for_body, hand1_for_body,
+    hand2_for_body) for det_boxes [C, K, 4]."""
+    return tuple(x[0] for x in attach_hierarchy_batched(det_boxes[None],
+                                                        det_valid[None]))
+
+
+def embed_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
+                  det_boxes: torch.Tensor, face_for_head: torch.Tensor,
+                  head_for_body: torch.Tensor, tracker_cfg: TrackerConfig,
+                  nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
+                  reid_bucket: int, face_bucket: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(body_feats [B, D, Db], face_feats [B, D, Df]) for the D tracker
+    body slots of B frames: body crops through FastReID, and per body its
+    head's face crop (an all-zero crop when it has none) through the face
+    encoder. Each encoder runs once, on the crops of all B frames."""
+    d = _det_width(tracker_cfg, nms_cfg)
+    r = pipe_cfg.max_reid_batch
+    dp = -(-d // r) * r
+    bsz = frames_bgr.shape[0]
+
+    def encoded(encoder, prep, hw):
+        def run(tlbr):                                            # [B, k, 4]
+            crops = crop_and_resize_batched(frames_bgr, tlbr, hw)
+            feats = encoder(prep(crops.flatten(0, 1)))
+            return feats.reshape(bsz, tlbr.shape[1], -1)
+        return run
+
+    body_feats = _encode_bucket(
+        encoded(bundle.body_encoder, preprocess, pipe_cfg.body_reid_input_hw),
+        _pad_slots(det_boxes[:, BODIES], dp), reid_bucket,
+        tracker_cfg.body_feature_dim)[:, :d]
+
+    hb = _pad_slots(head_for_body, dp, fill=-1).long()
+    fb = torch.where(hb >= 0,
+                     torch.gather(face_for_head.long(), 1, hb.clamp(min=0)),
+                     -1)
+    has_face = fb >= 0
+    faces = torch.gather(det_boxes[:, FACES], 1,
+                         fb.clamp(min=0)[..., None].expand(-1, -1, 4))
+    face_tlbr = torch.where(has_face[..., None], faces, 0.0)
+    face_feats = _encode_faces(
+        encoded(bundle.face_encoder, lambda x: x,
+                pipe_cfg.face_reid_input_hw),
+        face_tlbr, has_face, face_bucket,
+        tracker_cfg.face_feature_dim)[:, :d]
+    return body_feats, face_feats
 
 
 def embed(bundle: ModelBundle, frame_bgr: torch.Tensor,
@@ -164,77 +262,63 @@ def embed(bundle: ModelBundle, frame_bgr: torch.Tensor,
           head_for_body: torch.Tensor, tracker_cfg: TrackerConfig,
           nms_cfg: NMSConfig, pipe_cfg: PipelineConfig, reid_bucket: int,
           face_bucket: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(body_feats [D, Db], face_feats [D, Df]) for the D tracker body
-    slots: body crops through FastReID, and per body its head's face crop
-    (an all-zero crop when it has none) through the face encoder."""
-    d = _det_width(tracker_cfg, nms_cfg)
-    r = pipe_cfg.max_reid_batch
-    dp = -(-d // r) * r
-
-    def encode_body(tlbr):
-        crops = crop_and_resize(frame_bgr, tlbr, pipe_cfg.body_reid_input_hw)
-        return bundle.body_encoder(preprocess(crops))
-
-    body_feats = _encode_bucket(
-        encode_body, _pad_slots(det_boxes[BODIES], dp), reid_bucket,
-        tracker_cfg.body_feature_dim)[:d]
-
-    hb = _pad_slots(head_for_body, dp, fill=-1).long()
-    fb = torch.where(hb >= 0, face_for_head.long()[hb.clamp(min=0)], -1)
-    has_face = fb >= 0
-    face_tlbr = torch.where(has_face[:, None],
-                            det_boxes[FACES][fb.clamp(min=0)], 0.0)
-
-    def encode_face(tlbr):
-        crops = crop_and_resize(frame_bgr, tlbr, pipe_cfg.face_reid_input_hw)
-        return bundle.face_encoder(crops)
-
-    face_feats = _encode_faces(encode_face, face_tlbr, has_face,
-                               face_bucket,
-                               tracker_cfg.face_feature_dim)[:d]
-    return body_feats, face_feats
+    """One frame's (body_feats [D, Db], face_feats [D, Df])."""
+    body, face = embed_batched(
+        bundle, frame_bgr[None], det_boxes[None], face_for_head[None],
+        head_for_body[None], tracker_cfg, nms_cfg, pipe_cfg, reid_bucket,
+        face_bucket)
+    return body[0], face[0]
 
 
 @torch.no_grad()
-def frame_step(bundle: ModelBundle, store: TrackStore,
-               frame_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
-               nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
-               gmc_affine: Optional[torch.Tensor] = None,
-               reid_bucket: Optional[int] = None,
-               face_bucket: Optional[int] = None
-               ) -> Tuple[TrackStore, FrameResult]:
-    """frame_bgr: [H, W, 3] uint8 on the bundle's device. Returns the new
-    store and the frame's readback; ``store`` itself is not modified.
+def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
+                       frames_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
+                       nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
+                       gmc_affines: Optional[torch.Tensor] = None,
+                       reid_bucket: Optional[int] = None,
+                       face_bucket: Optional[int] = None
+                       ) -> Tuple[TrackStore, FrameResult]:
+    """B independent streams through one step: frames_bgr [B, H, W, 3]
+    uint8 on the bundle's device, one frame per stream; stores carries a
+    leading [B] on every field (track.state.empty_stores). Returns the new
+    stores and a FrameResult whose every field has a leading [B];
+    ``stores`` itself is not modified.
 
-    reid_bucket: body crops embedded (None = the full det width, always
-    exact). face_bucket: face crops embedded (defaults to reid_bucket).
-    ``PipelineConfig.crop_int8`` and ``compute_dtype`` are TPU lowerings
-    and are not read: crops interpolate in float32 and the networks run
-    in the bundle's dtype.
+    Perception runs batched over the streams (the detector at batch B,
+    NMS over B x C problems, the hierarchy as 3B lockstep problems, each
+    encoder once on the crops of all frames), then the B cascades run as
+    one ``tracker_update_batched`` (one launch of kernel K2 on the card).
+    reid_bucket: body crops embedded per stream (None = the full det
+    width, always exact); face_bucket: face crops per stream (defaults to
+    reid_bucket). gmc_affines: optional [B, 2, 3] per-stream camera
+    motion. ``PipelineConfig.crop_int8`` and ``compute_dtype`` are TPU
+    lowerings and are not read: crops interpolate in float32 and the
+    networks run in the bundle's dtype.
     """
-    src_hw = (frame_bgr.shape[0], frame_bgr.shape[1])
+    bsz = frames_bgr.shape[0]
+    src_hw = (frames_bgr.shape[1], frames_bgr.shape[2])
     d = _det_width(tracker_cfg, nms_cfg)
     if reid_bucket is None:
         reid_bucket = d
     if face_bucket is None:
         face_bucket = reid_bucket
 
-    full = torch.tensor([[0.0, 0.0, float(src_hw[1]), float(src_hw[0])]],
-                        device=frame_bgr.device)
-    det_in = crop_and_resize(frame_bgr, full, pipe_cfg.detector_input_hw)
+    full = torch.tensor([0.0, 0.0, float(src_hw[1]), float(src_hw[0])],
+                        device=frames_bgr.device).expand(bsz, 1, 4)
+    det_in = crop_and_resize_batched(frames_bgr, full,
+                                     pipe_cfg.detector_input_hw)[:, 0]
     cand_boxes, cand_scores = bundle.detector(det_in)
-    dets, det_boxes, det_valid = postprocess_detections(
-        cand_boxes[0], cand_scores[0], src_hw, tracker_cfg, nms_cfg,
-        pipe_cfg)
+    dets, det_boxes, det_valid = postprocess_detections_batched(
+        cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg)
     face_for_head, head_for_body, hand1_for_body, hand2_for_body = \
-        attach_hierarchy(det_boxes, det_valid)
-    body_feats, face_feats = embed(
-        bundle, frame_bgr, det_boxes, face_for_head, head_for_body,
+        attach_hierarchy_batched(det_boxes, det_valid)
+    body_feats, face_feats = embed_batched(
+        bundle, frames_bgr, det_boxes, face_for_head, head_for_body,
         tracker_cfg, nms_cfg, pipe_cfg, reid_bucket, face_bucket)
-    store, tracks = tracker_update(
-        store, det_boxes[BODIES][:d], dets.scores[BODIES][:d],
-        det_valid[BODIES][:d], body_feats, face_feats, tracker_cfg,
-        gmc_affine)
+    stores, tracks = tracker_update_batched(
+        stores, det_boxes[:, BODIES, :d], dets.scores[:, BODIES, :d],
+        det_valid[:, BODIES, :d], body_feats, face_feats, tracker_cfg,
+        gmc_affines)
     result = FrameResult(
         det_boxes=det_boxes,
         det_scores=dets.scores,
@@ -246,4 +330,21 @@ def frame_step(bundle: ModelBundle, store: TrackStore,
         nms_clipped=dets.clipped,
         tracks=tracks,
     )
-    return store, result
+    return stores, result
+
+
+def frame_step(bundle: ModelBundle, store: TrackStore,
+               frame_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
+               nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
+               gmc_affine: Optional[torch.Tensor] = None,
+               reid_bucket: Optional[int] = None,
+               face_bucket: Optional[int] = None
+               ) -> Tuple[TrackStore, FrameResult]:
+    """One stream's step: frame_bgr [H, W, 3] uint8 on the bundle's
+    device, a store without the stream dimension, gmc_affine [2, 3] or
+    None. ``frame_step_batched`` at B = 1."""
+    stores, result = frame_step_batched(
+        bundle, store.map(lambda x: x[None]), frame_bgr[None], tracker_cfg,
+        nms_cfg, pipe_cfg, None if gmc_affine is None else gmc_affine[None],
+        reid_bucket, face_bucket)
+    return stores.map(lambda x: x[0]), stream_result(result, 0)

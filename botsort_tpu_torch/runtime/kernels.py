@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/botsort_tpu_torch/`` at first use and loaded with ``ctypes`` —
 no PyTorch headers, so a build takes seconds. The library's file name
-carries a hash of the source and flags, so an edited source rebuilds.
+carries a hash of the source, every shared header in ``csrc/`` and the
+flags, so an edited source or header rebuilds. ``load_all`` starts one
+``nvcc`` per source at once.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into FMAs: the
 assignment kernel must reproduce its plain PyTorch version's float32
@@ -19,8 +21,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "botsort_tpu_torch"
@@ -50,6 +53,16 @@ def _nvcc() -> str:
         "CUDA kernels are built from csrc/ at first use")
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library lives: the file name carries a
+    hash of the source, every shared header and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
     if no library for the current source exists."""
@@ -57,9 +70,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
+    so = library_path(name)
     if not so.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -77,3 +88,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
     return lib
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """``load`` every named kernel, the builds running concurrently."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        libs = list(pool.map(load, names))
+    return dict(zip(names, libs))

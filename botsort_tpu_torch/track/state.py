@@ -6,12 +6,16 @@ also where removed tracks go), TRACKED = 1 (``is_activated`` separates
 confirmed from unconfirmed), LOST = 2. The optional feature-history ring
 (``TrackerConfig.feature_history > 0``) keeps the last H detection
 features of every track.
+
+B streams' stores are one ``TrackStore`` whose every field carries a
+leading [B] (``empty_stores``); ``store.map(lambda x: x[b])`` is stream
+b's view.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -47,6 +51,14 @@ class TrackStore:
     def replace(self, **changes) -> "TrackStore":
         return dataclasses.replace(self, **changes)
 
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]
+            ) -> "TrackStore":
+        """The store with fn applied to every field that is present."""
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None})
+
 
 def empty_store(cfg: TrackerConfig, device=None) -> TrackStore:
     n = cfg.max_tracks
@@ -76,3 +88,9 @@ def empty_store(cfg: TrackerConfig, device=None) -> TrackStore:
         face_hist=torch.zeros((n, h, df), **f32) if h > 0 else None,
         hist_pos=torch.zeros((n,), **i32) if h > 0 else None,
     )
+
+
+def empty_stores(cfg: TrackerConfig, b: int, device=None) -> TrackStore:
+    """B empty stores as one, every field with a leading [B]."""
+    return empty_store(cfg, device).map(
+        lambda x: x.unsqueeze(0).repeat((b,) + (1,) * x.dim()))

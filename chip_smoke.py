@@ -1,24 +1,37 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (botsort_tpu_torch) on one GPU.
 
-Drives the port's main path on the card and fails loudly if any phase
-fails:
+Drives the port's paths on the card and fails loudly if any phase fails:
 
   1. device   a CUDA card is required (no CPU fallback); prints its name
               and power limit; TF32 is switched off.
-  2. build    builds every CUDA kernel of the path from csrc/.
+  2. build    builds every CUDA kernel from csrc/, one nvcc per source,
+              all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
               degenerate and tie-heavy instances.
-  4. small    the MINI networks in float32 on the card against the same
+  4. K3       the square JV kernel against its plain version: random,
+              odd-shaped, all-parked and tie-heavy problems, S up to 114.
+  5. K2       eight 8-stream batches at N=64, D=50 (one stream without
+              live rows), each one launch: equal to the plain version
+              and to eight one-stream K1 launches.
+  6. oracle   K1's and K2's matchings equal three chained solve_masked
+              calls (K3) per stream: the on-card oracle.
+  7. small    the MINI networks in float32 on the card against the same
               networks on the CPU (the CPU path is the one held to the
               JAX package by the tests).
-  5. main     BoTSORTPipeline.update at full model width (YOLOX-X,
+  8. main     BoTSORTPipeline.update at full model width (YOLOX-X,
               FastReID SBS-S50, the face encoder; bfloat16, seeded random
               weights) over 8 seeded 1080p frames; K1 must launch on every
               frame; the last frame's cascade re-run with the plain solver
               on the card must give the same tracks.
-  6. timings  frame time and K1 against its plain version.
+  9. multi    BatchedBoTSORTPipeline at 8 streams, full width, over 8
+              steps of 8 seeded 1080p frames at the moderate-16 point; K2
+              must launch once per step (and per overflow re-run); the
+              last step's cascades re-run with the plain solver must give
+              the same tracks on every stream.
+ 10. timings  frame and step times, stage tables, and each kernel against
+              its plain version at the main paths' shapes.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}. Run from the repository root:
@@ -40,8 +53,12 @@ import numpy as np
 
 LIMITS = (0.8, 0.5, 0.7)
 N_TRACKS, N_DETS = 64, 50
-K1_SOURCE = "botsort_tpu_torch/csrc/cascade_lap.cu"
+STREAMS = 8
+CASCADE_SOURCE = "botsort_tpu_torch/csrc/cascade_lap.cu"
+JV_SOURCE = "botsort_tpu_torch/csrc/jv_lap.cu"
 K1_REPLACES = "botsort_tpu/ops/assignment_pallas.py:350"
+K2_REPLACES = "botsort_tpu/ops/assignment_pallas.py:655"
+K3_REPLACES = "botsort_tpu/ops/assignment_pallas.py:48"
 
 
 def log(msg: str) -> None:
@@ -75,11 +92,34 @@ def cascade_instance(rng, n, d, empty_rows=False, empty_cols=False,
     return (*costs, pool, tracked, unconf, high, low)
 
 
+def index_err(torch, got, want, what) -> int:
+    """Max index difference of two int tensors; raises if not 0."""
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"{what}:\nkernel {got.cpu().tolist()}\n"
+                             f"plain  {want.cpu().tolist()}")
+    return err
+
+
+def event_ms(torch, fn, reps):
+    """CUDA-event time of one call, averaged over reps after a warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def phase_k1(torch, assignment, assignment_cuda, dev):
     """Kernel vs plain version on the card; returns the K1 inputs at the
     main path's shape for the timing phase and the max index error."""
     rng = np.random.default_rng(2024)
-    cases = [(N_TRACKS, N_DETS, {})] * 200
+    cases = [(N_TRACKS, N_DETS, {})] * 100
     cases += [(n, d, {}) for n, d in ((12, 9), (5, 14), (16, 16), (3, 2))
               for _ in range(4)]
     cases += [(10, 8, dict(empty_rows=True)), (10, 8, dict(empty_cols=True)),
@@ -88,7 +128,6 @@ def phase_k1(torch, assignment, assignment_cuda, dev):
               ((N_TRACKS, N_DETS), (12, 9), (16, 16)) for _ in range(8)]
     timing_inputs = []
     max_err = 0
-    t0 = time.perf_counter()
     for k, (n, d, kw) in enumerate(cases):
         inst = [torch.from_numpy(a).to(dev)
                 for a in cascade_instance(rng, n, d, **kw)]
@@ -98,18 +137,128 @@ def phase_k1(torch, assignment, assignment_cuda, dev):
         want = assignment.cascade_solve_plain(*args)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
-            err = int((g.long() - w.long()).abs().max())
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(
-                    f"K1 != plain on instance {k} (N={n}, D={d}, {kw}):\n"
-                    f"kernel {g.cpu().tolist()}\nplain  {w.cpu().tolist()}")
+            max_err = max(max_err, index_err(
+                torch, g, w, f"K1 != plain on instance {k} (N={n}, D={d}, "
+                f"{kw})"))
         if (n, d) == (N_TRACKS, N_DETS) and not kw and \
                 len(timing_inputs) < 8:
             timing_inputs.append(args)
-    log(f"K1: {len(cases)} instances equal to the plain version "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"K1: {len(cases)} instances equal to the plain version")
     return timing_inputs, max_err
+
+
+def phase_k3(torch, assignment, assignment_cuda, dev):
+    """K3 vs jv_solve_plain on solve_masked's square problems (S = N + D)
+    and on dense problems; returns the S = 114 inputs and the max index
+    error."""
+    rng = np.random.default_rng(33)
+    problems = []
+    for n, d, kind in ([(N_TRACKS, N_DETS, "random")] * 12
+                       + [(N_TRACKS, N_DETS, "ties")] * 4
+                       + [(n, d, "random") for n, d in
+                          ((12, 9), (5, 14), (3, 2), (1, 1))]
+                       + [(10, 8, "parked")] * 2):
+        cost = rng.uniform(0, 1.2, (n, d)).astype(np.float32)
+        if kind == "ties":
+            cost = (np.round(cost / 0.05) * 0.05).astype(np.float32)
+        rv = rng.uniform(0, 1, n) < (0.0 if kind == "parked" else 0.8)
+        cv = rng.uniform(0, 1, d) < 0.8
+        ext, p0, order, n_live, _, _ = assignment.masked_problem(
+            *[torch.from_numpy(a).to(dev) for a in (cost, rv, cv)], 0.8)
+        problems.append((ext[None], p0[None], order[None], n_live[None]))
+    for s, live in ((114, 114), (114, 57), (31, 0)):  # dense, tie-heavy
+        ext = (np.round(rng.uniform(0, 1, (1, s, s)) / 0.05) * 0.05)
+        idx = np.arange(s)
+        p0 = np.where(idx < live, -1, idx)[None].astype(np.int32)
+        order = np.where(idx < live, idx, s)[None].astype(np.int32)
+        problems.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            ext.astype(np.float32), p0, order,
+            np.array([live], np.int32))))
+    max_err = 0
+    timing_inputs = []
+    for k, args in enumerate(problems):
+        got = assignment_cuda.jv_solve_cuda(*args)
+        want = assignment.jv_solve_plain(*args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, index_err(
+            torch, got, want, f"K3 != plain on problem {k} "
+            f"(S={args[0].shape[1]})"))
+        if args[0].shape[1] == N_TRACKS + N_DETS and len(timing_inputs) < 8:
+            timing_inputs.append(args)
+    log(f"K3: {len(problems)} problems equal to the plain version")
+    return timing_inputs, max_err
+
+
+def phase_k2(torch, assignment, assignment_cuda, dev):
+    """Eight 8-stream batches, one launch each, against the plain version
+    and against one-stream K1 launches; returns the batches' raw
+    instances and prepared inputs, and the max index error."""
+    rng = np.random.default_rng(77)
+    batches, max_err = [], 0
+    cuda = assignment_cuda.cascade_solve_cuda
+    for k in range(8):
+        insts = [cascade_instance(rng, N_TRACKS, N_DETS,
+                                  empty_rows=(s == k % STREAMS))
+                 for s in range(STREAMS)]
+        tensors = [torch.from_numpy(np.stack(x)).to(dev)
+                   for x in zip(*insts)]
+        costs, masks, big = assignment.prepare_cascade(*tensors, LIMITS)
+        before = cuda.batched_launches
+        got = cuda(costs, masks, big, LIMITS)
+        if cuda.batched_launches != before + 1:
+            raise AssertionError("an 8-stream solve was not one launch")
+        want = assignment.cascade_solve_plain(costs, masks, big, LIMITS)
+        singles = [cuda(costs[s:s + 1], masks[s:s + 1], big[s:s + 1],
+                        LIMITS) for s in range(STREAMS)]
+        torch.cuda.synchronize()
+        for i in range(2):
+            max_err = max(
+                max_err,
+                index_err(torch, got[i], want[i], f"K2 != plain, batch {k}"),
+                index_err(torch, got[i],
+                          torch.cat([s[i] for s in singles]),
+                          f"K2 != eight K1 launches, batch {k}"))
+        batches.append((tensors, (costs, masks, big, LIMITS), got))
+    log(f"K2: {len(batches)} batches of {STREAMS} streams, one launch "
+        "each, equal to the plain version and to one-stream K1 launches")
+    return batches, max_err
+
+
+def phase_oracle(torch, assignment, assignment_cuda, batches):
+    """K1's and K2's matchings against three chained solve_masked calls
+    (K3 on the card) per stream; returns K3's launch count on this path
+    and the max index error."""
+    jv = assignment_cuda.jv_solve_cuda
+    jv.launches = 0
+    max_err = 0
+    for k, (tensors, prepared, k2_out) in enumerate(batches):
+        for s in range(STREAMS):
+            d1, iou, d3, pool, tracked, unconf, high, low = (
+                t[s] for t in tensors)
+            res1 = assignment.solve_masked(d1, pool, high, LIMITS[0])
+            res2 = assignment.solve_masked(
+                iou, tracked & (res1.col_for_row < 0), low, LIMITS[1])
+            res3 = assignment.solve_masked(
+                d3, unconf, high & (res1.row_for_col < 0), LIMITS[2])
+            k1_out = assignment.solve_cascade_masked(
+                d1, iou, d3, pool, tracked, unconf, high, low, LIMITS)
+            for p, want in enumerate((res1, res2, res3)):
+                for name, i in (("col_for_row", 0), ("row_for_col", 1)):
+                    w = getattr(want, name)
+                    max_err = max(
+                        max_err,
+                        index_err(torch, k2_out[i][s, p], w,
+                                  f"K2 != K3 chain, batch {k} stream {s} "
+                                  f"pass {p + 1} {name}"),
+                        index_err(torch, getattr(k1_out[p], name), w,
+                                  f"K1 != K3 chain, batch {k} stream {s} "
+                                  f"pass {p + 1} {name}"))
+    launches = jv.launches
+    if launches != 3 * STREAMS * len(batches):
+        raise AssertionError(f"solve_masked launched K3 {launches} times")
+    log(f"oracle: K1 and K2 equal three chained K3 solves on "
+        f"{STREAMS * len(batches)} streams ({launches} K3 launches)")
+    return launches, max_err
 
 
 def phase_small(torch, assets, dev):
@@ -152,47 +301,81 @@ def phase_small(torch, assets, dev):
         "(rtol 1e-4; atol 1e-4, boxes 1e-2 px)")
 
 
-def phase_main(torch, assets, assignment, assignment_cuda, dev, card):
+class CascadeRecorder:
+    """Wraps frame_step's tracker_update_batched: keeps the last call's
+    inputs and outputs, to replay its cascade with the plain solver."""
+
+    def __init__(self, fs_mod):
+        self.real = fs_mod.tracker_update_batched
+        self.last = None
+
+    def __call__(self, stores, *args):
+        new_stores, out = self.real(stores, *args)
+        self.last = (stores, args, out)
+        return new_stores, out
+
+    def replay_plain(self, torch, assignment, assignment_cuda, cascade):
+        """The last call again with the plain solver on the card; fails
+        unless its outputs are equal and no kernel launched."""
+        cuda = assignment_cuda.cascade_solve_cuda
+        counts = (cuda.launches, cuda.batched_launches)
+
+        def plain_on_card(costs, masks, big, limits,
+                          max_iters=assignment.MAX_ITERS):
+            return assignment.cascade_solve_plain(costs, masks, big, limits,
+                                                  max_iters)
+
+        stores, args, out = self.last
+        with torch.no_grad(), mock.patch.object(
+                assignment_cuda, "cascade_solve_cuda", plain_on_card):
+            _, plain_out = cascade.tracker_update_batched(stores, *args)
+        if (cuda.launches, cuda.batched_launches) != counts:
+            raise AssertionError("the plain re-run launched a kernel")
+        for name, want, got in zip(plain_out._fields, plain_out, out):
+            if not torch.equal(want, got):
+                raise AssertionError(f"tracks.{name}: kernel path != "
+                                     "plain path")
+
+
+def check_finite(res, nms_cfg, streams=None):
+    lead = () if streams is None else (streams,)
+    for name in ("det_boxes", "det_scores"):
+        if not np.isfinite(getattr(res, name)).all():
+            raise AssertionError(f"non-finite {name}")
+    for name in ("tlbr", "score"):
+        if not np.isfinite(getattr(res.tracks, name)).all():
+            raise AssertionError(f"non-finite tracks.{name}")
+    if res.det_boxes.shape != lead + (4, nms_cfg.max_boxes_per_class, 4):
+        raise AssertionError(f"det_boxes {res.det_boxes.shape}")
+
+
+def loaded_cfg(TrackerConfig, **kw):
+    """The JAX bench's loaded operating point: thresholds at which random
+    weights fill every body slot."""
+    return TrackerConfig(det_score_threshold=0.2, track_high_thresh=0.15,
+                         track_low_thresh=0.05, new_track_thresh=0.2, **kw)
+
+
+def phase_main(torch, bundle, assignment, assignment_cuda, card):
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline.host import BoTSORTPipeline
     from botsort_tpu_torch.track import cascade
 
-    t0 = time.perf_counter()
-    bundle = assets.build_bundle(mini=False, seed=0, device=dev,
-                                 dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (bundle.detector, bundle.body_encoder,
-                                       bundle.face_encoder)
-                   for p in m.parameters())
-    log(f"main: bundle built, {n_params} parameters "
-        f"({time.perf_counter() - t0:.1f} s)")
-    # The loaded operating point: thresholds at which random weights fill
-    # the 50 body slots every frame.
-    tracker_cfg = TrackerConfig(det_score_threshold=0.2,
-                                track_high_thresh=0.15,
-                                track_low_thresh=0.05, new_track_thresh=0.2)
     nms_cfg = NMSConfig()
-    pipe_cfg = PipelineConfig()
-    pipeline = BoTSORTPipeline(bundle, tracker_cfg, nms_cfg, pipe_cfg)
+    pipeline = BoTSORTPipeline(bundle, loaded_cfg(TrackerConfig), nms_cfg,
+                               PipelineConfig())
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, (1080, 1920, 3), dtype=np.uint8)
               for _ in range(8)]
-
-    recorded = {}
-    real_update = fs_mod.tracker_update
-
-    def recording_update(store, *args):
-        new_store, out = real_update(store, *args)
-        recorded.update(store=store, args=args, out=out)
-        return new_store, out
-
+    recorder = CascadeRecorder(fs_mod)
+    cuda = assignment_cuda.cascade_solve_cuda
     frame_ms, launches_per_frame, n_tracks = [], [], []
-    assignment_cuda.cascade_solve_cuda.launches = 0
-    with mock.patch.object(fs_mod, "tracker_update", recording_update):
+    cuda.launches = cuda.batched_launches = 0
+    with mock.patch.object(fs_mod, "tracker_update_batched", recorder):
         for frame in frames:
-            before = assignment_cuda.cascade_solve_cuda.launches
+            before = cuda.launches
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -200,19 +383,13 @@ def phase_main(torch, assets, assignment, assignment_cuda, dev, card):
             end.record()
             torch.cuda.synchronize()
             frame_ms.append(start.elapsed_time(end))
-            launches_per_frame.append(
-                assignment_cuda.cascade_solve_cuda.launches - before)
+            launches_per_frame.append(cuda.launches - before)
             n_tracks.append(len(tracks))
-            res = pipeline.last_result
-            for name in ("det_boxes", "det_scores"):
-                if not np.isfinite(getattr(res, name)).all():
-                    raise AssertionError(f"non-finite {name}")
-            for name in ("tlbr", "score"):
-                if not np.isfinite(getattr(res.tracks, name)).all():
-                    raise AssertionError(f"non-finite tracks.{name}")
-            if res.det_boxes.shape != (4, nms_cfg.max_boxes_per_class, 4):
-                raise AssertionError(f"det_boxes {res.det_boxes.shape}")
-    main_launches = assignment_cuda.cascade_solve_cuda.launches
+            check_finite(pipeline.last_result, nms_cfg)
+    main_launches = cuda.launches
+    if cuda.batched_launches:
+        raise AssertionError("the one-stream path launched K2")
+    res = pipeline.last_result
     log(f"main: K1 launches per frame {launches_per_frame}, live tracks "
         f"per frame {n_tracks}, bodies in the last frame "
         f"{int(res.det_valid[0].sum())}")
@@ -220,58 +397,105 @@ def phase_main(torch, assets, assignment, assignment_cuda, dev, card):
         raise AssertionError("K1 did not launch on every frame")
     if max(n_tracks) < 1:
         raise AssertionError("no live tracks on any frame")
-
-    # The last frame's cascade again, with the plain solver on the card.
-    def plain_on_card(costs, masks, big, limits, max_iters):
-        return assignment.cascade_solve_plain(costs, masks, big, limits,
-                                              max_iters)
-
-    with torch.no_grad(), mock.patch.object(
-            assignment_cuda, "cascade_solve_cuda", plain_on_card):
-        _, plain_out = cascade.tracker_update(recorded["store"],
-                                              *recorded["args"])
-    if assignment_cuda.cascade_solve_cuda.launches != main_launches:
-        raise AssertionError("the plain re-run launched K1")
-    for name, want, got in zip(plain_out._fields, plain_out,
-                               recorded["out"]):
-        if not torch.equal(want, got):
-            raise AssertionError(f"tracks.{name}: K1 path != plain path")
+    recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log("main: last frame's tracks with the plain solver equal K1's")
 
-    steady = frame_ms[2:]
-    median = statistics.median(steady)
+    median = statistics.median(frame_ms[2:])
     log(f"timing: BoTSORTPipeline.update median {median:.3f} ms over "
         f"frames 3-8 (all: {[round(x, 3) for x in frame_ms]}), "
         f"{int(res.det_valid[0].sum())} bodies, {card}")
     log(f"timing: stages {json.dumps(pipeline.timers.report())}")
-    return main_launches, median
+    return main_launches
 
 
-def phase_k1_timing(torch, assignment, assignment_cuda, inputs, card):
-    """CUDA-event times at the main path's shape (N=64, D=50)."""
-    def event_ms(fn, reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        fn()
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+def phase_multi(torch, bundle, assignment, assignment_cuda, card):
+    """BatchedBoTSORTPipeline, 8 streams, 8 steps, moderate-16."""
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import frame_step as fs_mod
+    from botsort_tpu_torch.pipeline.host import BatchedBoTSORTPipeline
+    from botsort_tpu_torch.track import cascade
 
-    kernel, plain = [], []
-    for args in inputs:
-        kernel.append(event_ms(
-            lambda: assignment_cuda.cascade_solve_cuda(*args), 50))
-        plain.append(event_ms(
-            lambda: assignment.cascade_solve_plain(*args), 1))
-    k_ms, p_ms = statistics.median(kernel), statistics.median(plain)
-    log(f"timing: K1 cascade solve N={N_TRACKS} D={N_DETS}: kernel "
-        f"{k_ms:.4f} ms, plain PyTorch on the card {p_ms:.3f} ms "
-        f"(medians over {len(inputs)} instances), {card}")
-    return k_ms, p_ms
+    nms_cfg = NMSConfig()
+    # The JAX bench's 8-stream point: the loaded thresholds with 16 body
+    # slots per stream ("moderate-16").
+    pipeline = BatchedBoTSORTPipeline(
+        bundle, STREAMS, loaded_cfg(TrackerConfig, max_dets=16), nms_cfg,
+        PipelineConfig())
+    rng = np.random.default_rng(1)
+    steps = [rng.integers(0, 255, (STREAMS, 1080, 1920, 3), dtype=np.uint8)
+             for _ in range(8)]
+    recorder = CascadeRecorder(fs_mod)
+    cuda = assignment_cuda.cascade_solve_cuda
+    calls = []
+    real_step = pipeline._step
+    pipeline._step = lambda *a: calls.append(1) or real_step(*a)
+    step_ms, launches, runs, n_tracks = [], [], [], []
+    cuda.launches = cuda.batched_launches = 0
+    with mock.patch.object(fs_mod, "tracker_update_batched", recorder):
+        for frames in steps:
+            before, n_calls = cuda.batched_launches, len(calls)
+            t0 = time.perf_counter()
+            tracks = pipeline.update(frames)
+            torch.cuda.synchronize()
+            step_ms.append(1000.0 * (time.perf_counter() - t0))
+            launches.append(cuda.batched_launches - before)
+            runs.append(len(calls) - n_calls)
+            n_tracks.append([len(t) for t in tracks])
+            check_finite(pipeline.last_result, nms_cfg, STREAMS)
+    k2_launches = cuda.batched_launches
+    if cuda.launches:
+        raise AssertionError("the 8-stream path launched one-stream K1")
+    log(f"multi: K2 launches per step {launches}, step runs (1 + overflow "
+        f"re-runs) {runs}, live tracks per stream {n_tracks[-1]}")
+    if launches != runs or min(launches) < 1:
+        raise AssertionError("K2 did not launch exactly once per step run")
+    if max(max(n) for n in n_tracks) < 1:
+        raise AssertionError("no live tracks on any stream")
+    recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
+    log(f"multi: last step's tracks with the plain solver equal K2's on "
+        f"all {STREAMS} streams")
+
+    steady = step_ms[2:]
+    median = statistics.median(steady)
+    fps = STREAMS * len(steady) / (sum(steady) / 1000.0)
+    log(f"timing: BatchedBoTSORTPipeline.update ({STREAMS} streams) median "
+        f"{median:.3f} ms over steps 3-8 (all: "
+        f"{[round(x, 3) for x in step_ms]}), aggregate {fps:.2f} frames/s, "
+        f"{card}")
+    log(f"timing: batched stages {json.dumps(pipeline.timers.report())}")
+    return k2_launches
+
+
+def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
+                 k3_inputs, card):
+    """CUDA-event times of each kernel and its plain version on the card,
+    at the main paths' shapes; returns {kernel: (ms, plain ms)}."""
+    cuda = assignment_cuda.cascade_solve_cuda
+    jv = assignment_cuda.jv_solve_cuda
+    rows = {
+        "K1": ([lambda a=a: cuda(*a) for a in k1_inputs],
+               [lambda a=a: assignment.cascade_solve_plain(*a)
+                for a in k1_inputs]),
+        "K2": ([lambda a=b[1]: cuda(*a) for b in k2_batches[:3]],
+               [lambda a=b[1]: assignment.cascade_solve_plain(*a)
+                for b in k2_batches[:3]]),
+        "K3": ([lambda a=a: jv(*a) for a in k3_inputs],
+               [lambda a=a: assignment.jv_solve_plain(*a)
+                for a in k3_inputs]),
+    }
+    shapes = {"K1": f"N={N_TRACKS} D={N_DETS}",
+              "K2": f"{STREAMS} streams, N={N_TRACKS} D={N_DETS}",
+              "K3": f"S={N_TRACKS + N_DETS}"}
+    out = {}
+    for name, (kernel, plain) in rows.items():
+        k_ms = statistics.median(event_ms(torch, f, 50) for f in kernel)
+        p_ms = statistics.median(event_ms(torch, f, 1) for f in plain)
+        log(f"timing: {name} {shapes[name]}: kernel {k_ms:.4f} ms, plain "
+            f"PyTorch on the card {p_ms:.3f} ms (medians over "
+            f"{len(kernel)} inputs), {card}")
+        out[name] = (k_ms, p_ms)
+    return out
 
 
 def main() -> int:
@@ -294,32 +518,66 @@ def main() -> int:
         f"({torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda})")
 
+    seconds = {}
     t0 = time.perf_counter()
-    kernels.load("cascade_lap")
-    log(f"build: cascade_lap in {time.perf_counter() - t0:.2f} s")
-    for name, (secs, out) in kernels.BUILD_INFO.items():
+
+    def done(phase):
+        nonlocal t0
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    kernels.load_all(["cascade_lap", "jv_lap"])
+    for name, (secs, out) in sorted(kernels.BUILD_INFO.items()):
+        log(f"build: {name} in {secs:.2f} s")
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
-
-    timing_inputs, max_err = phase_k1(torch, assignment, assignment_cuda,
-                                      dev)
+    done("build")
+    k1_inputs, k1_err = phase_k1(torch, assignment, assignment_cuda, dev)
+    done("K1")
+    k3_inputs, k3_err = phase_k3(torch, assignment, assignment_cuda, dev)
+    done("K3")
+    k2_batches, k2_err = phase_k2(torch, assignment, assignment_cuda, dev)
+    done("K2")
+    k3_launches, oracle_err = phase_oracle(torch, assignment,
+                                           assignment_cuda, k2_batches)
+    done("oracle")
     phase_small(torch, assets, dev)
-    main_launches, frame_ms = phase_main(torch, assets, assignment,
-                                         assignment_cuda, dev, card)
-    k_ms, p_ms = phase_k1_timing(torch, assignment, assignment_cuda,
-                                 timing_inputs, card)
+    done("small")
+    bundle = assets.build_bundle(mini=False, seed=0, device=dev,
+                                 dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (bundle.detector, bundle.body_encoder,
+                                       bundle.face_encoder)
+                   for p in m.parameters())
+    log(f"bundle: full width, bfloat16, {n_params} parameters")
+    done("bundle")
+    k1_launches = phase_main(torch, bundle, assignment, assignment_cuda,
+                             card)
+    done("main")
+    k2_launches = phase_multi(torch, bundle, assignment, assignment_cuda,
+                              card)
+    done("multi")
+    times = phase_timing(torch, assignment, assignment_cuda, k1_inputs,
+                         k2_batches, k3_inputs, card)
+    done("timings")
+    log(f"phases (s): {json.dumps(seconds)}, total "
+        f"{sum(seconds.values()):.1f}")
     log(card)
-    print(json.dumps({"kernels": [{
-        "name": "cascade_lap",
-        "route": "cuda",
-        "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}), flush=True)
+
+    def entry(name, source, replaces, launches, err, key):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": times[key][0],
+                "plain_ms": times[key][1]}
+
+    print(json.dumps({"kernels": [
+        entry("cascade_lap", CASCADE_SOURCE, K1_REPLACES, k1_launches,
+              k1_err, "K1"),
+        entry("cascade_lap_batched", CASCADE_SOURCE, K2_REPLACES,
+              k2_launches, max(k2_err, oracle_err), "K2"),
+        entry("jv_lap", JV_SOURCE, K3_REPLACES, k3_launches, k3_err, "K3"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

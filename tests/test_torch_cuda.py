@@ -1,4 +1,4 @@
-"""Kernel K1 on the card, against its plain PyTorch version.
+"""Kernels K1, K2 and K3 on the card, against their plain PyTorch versions.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card
 and skips without one. The file imports neither JAX nor the JAX package,
@@ -23,7 +23,8 @@ LIMITS = (0.8, 0.5, 0.7)
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no "
+                    "CPU mode")
     return torch.device("cuda")
 
 
@@ -102,3 +103,87 @@ def test_wrapper_rejects_malformed_inputs(dev):
         with pytest.raises(ValueError):
             assignment_cuda.cascade_solve_cuda(*args, LIMITS)
     assert assignment_cuda.cascade_solve_cuda.launches == before
+
+
+def test_k2_batch_equals_plain_and_k1(dev):
+    """Eight streams at the main path's shape in one launch (K2): equal to
+    the plain version and to eight one-stream launches (K1). One stream
+    has no live rows."""
+    rng = np.random.default_rng(6)
+    insts = [_instance(rng, 64, 50) for _ in range(8)]
+    insts[3] = _instance(rng, 64, 50, p_row=0.0)
+    batched = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*insts)]
+    costs, masks, big = assignment.prepare_cascade(*batched, LIMITS)
+    before = (assignment_cuda.cascade_solve_cuda.launches,
+              assignment_cuda.cascade_solve_cuda.batched_launches)
+    got = assignment_cuda.cascade_solve_cuda(costs, masks, big, LIMITS)
+    assert assignment_cuda.cascade_solve_cuda.batched_launches == \
+        before[1] + 1
+    want = assignment.cascade_solve_plain(costs, masks, big, LIMITS)
+    singles = [assignment_cuda.cascade_solve_cuda(
+        costs[b:b + 1], masks[b:b + 1], big[b:b + 1], LIMITS)
+        for b in range(8)]
+    assert assignment_cuda.cascade_solve_cuda.launches == before[0] + 8
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(got[k], want[k])
+        assert torch.equal(got[k], torch.cat([s[k] for s in singles]))
+
+
+def _jv_problem(rng, s, n_live, quantum=None):
+    ext = rng.uniform(0, 1, (s, s)).astype(np.float32)
+    if quantum:
+        ext = (np.round(ext / quantum) * quantum).astype(np.float32)
+    p0 = np.where(np.arange(s) < n_live, -1, np.arange(s)).astype(np.int32)
+    live_order = np.where(np.arange(s) < n_live, np.arange(s),
+                          s).astype(np.int32)
+    return ext, p0, live_order, np.int32(n_live)
+
+
+@pytest.mark.parametrize("s,n_live,quantum", [
+    (24, 7, None), (24, 0, None), (114, 60, None), (114, 114, 0.05),
+    (5, 5, None), (1, 1, None), (1100, 40, None)])
+def test_k3_equals_plain(dev, s, n_live, quantum):
+    """Square solves, including S > 1024 (more columns than threads)."""
+    rng = np.random.default_rng(s + n_live)
+    probs = [_jv_problem(rng, s, n_live, quantum) for _ in range(3)]
+    args = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*probs)]
+    got = assignment_cuda.jv_solve_cuda(*args)
+    want = assignment.jv_solve_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert sorted(got[0].tolist()) == list(range(s))
+
+
+def test_solve_masked_launches_k3_for_cuda_tensors(dev):
+    rng = np.random.default_rng(8)
+    cost = rng.uniform(0, 1.2, (64, 50)).astype(np.float32)
+    rv, cv = rng.uniform(0, 1, 64) < 0.7, rng.uniform(0, 1, 50) < 0.7
+    before = assignment_cuda.jv_solve_cuda.launches
+    got = assignment.solve_masked(
+        *[torch.from_numpy(a).to(dev) for a in (cost, rv, cv)], 0.8)
+    assert assignment_cuda.jv_solve_cuda.launches == before + 1
+    want = assignment.solve_masked(
+        *[torch.from_numpy(a) for a in (cost, rv, cv)], 0.8)
+    assert torch.equal(got.col_for_row.cpu(), want.col_for_row)
+    assert torch.equal(got.row_for_col.cpu(), want.row_for_col)
+
+
+def test_jv_wrapper_rejects_malformed_inputs(dev):
+    rng = np.random.default_rng(9)
+    good = [torch.from_numpy(np.stack(x)).to(dev)
+            for x in zip(_jv_problem(rng, 12, 5))]
+    ext, p0, order, n_live = good
+    bad = [
+        (ext.double(), p0, order, n_live),
+        (ext[:, :, :-1], p0, order, n_live),
+        (ext, p0.long(), order, n_live),
+        (ext, p0, order[:, :-1], n_live),
+        (ext, p0, order, n_live.cpu()),
+        (ext.transpose(1, 2), p0, order, n_live),
+    ]
+    before = assignment_cuda.jv_solve_cuda.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            assignment_cuda.jv_solve_cuda(*args)
+    assert assignment_cuda.jv_solve_cuda.launches == before

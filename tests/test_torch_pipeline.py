@@ -322,8 +322,9 @@ def test_demo_cli_cpu_mini(tmp_path):
 
 
 def test_package_never_imports_jax_and_main_path_not_cv2():
-    """Neither JAX nor the JAX package: the port runs where only
-    PyTorch is installed."""
+    """Neither JAX nor the JAX package, on the single- and multi-stream
+    paths and in both CLIs: the port runs where only PyTorch is
+    installed."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "orbax", "botsort_tpu"):
@@ -336,7 +337,10 @@ def test_package_never_imports_jax_and_main_path_not_cv2():
         for name in main_path:
             importlib.import_module(name)
         assert "cv2" not in sys.modules, "cv2 on the main path"
+        from botsort_tpu_torch.pipeline import frame_step, host
+        assert frame_step.frame_step_batched and host.BatchedBoTSORTPipeline
         importlib.import_module("botsort_tpu_torch.cli.demo")
+        importlib.import_module("botsort_tpu_torch.cli.multitrack")
         importlib.import_module("botsort_tpu_torch.io.draw")
         loaded = [m for m in ("jax", "jaxlib", "flax", "botsort_tpu")
                   if sys.modules.get(m) is not None]
