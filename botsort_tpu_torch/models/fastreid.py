@@ -3,15 +3,29 @@ botsort_tpu/models/fastreid.py): ResNeSt-50 (split-attention bottlenecks,
 deep stem, average-pool downsampling, last stride 1), generalized-mean
 pooling and a BNNeck, giving an L2-normalised 2048-d embedding. Input:
 normalised RGB NHWC (``preprocess``). BN eps is 1e-5 throughout.
+
+``fused_stem=True`` runs the deep stem and stage 1 as one
+models/fastreid_fused.py::stem_stage1 call (kernel K4 on the card), as the
+JAX package's ``fused_stem=True`` runs its Pallas kernel, under the JAX
+model's own static dispatch: only when stage 1 has three blocks, the convs
+are bfloat16 and the input geometry passes ``geometry_ok``; otherwise the
+plain modules run. The state dict is the same in both modes.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from botsort_tpu_torch.models.common import BatchNorm, conv2d
+from botsort_tpu_torch.models.fastreid_fused import (
+    fold_stem_stage1,
+    geometry_ok,
+    stem_stage1,
+)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -93,8 +107,13 @@ class ResNeSt50(nn.Module):
     """ResNeSt trunk with last stride 1; the defaults are ResNeSt-50."""
 
     def __init__(self, stage_blocks=(3, 4, 6, 3),
-                 stage_widths=(64, 128, 256, 512), stem_width: int = 32):
+                 stage_widths=(64, 128, 256, 512), stem_width: int = 32,
+                 fused_stem: bool = False):
         super().__init__()
+        self.fused_stem = fused_stem
+        self.stage1_blocks = stage_blocks[0]
+        self._folded = None
+        self._folded_key = None
         sw = stem_width
         self._ConvBN_0 = _ConvBN(3, sw, 3, 2)
         self._ConvBN_1 = _ConvBN(sw, sw, 3, 1)
@@ -110,10 +129,37 @@ class ResNeSt50(nn.Module):
                 idx += 1
         self.n_blocks = idx
 
+    def uses_fused_stem(self, h: int, w: int) -> bool:
+        """The JAX model's dispatch: the fused stem and stage 1 run only for
+        three stage-1 blocks, bfloat16 convs and a supported geometry."""
+        return (self.fused_stem and self.stage1_blocks == 3
+                and self._ConvBN_0.Conv_0.weight.dtype == torch.bfloat16
+                and geometry_ok(h, w))
+
+    def folded_stem_stage1(self):
+        """fold_stem_stage1 of the current weights, refolded whenever one of
+        them was replaced or written in place."""
+        parts = [self._ConvBN_0, self._ConvBN_1, self._ConvBN_2,
+                 self.SplAtBottleneck_0, self.SplAtBottleneck_1,
+                 self.SplAtBottleneck_2]
+        key = tuple((t.data_ptr(), t._version) for m in parts
+                    for t in (*m.parameters(), *m.buffers()))
+        if key != self._folded_key:
+            self._folded = fold_stem_stage1(self)
+            self._folded_key = key
+        return self._folded
+
     def forward(self, x):
-        x = self._ConvBN_2(self._ConvBN_1(self._ConvBN_0(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
-        for i in range(self.n_blocks):
+        start = 0
+        if self.uses_fused_stem(x.shape[2], x.shape[3]):
+            # x is the NCHW view of NHWC images: stem_stage1 takes NHWC.
+            x = stem_stage1(x.permute(0, 2, 3, 1),
+                            self.folded_stem_stage1())
+            start = 3
+        else:
+            x = self._ConvBN_2(self._ConvBN_1(self._ConvBN_0(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
+        for i in range(start, self.n_blocks):
             x = getattr(self, f"SplAtBottleneck_{i}")(x)
         return x
 
@@ -136,9 +182,11 @@ class FastReIDSBS(nn.Module):
     embeddings (trunk -> GeM -> BNNeck -> normalise)."""
 
     def __init__(self, feature_dim: int = 2048, stage_blocks=(3, 4, 6, 3),
-                 stage_widths=(64, 128, 256, 512), stem_width: int = 32):
+                 stage_widths=(64, 128, 256, 512), stem_width: int = 32,
+                 fused_stem: bool = False):
         super().__init__()
-        self.ResNeSt50_0 = ResNeSt50(stage_blocks, stage_widths, stem_width)
+        self.ResNeSt50_0 = ResNeSt50(stage_blocks, stage_widths, stem_width,
+                                     fused_stem)
         self.GeMPool_0 = GeMPool()
         self.BatchNorm_0 = BatchNorm(stage_widths[-1] * 4, 1e-5)
 
@@ -148,6 +196,15 @@ class FastReIDSBS(nn.Module):
         feat = self.BatchNorm_0(self.GeMPool_0(x))
         norm = torch.linalg.norm(feat, dim=-1, keepdim=True)
         return feat / torch.clamp(norm, min=1e-12)
+
+
+def encode_and_compare(model: FastReIDSBS, images: torch.Tensor,
+                       target_features: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference ONNX contract: (images [N, H, W, 3], target_features
+    [M, D]) -> (similarities [N, M], features [N, D])."""
+    feats = model(images)
+    return feats @ target_features.float().T, feats
 
 
 def preprocess(images_bgr: torch.Tensor) -> torch.Tensor:

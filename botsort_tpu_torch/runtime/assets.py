@@ -84,11 +84,39 @@ def seeded_init_(module: nn.Module, rng: np.random.Generator) -> nn.Module:
     return module
 
 
+def perturb_norms_(module: nn.Module, rng: np.random.Generator
+                   ) -> nn.Module:
+    """Draw every batch norm's scale, bias, mean and variance and every
+    dense bias from ``rng``, in module order: with the recipe's identity
+    norms a folded batch norm (kernel K4) is a no-op, so checks of the fold
+    run on perturbed norms."""
+    def draw(t, lo, hi, normal):
+        a = (rng.normal(lo, hi, tuple(t.shape)) if normal
+             else rng.uniform(lo, hi, tuple(t.shape)))
+        t.copy_(torch.from_numpy(a.astype(np.float32)))
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                draw(m.weight, 0.5, 1.5, False)
+                draw(m.bias, 0.0, 0.2, True)
+                draw(m.running_mean, 0.0, 0.2, True)
+                draw(m.running_var, 0.3, 1.8, False)
+            elif isinstance(m, nn.Linear) and m.bias is not None:
+                draw(m.bias, 0.0, 0.1, True)
+    return module
+
+
 def build_bundle(mini: bool = False, seed: int = 0,
-                 device: Any = "cpu", dtype: torch.dtype = torch.bfloat16
+                 device: Any = "cuda", dtype: torch.dtype = torch.bfloat16
                  ) -> ModelBundle:
-    """The three networks with seeded weights on ``device``,
-    convolutions and dense layers in ``dtype``."""
+    """The three networks with seeded weights on ``device`` (the card
+    unless the caller asks for another), convolutions and dense layers in
+    ``dtype``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_bundle: no CUDA device; pass device='cpu' "
+                           "to build the networks on the CPU")
     arch = MINI if mini else FULL
     models = (YOLOX(**arch["detector"]), FastReIDSBS(**arch["body"]),
               FaceReID(**arch["face"]))

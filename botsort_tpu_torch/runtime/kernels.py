@@ -9,8 +9,11 @@ flags, so an edited source or header rebuilds. ``load_all`` starts one
 ``nvcc`` per source at once.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into FMAs: the
-assignment kernel must reproduce its plain PyTorch version's float32
-operations bit for bit (ops/assignment.py).
+assignment kernels must reproduce their plain PyTorch versions' float32
+operations bit for bit (ops/assignment.py). The depthwise stencil (K5)
+does too, with its products and sums written as __fmul_rn/__fadd_rn,
+which no flag contracts; K4 (stem_stage1) is held to a tolerance. All
+four libraries share these flags.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# Every kernel of the port: K1/K2 (cascade_lap), K3 (jv_lap), K4
+# (stem_stage1), K5 (dw_conv3x3).
+KERNELS = ("cascade_lap", "jv_lap", "stem_stage1", "dw_conv3x3")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building in this process, nvcc's output).
@@ -90,8 +97,9 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """``load`` every named kernel, the builds running concurrently."""
+def load_all(names: Sequence[str] = KERNELS) -> Dict[str, ctypes.CDLL]:
+    """``load`` every named kernel (all of them by default), the builds
+    running concurrently."""
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         libs = list(pool.map(load, names))
     return dict(zip(names, libs))

@@ -30,8 +30,25 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               must launch once per step (and per overflow re-run); the
               last step's cascades re-run with the plain solver must give
               the same tracks on every stream.
- 10. timings  frame and step times, stage tables, and each kernel against
-              its plain version at the main paths' shapes.
+ 10. K5       the depthwise stencil against its plain version: the face
+              encoder's 13 stride-1 shapes at 50 faces, odd shapes in
+              float32 and bfloat16, C > 1024; bit for bit.
+ 11. K4       the fused stem + stage 1 against its plain version at full
+              width (N = 1, 7, 50 at 256x128, N = 8 at 384x128; relative
+              L2 <= 1e-2, no element off by more than 5% of the largest)
+              and against the unfused modules (3e-2, 15%), seeded weights
+              with perturbed batch norms.
+ 12. lowered  the 8-stream path again with FastReIDSBS(fused_stem=True)
+              and FaceReID(dw_mode="kernel") loaded with the same weights:
+              K4 once per step run with body crops, K5 13 times per
+              face-encoder call, K2 once per step run; the last step's
+              encoder inputs re-run with K4 and K5 replaced by their plain
+              versions on the card give the same features (face: equal,
+              body: relative L2 <= 1e-2).
+ 13. timings  frame and step times, stage tables, and each kernel against
+              its plain version (and a PyTorch call for the same function,
+              where there is one) at the main paths' shapes, beside the
+              least time the card could take for the same work.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}. Run from the repository root:
@@ -59,6 +76,26 @@ JV_SOURCE = "botsort_tpu_torch/csrc/jv_lap.cu"
 K1_REPLACES = "botsort_tpu/ops/assignment_pallas.py:350"
 K2_REPLACES = "botsort_tpu/ops/assignment_pallas.py:655"
 K3_REPLACES = "botsort_tpu/ops/assignment_pallas.py:48"
+K4_SOURCE = "botsort_tpu_torch/csrc/stem_stage1.cu"
+K4_REPLACES = "botsort_tpu/models/fastreid_pallas.py:178"
+K5_SOURCE = "botsort_tpu_torch/csrc/dw_conv3x3.cu"
+K5_REPLACES = "botsort_tpu/models/facereid_pallas.py:40"
+# The face encoder's 13 stride-1 depthwise 3x3 layers at 128x128 faces,
+# (H, W, C), and the face count they are checked and timed at.
+FACE_DW_SHAPES = ([(64, 64, 32), (32, 32, 144)] + [(16, 16, 192)] * 2
+                  + [(8, 8, 384)] * 4 + [(8, 8, 576)] * 2
+                  + [(4, 4, 960)] * 3)
+N_FACES = 50
+# K4's checks (N, H, W) and timings (N at 256x128), on a full-width stem
+# and stage 1 (later stages one block each: K4 does not reach them).
+K4_CASES = ((1, 256, 128), (7, 256, 128), (N_FACES, 256, 128), (8, 384, 128))
+K4_TIMING_N = (N_FACES, 128)
+K4_LAYOUT = dict(stage_blocks=(3, 1, 1, 1))
+# The H100's published peaks (NVIDIA data sheet, SXM, dense): bytes/s of
+# HBM3, float32 FLOP/s outside the tensor cores, bfloat16 tensor FLOP/s.
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -113,6 +150,40 @@ def event_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, calls=20, replays=10):
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    and replayed, so no host work (Python, wrapper checks, launch
+    overhead) sits between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def bound(nbytes, flops, peak_flops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type;
+    returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_k1(torch, assignment, assignment_cuda, dev):
@@ -464,7 +535,323 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, card):
         f"{[round(x, 3) for x in step_ms]}), aggregate {fps:.2f} frames/s, "
         f"{card}")
     log(f"timing: batched stages {json.dumps(pipeline.timers.report())}")
-    return k2_launches
+    return k2_launches, (median, fps)
+
+
+def phase_k5(torch, facereid_dw, dev):
+    """K5 against dw_conv3x3_plain on the card, bit for bit; returns the
+    13 face-encoder inputs at N_FACES (for the timings) and the max abs
+    error (0)."""
+    rng = np.random.default_rng(55)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((N_FACES, c, h, w), bf16) for h, w, c in FACE_DW_SHAPES]
+    cases += [((1, 8, 9, 13), f32), ((1, 8, 9, 13), bf16),
+              ((4, 130, 6, 10), f32), ((4, 130, 6, 10), bf16),
+              ((2, 1100, 5, 7), bf16)]
+    face_inputs, max_err = [], 0.0
+    for k, (shape, dtype) in enumerate(cases):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            dev, dtype)
+        taps = torch.from_numpy(rng.normal(size=(9, shape[1])).astype(
+            np.float32)).to(dev)
+        got = facereid_dw.dw_conv3x3_cuda(x, taps)
+        want = facereid_dw.dw_conv3x3_plain(x, taps)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if err != 0.0 or not torch.equal(got, want):
+            raise AssertionError(f"K5 != plain on {shape} {dtype}: max abs "
+                                 f"error {err}")
+        max_err = max(max_err, err)
+        if k < len(FACE_DW_SHAPES):
+            face_inputs.append((x, taps))
+    log(f"K5: {len(cases)} cases equal to the plain version bit for bit "
+        f"(13 face-encoder shapes at N={N_FACES}, odd shapes in float32 and "
+        "bfloat16, C=1100)")
+    return face_inputs, max_err
+
+
+def stem_trunk(torch, assets, fastreid, cast_compute, dev, seed):
+    """A ResNeSt50 of K4_LAYOUT with seeded weights and perturbed batch
+    norms, bfloat16 on the card."""
+    rng = np.random.default_rng(seed)
+    model = fastreid.ResNeSt50(**K4_LAYOUT, fused_stem=True)
+    assets.perturb_norms_(assets.seeded_init_(model, rng), rng)
+    return cast_compute(model, torch.bfloat16).to(dev).eval() \
+        .requires_grad_(False)
+
+
+def unfused_segment(torch, F, model, x_nhwc):
+    """The port's unfused modules for the same segment: the stem's three
+    _ConvBNs, the max pool and SplAtBottleneck_0..2 (cuDNN, bfloat16)."""
+    x = x_nhwc.permute(0, 3, 1, 2)
+    x = model._ConvBN_2(model._ConvBN_1(model._ConvBN_0(x)))
+    x = F.max_pool2d(x, 3, 2, 1)
+    for i in range(3):
+        x = getattr(model, f"SplAtBottleneck_{i}")(x)
+    return x
+
+
+def rel_err(torch, got, want):
+    """(relative L2 error, max abs error / max |want|, max abs error)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return (float((got - want).norm() / want.norm()),
+            float(diff.max() / want.abs().max()), float(diff.max()))
+
+
+def phase_k4(torch, F, assets, fastreid, fastreid_fused, cast_compute,
+             dev):
+    """K4 against stem_stage1_plain and against the unfused modules on the
+    card; returns the model and the largest abs error against plain."""
+    model = stem_trunk(torch, assets, fastreid, cast_compute, dev, 44)
+    folded = model.folded_stem_stage1()
+    rng = np.random.default_rng(45)
+    max_abs = 0.0
+    with torch.no_grad():
+        for n, h, w in K4_CASES:
+            x = torch.from_numpy(rng.normal(0, 1, (n, h, w, 3)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            got = fastreid_fused.stem_stage1_cuda(x, folded)
+            want = fastreid_fused.stem_stage1_plain(x, folded)
+            ref = unfused_segment(torch, F, model, x)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"K4 non-finite at N={n} {h}x{w}")
+            rel, worst, abs_err = rel_err(torch, got, want)
+            rel_u, worst_u, _ = rel_err(torch, got, ref)
+            log(f"K4: N={n} {h}x{w}: vs plain relative L2 {rel:.3e}, max "
+                f"{worst:.3e} of scale (abs {abs_err:.4g}); vs unfused "
+                f"modules {rel_u:.3e}, max {worst_u:.3e}")
+            if rel > 1e-2 or worst > 0.05:
+                raise AssertionError(f"K4 differs from plain at N={n} "
+                                     f"{h}x{w}")
+            if rel_u >= 3e-2 or worst_u >= 0.15:
+                raise AssertionError(f"K4 differs from the unfused modules "
+                                     f"at N={n} {h}x{w}")
+            max_abs = max(max_abs, abs_err)
+    return model, max_abs
+
+
+class CallCounter:
+    """Counts a module's forward calls and keeps a copy of the last
+    call's input."""
+
+    def __init__(self, module):
+        self.calls = 0
+        self.last_input = None
+        module.register_forward_pre_hook(self)
+
+    def __call__(self, module, args):
+        self.calls += 1
+        self.last_input = args[0].detach().clone()
+
+
+def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
+                  facereid_dw, card, unlowered, arch):
+    """The 8-stream path with both lowered encoders of the bundle's
+    architecture ``arch`` (assets.FULL); returns the K4 and K5 launch
+    counts of its run."""
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.models.common import cast_compute
+    from botsort_tpu_torch.models.facereid import FaceReID
+    from botsort_tpu_torch.models.fastreid import FastReIDSBS
+    from botsort_tpu_torch.pipeline.frame_step import ModelBundle
+    from botsort_tpu_torch.pipeline.host import BatchedBoTSORTPipeline
+
+    dev = bundle.device
+    encoders = []
+    for lowered, main in (
+            (FastReIDSBS(**arch["body"], fused_stem=True),
+             bundle.body_encoder),
+            (FaceReID(**arch["face"], dw_mode="kernel"),
+             bundle.face_encoder)):
+        cast_compute(lowered, torch.bfloat16).to(dev).eval() \
+            .requires_grad_(False)
+        lowered.load_state_dict(main.state_dict())
+        encoders.append(lowered)
+    body, face = encoders
+    # The face encoder's stride-1 depthwise layers: K5 launches per call.
+    n_dw = sum(1 for m in face.modules() if getattr(m, "dw_kernel", False))
+    if not arch["face"] and n_dw != len(FACE_DW_SHAPES):  # the default
+        raise AssertionError(f"{n_dw} K5 layers in the full face encoder")
+    pipeline = BatchedBoTSORTPipeline(
+        ModelBundle(bundle.detector, body, face), STREAMS,
+        loaded_cfg(TrackerConfig, max_dets=16), NMSConfig(),
+        PipelineConfig())
+    body_calls, face_calls = CallCounter(body), CallCounter(face)
+    runs = []
+    real_step = pipeline._step
+    pipeline._step = lambda *a: runs.append(a[2]) or real_step(*a)
+    rng = np.random.default_rng(1)  # phase_multi's frames
+    steps = [rng.integers(0, 255, (STREAMS, 1080, 1920, 3), dtype=np.uint8)
+             for _ in range(8)]
+    k4, k5 = fastreid_fused.stem_stage1_cuda, facereid_dw.dw_conv3x3_cuda
+    cuda = assignment_cuda.cascade_solve_cuda
+    k4.launches = k5.launches = 0
+    cuda.launches = cuda.batched_launches = 0
+    rows, step_ms = [], []
+    for frames in steps:
+        before = (k4.launches, k5.launches, cuda.batched_launches,
+                  body_calls.calls, face_calls.calls, len(runs))
+        t0 = time.perf_counter()
+        tracks = pipeline.update(frames)
+        torch.cuda.synchronize()
+        step_ms.append(1000.0 * (time.perf_counter() - t0))
+        after = (k4.launches, k5.launches, cuda.batched_launches,
+                 body_calls.calls, face_calls.calls, len(runs))
+        d = [a - b for a, b in zip(after, before)]
+        body_runs = sum(1 for bucket in runs[before[5]:]
+                        if bucket is None or bucket > 0)
+        rows.append(dict(k4=d[0], k5=d[1], k2=d[2], body_calls=d[3],
+                         face_calls=d[4], runs=d[5], body_runs=body_runs,
+                         tracks=sum(len(t) for t in tracks)))
+    k4_launches, k5_launches = k4.launches, k5.launches
+    log(f"lowered: per step {json.dumps(rows)}")
+    if cuda.launches:
+        raise AssertionError("the lowered 8-stream path launched K1")
+    for r in rows:
+        if r["k4"] != r["body_runs"] or r["k4"] != r["body_calls"]:
+            raise AssertionError("K4 did not launch once per step run with "
+                                 "body crops")
+        if r["k5"] != n_dw * r["face_calls"]:
+            raise AssertionError(f"K5 did not launch {n_dw} times per "
+                                 "face-encoder call")
+        if r["k2"] != r["runs"]:
+            raise AssertionError("K2 did not launch once per step run")
+    if min(r["k4"] for r in rows) < 1:
+        raise AssertionError("a step ran without K4")
+    if max(r["face_calls"] for r in rows) < 1:
+        raise AssertionError("the face encoder ran on no step")
+    if max(r["tracks"] for r in rows) < 1:
+        raise AssertionError("no live tracks on the lowered path")
+
+    # The last step's encoder inputs again, K4 and K5 replaced by their
+    # plain versions on the card; the features of both runs compared, and
+    # K4's own output on the body input (random weights can make every
+    # body feature alike, which would hide a stem fault).
+    body_in, face_in = body_calls.last_input, face_calls.last_input
+    stem_in = body_in.to(torch.bfloat16).contiguous()
+    folded = body.ResNeSt50_0.folded_stem_stage1()
+    with torch.no_grad():
+        body_k, face_k = body(body_in), face(face_in)
+        stem_k = fastreid_fused.stem_stage1_cuda(stem_in, folded)
+        with mock.patch.object(fastreid_fused, "stem_stage1_cuda",
+                               fastreid_fused.stem_stage1_plain), \
+                mock.patch.object(facereid_dw, "dw_conv3x3_cuda",
+                                  facereid_dw.dw_conv3x3_plain):
+            body_p, face_p = body(body_in), face(face_in)
+        stem_p = fastreid_fused.stem_stage1_plain(stem_in, folded)
+    torch.cuda.synchronize()
+    face_err = float((face_k - face_p).abs().max())
+    body_rel = float((body_k - body_p).norm() / body_p.norm())
+    stem_rel, stem_worst, _ = rel_err(torch, stem_k, stem_p)
+    spread = float((body_k - body_k.mean(0)).norm() / body_k.norm())
+    log(f"lowered: last step's features re-run with the plain K4 and K5: "
+        f"face ({face_in.shape[0]} crops) max abs difference {face_err:.3g}"
+        f" ({'equal' if torch.equal(face_k, face_p) else 'not equal'}), "
+        f"body ({body_in.shape[0]} crops) relative L2 {body_rel:.3e}; K4's "
+        f"output on those crops vs plain: relative L2 {stem_rel:.3e}, max "
+        f"{stem_worst:.3e} of scale; body features' spread across crops "
+        f"(|f - mean| / |f|) {spread:.3e}")
+    if face_err > 1e-6:
+        raise AssertionError("face features differ from the plain K5 run")
+    if body_rel > 1e-2:
+        raise AssertionError("body features differ from the plain K4 run")
+    if stem_rel > 1e-2 or stem_worst > 0.05:
+        raise AssertionError("K4 differs from plain on the path's crops")
+
+    steady = step_ms[2:]
+    median = statistics.median(steady)
+    fps = STREAMS * len(steady) / (sum(steady) / 1000.0)
+    log(f"timing: lowered BatchedBoTSORTPipeline.update ({STREAMS} streams) "
+        f"median {median:.3f} ms over steps 3-8 (all: "
+        f"{[round(x, 3) for x in step_ms]}), aggregate {fps:.2f} frames/s; "
+        f"unlowered in this call: median {unlowered[0]:.3f} ms, "
+        f"{unlowered[1]:.2f} frames/s; {card}")
+    log(f"timing: lowered stages {json.dumps(pipeline.timers.report())}")
+    return k4_launches, k5_launches
+
+
+def phase_encoder_timing(torch, F, fastreid_fused, facereid_dw, k4_model,
+                         face_inputs, card):
+    """CUDA-event times of K4 and K5 against their plain versions, with
+    the bounds; returns {name: (ms, plain ms, bound ms, bound by, library
+    ms)}."""
+    out = {}
+    folded = k4_model.folded_stem_stage1()
+    rng = np.random.default_rng(46)
+    k4 = fastreid_fused.stem_stage1_cuda
+    for n in K4_TIMING_N:
+        x = torch.from_numpy(rng.normal(0, 1, (n, 256, 128, 3)).astype(
+            np.float32)).to(k4_model._ConvBN_0.Conv_0.weight.device,
+                            torch.bfloat16)
+        with torch.no_grad():
+            ms = event_ms(torch, lambda: k4(x, folded), 20)
+            plain = event_ms(torch, lambda: fastreid_fused.stem_stage1_plain(
+                x, folded), 3)
+            unfused = event_ms(torch, lambda: unfused_segment(
+                torch, F, k4_model, x), 10)
+            dev_ms = graph_ms(torch, lambda: k4(x, folded), 5, 4)
+            dev_unfused = graph_ms(torch, lambda: unfused_segment(
+                torch, F, k4_model, x), 5, 4)
+        # Convolution FLOPs at each conv's output size: the stem's at
+        # H/2 x W/2, stage 1's at H/4 x W/4.
+        stage1 = [c for b in folded.blocks for c in
+                  (b.conv_in, b.conv_split, b.conv_out, b.shortcut)
+                  if c is not None]
+        flops = sum(2 * n * hw * fc.weight.numel()
+                    for convs, hw in ((folded.stem, 128 * 64),
+                                      (stage1, 64 * 32)) for fc in convs)
+        weights = sum(t.numel() * t.element_size()
+                      for t in fastreid_fused._kernel_tensors(folded)
+                      if t is not None)
+        nbytes = (x.numel() * 2 + n * 4 * folded.width * 64 * 32 * 2
+                  + weights)
+        b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOPS)
+        log(f"timing: K4 N={n} 256x128: kernel {ms:.4f} ms (17 CUDA kernels "
+            f"per call), plain PyTorch on the card {plain:.3f} ms, the "
+            f"unfused modules (cuDNN, context only) {unfused:.4f} ms; "
+            f"replayed from a CUDA graph: kernel {dev_ms:.4f} ms, unfused "
+            f"{dev_unfused:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); {card}")
+        out[f"K4@{n}"] = (ms, plain, b_ms, b_by, None)
+
+    totals = [0.0] * 5
+    all_bytes = all_flops = 0
+    for x, taps in face_inputs:
+        n, c, h, w = x.shape
+        weight = taps.t().reshape(c, 1, 3, 3).to(x.dtype).contiguous()
+        ms = event_ms(torch, lambda: facereid_dw.dw_conv3x3_cuda(x, taps),
+                      50)
+        plain = event_ms(torch, lambda: facereid_dw.dw_conv3x3_plain(
+            x, taps), 5)
+        lib = event_ms(torch, lambda: F.conv2d(x, weight, padding=1,
+                                               groups=c), 50)
+        dev_ms = graph_ms(torch, lambda: facereid_dw.dw_conv3x3_cuda(
+            x, taps))
+        dev_lib = graph_ms(torch, lambda: F.conv2d(x, weight, padding=1,
+                                                   groups=c))
+        # Input and output once each, the taps once; nine multiplies and
+        # nine adds per output in float32.
+        nbytes = 2 * x.numel() * x.element_size() + taps.numel() * 4
+        b_ms, b_by = bound(nbytes, 18 * x.numel(), F32_FLOPS)
+        all_bytes += nbytes
+        all_flops += 18 * x.numel()
+        log(f"timing: K5 N={n} {h}x{w}x{c}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, F.conv2d(groups=C) {lib:.4f} ms; from a CUDA "
+            f"graph: kernel {dev_ms:.4f} ms, F.conv2d {dev_lib:.4f} ms; "
+            f"bound {b_ms:.4f} ms by {b_by}")
+        for i, v in enumerate((ms, plain, lib, dev_ms, dev_lib)):
+            totals[i] += v
+    b_ms, b_by = bound(all_bytes, all_flops, F32_FLOPS)
+    log(f"timing: K5 all 13 layers at N={N_FACES}: kernel {totals[0]:.4f} "
+        f"ms, plain {totals[1]:.4f} ms, F.conv2d(groups=C) {totals[2]:.4f} "
+        f"ms; from CUDA graphs: kernel {totals[3]:.4f} ms, F.conv2d "
+        f"{totals[4]:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"({all_bytes / 1e6:.2f} MB, {all_flops / 1e9:.3f} GFLOP); {card}")
+    out["K5"] = (totals[0], totals[1], b_ms, b_by, totals[2])
+    return out
 
 
 def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
@@ -487,14 +874,24 @@ def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
     shapes = {"K1": f"N={N_TRACKS} D={N_DETS}",
               "K2": f"{STREAMS} streams, N={N_TRACKS} D={N_DETS}",
               "K3": f"S={N_TRACKS + N_DETS}"}
+    # Bytes: every input read once, every output written once. The
+    # operations a solve needs depend on its data; at least one look at
+    # each cost entry per pass, far below the bytes' time on this card.
+    n, d, s = N_TRACKS, N_DETS, N_TRACKS + N_DETS
+    k1_bytes = 4 * (3 * n * d + 3 * (n + d) + 1) + 4 * 3 * (n + d)
+    work = {"K1": (k1_bytes, 3 * n * d),
+            "K2": (STREAMS * k1_bytes, STREAMS * 3 * n * d),
+            "K3": (4 * (s * s + 2 * s + 1) + 4 * s, s * s)}
     out = {}
     for name, (kernel, plain) in rows.items():
         k_ms = statistics.median(event_ms(torch, f, 50) for f in kernel)
         p_ms = statistics.median(event_ms(torch, f, 1) for f in plain)
+        b_ms, b_by = bound(*work[name], F32_FLOPS)
         log(f"timing: {name} {shapes[name]}: kernel {k_ms:.4f} ms, plain "
             f"PyTorch on the card {p_ms:.3f} ms (medians over "
-            f"{len(kernel)} inputs), {card}")
-        out[name] = (k_ms, p_ms)
+            f"{len(kernel)} inputs), bound {b_ms:.6f} ms by {b_by}, {card}")
+        # No single PyTorch call solves an assignment problem.
+        out[name] = (k_ms, p_ms, b_ms, b_by, None)
     return out
 
 
@@ -506,6 +903,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.nn.functional as F
+
+    from botsort_tpu_torch.models import facereid_dw, fastreid, fastreid_fused
+    from botsort_tpu_torch.models.common import cast_compute
     from botsort_tpu_torch.ops import assignment, assignment_cuda
     from botsort_tpu_torch.runtime import assets, kernels
 
@@ -526,7 +927,7 @@ def main() -> int:
         seconds[phase] = round(time.perf_counter() - t0, 1)
         t0 = time.perf_counter()
 
-    kernels.load_all(["cascade_lap", "jv_lap"])
+    kernels.load_all()
     for name, (secs, out) in sorted(kernels.BUILD_INFO.items()):
         log(f"build: {name} in {secs:.2f} s")
         for line in out.splitlines():
@@ -555,21 +956,34 @@ def main() -> int:
     k1_launches = phase_main(torch, bundle, assignment, assignment_cuda,
                              card)
     done("main")
-    k2_launches = phase_multi(torch, bundle, assignment, assignment_cuda,
-                              card)
+    k2_launches, unlowered = phase_multi(torch, bundle, assignment,
+                                         assignment_cuda, card)
     done("multi")
+    face_inputs, k5_err = phase_k5(torch, facereid_dw, dev)
+    done("K5")
+    k4_model, k4_err = phase_k4(torch, F, assets, fastreid, fastreid_fused,
+                                cast_compute, dev)
+    done("K4")
+    k4_launches, k5_launches = phase_lowered(
+        torch, bundle, assignment_cuda, fastreid_fused, facereid_dw, card,
+        unlowered, assets.FULL)
+    done("lowered")
     times = phase_timing(torch, assignment, assignment_cuda, k1_inputs,
                          k2_batches, k3_inputs, card)
+    times.update(phase_encoder_timing(torch, F, fastreid_fused, facereid_dw,
+                                      k4_model, face_inputs, card))
     done("timings")
     log(f"phases (s): {json.dumps(seconds)}, total "
         f"{sum(seconds.values()):.1f}")
     log(card)
 
     def entry(name, source, replaces, launches, err, key):
+        ms, plain_ms, bound_ms, bound_by, library_ms = times[key]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": times[key][0],
-                "plain_ms": times[key][1]}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
 
     print(json.dumps({"kernels": [
         entry("cascade_lap", CASCADE_SOURCE, K1_REPLACES, k1_launches,
@@ -577,6 +991,10 @@ def main() -> int:
         entry("cascade_lap_batched", CASCADE_SOURCE, K2_REPLACES,
               k2_launches, max(k2_err, oracle_err), "K2"),
         entry("jv_lap", JV_SOURCE, K3_REPLACES, k3_launches, k3_err, "K3"),
+        entry("stem_stage1", K4_SOURCE, K4_REPLACES, k4_launches, k4_err,
+              "K4@128"),
+        entry("dw_conv3x3", K5_SOURCE, K5_REPLACES, k5_launches, k5_err,
+              "K5"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on the card, against their plain PyTorch versions.
+"""Kernels K1-K5 on the card, against their plain PyTorch versions.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card
 and skips without one. The file imports neither JAX nor the JAX package,
@@ -13,7 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from botsort_tpu_torch.models import facereid, facereid_dw, fastreid
+from botsort_tpu_torch.models import fastreid_fused
+from botsort_tpu_torch.models.common import cast_compute
 from botsort_tpu_torch.ops import assignment, assignment_cuda
+from botsort_tpu_torch.runtime import assets
 
 pytestmark = pytest.mark.cuda
 
@@ -187,3 +191,135 @@ def test_jv_wrapper_rejects_malformed_inputs(dev):
         with pytest.raises(ValueError):
             assignment_cuda.jv_solve_cuda(*args)
     assert assignment_cuda.jv_solve_cuda.launches == before
+
+
+# The face encoder's 13 stride-1 depthwise layers at 128x128, (H, W, C).
+FACE_DW_SHAPES = [(64, 64, 32), (32, 32, 144), (16, 16, 192),
+                  (16, 16, 192)] + [(8, 8, 384)] * 4 + [(8, 8, 576)] * 2 + [
+                      (4, 4, 960)] * 3
+
+
+def _dw_case(rng, shape, dtype, dev):
+    n, c, h, w = shape
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    taps = torch.from_numpy(rng.normal(size=(9, c)).astype(np.float32))
+    return x.to(dev, dtype), taps.to(dev)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    *[((50, c, h, w), torch.bfloat16) for h, w, c in FACE_DW_SHAPES[:2]],
+    ((50, 960, 4, 4), torch.bfloat16),
+    ((1, 8, 9, 13), torch.float32), ((1, 8, 9, 13), torch.bfloat16),
+    ((4, 130, 6, 10), torch.float32), ((4, 130, 6, 10), torch.bfloat16),
+    ((2, 1100, 5, 7), torch.bfloat16), ((1, 3, 40, 1500), torch.float32)])
+def test_k5_equals_plain(dev, shape, dtype):
+    """Bit for bit: the same float32 multiplies and adds in the same
+    order, none contracted (C > 1024 and a plane wider than a tile
+    included)."""
+    x, taps = _dw_case(np.random.default_rng(shape[1]), shape, dtype, dev)
+    got = facereid_dw.dw_conv3x3_cuda(x, taps)
+    want = facereid_dw.dw_conv3x3_plain(x, taps)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_face_kernel_mode_launches_k5_per_layer(dev):
+    """FaceReID(dw_mode="kernel") at full width: 13 K5 launches per call,
+    features equal to the same model with K5 replaced by its plain
+    version on the card."""
+    rng = np.random.default_rng(21)
+    face = assets.seeded_init_(facereid.FaceReID(dw_mode="kernel"), rng)
+    face = cast_compute(face, torch.bfloat16).to(dev).eval()
+    img = torch.from_numpy(rng.uniform(0, 255, (4, 128, 128, 3)).astype(
+        np.float32)).to(dev)
+    before = facereid_dw.dw_conv3x3_cuda.launches
+    with torch.no_grad():
+        got = face(img)
+    assert facereid_dw.dw_conv3x3_cuda.launches == before + 13
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(facereid_dw, "dw_conv3x3_cuda",
+                   facereid_dw.dw_conv3x3_plain)
+        want = face(img)
+    assert torch.equal(got, want)
+
+
+def test_k5_wrapper_rejects_malformed_inputs(dev):
+    x, taps = _dw_case(np.random.default_rng(1), (2, 16, 8, 8),
+                       torch.bfloat16, dev)
+    bad = [(x.half(), taps), (x, taps.double()), (x, taps[:, :-1]),
+           (x.transpose(2, 3), taps), (x.cpu(), taps), (x, taps.cpu()),
+           (x[0], taps)]
+    before = facereid_dw.dw_conv3x3_cuda.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            facereid_dw.dw_conv3x3_cuda(*args)
+    assert facereid_dw.dw_conv3x3_cuda.launches == before
+
+
+def _trunk(dev, seed, **layout):
+    """A ResNeSt50 with seeded weights and perturbed norms, bfloat16."""
+    rng = np.random.default_rng(seed)
+    model = fastreid.ResNeSt50(fused_stem=True, **layout)
+    assets.perturb_norms_(assets.seeded_init_(model, rng), rng)
+    return cast_compute(model, torch.bfloat16).to(dev).eval()
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    rel = float((got - want).norm() / want.norm().clamp(min=1e-6))
+    worst = float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-6))
+    return rel, worst
+
+
+@pytest.mark.parametrize("n,h,w,layout", [
+    (2, 256, 128, dict(stage_blocks=(3, 1, 1, 1))),
+    (3, 384, 128, dict(stage_blocks=(3, 1, 1, 1))),
+    (2, 32, 16, dict(stage_blocks=(3, 1, 1, 1), stage_widths=(8, 16, 32, 64),
+                     stem_width=8))])
+def test_k4_close_to_plain(dev, n, h, w, layout):
+    """Full width at both body geometries, and the SMALL preset (its
+    grouped conv has 4 input channels a group: the scalar gather path).
+    Relative L2 1e-2, no element off by more than 5% of the largest."""
+    model = _trunk(dev, 7, **layout)
+    folded = model.folded_stem_stage1()
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        0, 1, (n, h, w, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    got = fastreid_fused.stem_stage1_cuda(x, folded)
+    want = fastreid_fused.stem_stage1_plain(x, folded)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    rel, worst = _rel(got, want)
+    assert rel <= 1e-2 and worst <= 0.05, (rel, worst)
+
+
+def test_fused_trunk_launches_k4_once(dev):
+    model = _trunk(dev, 9, stage_blocks=(3, 1, 1, 1))
+    x = torch.from_numpy(np.random.default_rng(10).normal(
+        0, 1, (2, 3, 256, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+    before = fastreid_fused.stem_stage1_cuda.launches
+    with torch.no_grad():
+        got = model(x)
+    assert fastreid_fused.stem_stage1_cuda.launches == before + 1
+    model.fused_stem = False
+    with torch.no_grad():
+        want = model(x)
+    rel, worst = _rel(got, want)
+    assert rel < 3e-2 and worst < 0.15, (rel, worst)
+
+
+def test_k4_wrapper_rejects_malformed_inputs(dev):
+    model = _trunk(dev, 11, stage_blocks=(3, 1, 1, 1),
+                   stage_widths=(8, 16, 32, 64), stem_width=8)
+    folded = model.folded_stem_stage1()
+    x = torch.zeros((1, 32, 16, 3), dtype=torch.bfloat16, device=dev)
+    cpu_folded = fastreid_fused.fold_stem_stage1(model.cpu())
+    bad = [(x.float(), folded), (x.transpose(1, 2), folded),
+           (x.cpu(), folded), (x[..., :2].contiguous(), folded),
+           (torch.zeros((1, 32, 12, 3), dtype=torch.bfloat16, device=dev),
+            folded), (x, cpu_folded)]
+    before = fastreid_fused.stem_stage1_cuda.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            fastreid_fused.stem_stage1_cuda(*args)
+    assert fastreid_fused.stem_stage1_cuda.launches == before

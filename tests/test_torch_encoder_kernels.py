@@ -1,0 +1,396 @@
+"""The port's encoder lowerings (K4 and K5) against the JAX package's.
+
+K5, the depthwise 3x3 stencil: ``dw_conv3x3_plain`` (what the kernel
+computes, on the CPU) against the JAX package's Pallas stencil in
+interpret mode on the JAX test's shapes, float32 atol 1e-5 (the two sum
+the same nine products in the same order; XLA:CPU may still contract or
+reorder), and one bfloat16 case, equal to within one bfloat16 rounding
+of the float32 sum. ``FaceReID(dw_mode="kernel")`` against the JAX
+``dw_mode="pallas"`` model and against the port's ``"conv"`` mode, MINI
+layout in float32, atol 2e-5 (the JAX test's bound between its modes).
+
+K4, the fused stem + stage 1: ``stem_stage1_plain`` against the JAX
+package's Pallas kernel in interpret mode at the JAX test's SMALL preset
+(batch 2, 32x16, perturbed BN so the fold is exercised), relative L2
+1e-2: both sides fold at the same points and round to bfloat16 after
+every conv, but sum in other orders, so a rounding can flip. The fused
+trunk against JAX's fused trunk and the port's unfused trunk: relative L2
+3e-2, max 0.15 of scale, the JAX test's bound between its modes (the
+unfused path computes BN after a bfloat16 conv store). JAX interpret runs
+are shared through module-scoped fixtures and kept at batch <= 2.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from botsort_tpu.config import NMSConfig, PipelineConfig, TrackerConfig
+from botsort_tpu.models import facereid as jface
+from botsort_tpu.models import fastreid as jbody
+from botsort_tpu.models.facereid_pallas import dw_conv3x3_same as jdw
+from botsort_tpu.models.fastreid_pallas import stem_stage1 as jstem
+from botsort_tpu.ops import crop as jcrop
+from botsort_tpu.pipeline import frame_step as jfs
+from botsort_tpu_torch import config as tconfig
+from botsort_tpu_torch.models import facereid as tface
+from botsort_tpu_torch.models import facereid_dw, fastreid_fused
+from botsort_tpu_torch.models import fastreid as tbody
+from botsort_tpu_torch.models.common import cast_compute
+from botsort_tpu_torch.pipeline import frame_step as tfs
+from botsort_tpu_torch.runtime.from_flax import load_flax_variables
+
+SMALL = dict(stage_blocks=(3, 1, 1, 1), stage_widths=(8, 16, 32, 64),
+             stem_width=8)
+FACE_MINI = dict(feature_dim=16, layout=((1, 8, 1, 1), (6, 12, 2, 2),
+                                         (6, 16, 2, 2)), head_width=32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_compile_state():
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _perturbed_vars(model, x, seed=0):
+    """The JAX test's recipe (tests/test_fastreid_pallas.py): init, then
+    randomise every parameter and BN statistic so the fold's scale and
+    bias are exercised."""
+    variables = model.init(jax.random.PRNGKey(seed), x)
+    rng = np.random.default_rng(seed + 1)
+
+    def perturb(leaf):
+        a = np.asarray(leaf, np.float32)
+        return jnp.asarray(rng.normal(0.1, 0.4, a.shape).astype(np.float32),
+                           leaf.dtype)
+
+    def perturb_var(leaf):
+        a = np.asarray(leaf, np.float32)
+        return jnp.asarray(rng.uniform(0.3, 1.8, a.shape).astype(np.float32),
+                           leaf.dtype)
+
+    params = jax.tree_util.tree_map(perturb, variables["params"])
+    stats = jax.tree_util.tree_map_with_path(
+        lambda p, l: perturb_var(l) if p[-1].key == "var" else perturb(l),
+        variables["batch_stats"])
+    return {"params": params, "batch_stats": stats}
+
+
+def _port(module, variables, dtype=torch.bfloat16):
+    """A port module holding the Flax variables, convs and dense layers in
+    ``dtype``."""
+    cast_compute(module, dtype).eval().requires_grad_(False)
+    return load_flax_variables(module, jax.device_get(variables))
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    rel = np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-6)
+    worst = np.abs(got - want).max() / (np.abs(want).max() + 1e-6)
+    return rel, worst
+
+
+def _nchw(a):
+    return np.asarray(a, np.float32).transpose(0, 3, 1, 2)
+
+
+# --- K5 ------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 8, 16), "float32"), ((1, 9, 13, 8), "float32"),
+    ((4, 6, 10, 130), "float32"), ((1, 9, 13, 8), "bfloat16")])
+def test_dw_plain_matches_jax_stencil(shape, dtype):
+    rng = np.random.default_rng(5 + shape[-1])
+    x = rng.normal(size=shape).astype(np.float32)
+    k = rng.normal(size=(3, 3, 1, shape[-1])).astype(np.float32)
+    jx = jnp.asarray(x, jnp.dtype(dtype))
+    want = _nchw(jdw(jx, jnp.asarray(k), interpret=True))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).permute(0, 3, 1, 2)
+    # The Flax kernel (3, 3, 1, C) is the port's weight (C, 1, 3, 3).
+    tk = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    got = facereid_dw.dw_conv3x3_same(tx.contiguous(), tk)
+    assert got.dtype == tx.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    else:
+        # One bfloat16 rounding of float32 sums that agree to 1e-5.
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -8,
+                                   atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def faces():
+    x = np.random.default_rng(11).uniform(0, 255, (3, 32, 32, 3)).astype(
+        np.float32)
+    conv = jface.FaceReID(**FACE_MINI, dtype=jnp.float32, dw_mode="conv")
+    params = jax.jit(conv.init)(jax.random.PRNGKey(0), jnp.asarray(x))
+    pall = jface.FaceReID(**FACE_MINI, dtype=jnp.float32, dw_mode="pallas")
+    want = np.asarray(jax.jit(pall.apply)(params, jnp.asarray(x)))
+    return x, params, pall, want
+
+
+def test_face_kernel_mode_matches_jax_pallas_and_conv_mode(faces):
+    x, params, _, want = faces
+    kern = _port(tface.FaceReID(**FACE_MINI, dw_mode="kernel"), params,
+                 torch.float32)
+    conv = _port(tface.FaceReID(**FACE_MINI), params, torch.float32)
+    with torch.no_grad():
+        got = kern(torch.from_numpy(x))
+        ref = conv(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=2e-5)
+
+
+def test_face_encode_and_compare_matches_jax(faces):
+    x, params, pall, _ = faces
+    targets = np.random.default_rng(12).normal(size=(5, 16)).astype(
+        np.float32)
+    want_f, want_s = jface.encode_and_compare(pall, params, jnp.asarray(x),
+                                              jnp.asarray(targets))
+    kern = _port(tface.FaceReID(**FACE_MINI, dw_mode="kernel"), params,
+                 torch.float32)
+    with torch.no_grad():
+        got_f, got_s = tface.encode_and_compare(
+            kern, torch.from_numpy(x), torch.from_numpy(targets))
+    assert got_f.shape == (3, 16) and got_s.shape == (3, 5)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=0,
+                               atol=2e-5)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["shift", "skip"])
+def test_face_probe_modes_are_not_ported(mode):
+    with pytest.raises(ValueError, match="not ported"):
+        tface.FaceReID(**FACE_MINI, dw_mode=mode)
+
+
+def test_state_dicts_identical_across_modes():
+    def layout(module):
+        return [(k, tuple(v.shape), v.dtype)
+                for k, v in module.state_dict().items()]
+
+    assert layout(tface.FaceReID(dw_mode="kernel")) == \
+        layout(tface.FaceReID())
+    assert layout(tbody.FastReIDSBS(fused_stem=True)) == \
+        layout(tbody.FastReIDSBS())
+
+
+@pytest.mark.parametrize("fn,args", [
+    (facereid_dw.dw_conv3x3_same, lambda: (torch.zeros(1, 4, 5, 5),
+                                           torch.zeros(4, 1, 3, 3))),
+    (fastreid_fused.stem_stage1, lambda: (
+        torch.zeros(1, 32, 16, 3, dtype=torch.bfloat16), None))])
+def test_dispatchers_refuse_other_devices(fn, args):
+    x, w = args()
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fn(x.to("meta"), w)
+
+
+# --- K4 ------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def trunk():
+    """JAX's SMALL ResNeSt50 with perturbed variables: the Pallas stem in
+    interpret mode, the fused trunk and the plain trunk on one batch."""
+    x = np.random.default_rng(2).normal(0, 1, (2, 32, 16, 3)).astype(
+        np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    plain = jbody.ResNeSt50(**SMALL, dtype=jnp.bfloat16, fused_stem=False)
+    fused = jbody.ResNeSt50(**SMALL, dtype=jnp.bfloat16, fused_stem=True)
+    variables = _perturbed_vars(plain, jx)
+    v = variables
+    stem_vars = [{"params": v["params"][f"_ConvBN_{i}"],
+                  "batch_stats": v["batch_stats"][f"_ConvBN_{i}"]}
+                 for i in range(3)]
+    block_vars = [{"params": v["params"][f"SplAtBottleneck_{i}"],
+                   "batch_stats": v["batch_stats"][f"SplAtBottleneck_{i}"]}
+                  for i in range(3)]
+    return dict(
+        x=x, variables=variables,
+        stem=np.asarray(jstem(jx, stem_vars, block_vars, SMALL["stem_width"],
+                              SMALL["stage_widths"][0], interpret=True),
+                        np.float32),
+        fused=np.asarray(fused.apply(variables, jx), np.float32),
+        plain=np.asarray(plain.apply(variables, jx), np.float32))
+
+
+def _port_trunk(trunk, **kw):
+    return _port(tbody.ResNeSt50(**{**SMALL, **kw}), trunk["variables"])
+
+
+def _nchw_input(x, dtype=torch.bfloat16):
+    return torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2)
+
+
+def test_stem_plain_matches_jax_kernel(trunk):
+    folded = fastreid_fused.fold_stem_stage1(_port_trunk(trunk))
+    x = torch.from_numpy(trunk["x"]).to(torch.bfloat16)
+    got = fastreid_fused.stem_stage1(x, folded)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 32, 8, 4)
+    rel, worst = _rel(got.float().numpy(), _nchw(trunk["stem"]))
+    assert rel <= 1e-2, f"relative L2 {rel:.5f}"
+    assert worst <= 0.05, f"max error {worst:.4f} of scale"
+
+
+def test_fused_trunk_matches_jax_fused_and_port_unfused(trunk):
+    fused = _port_trunk(trunk, fused_stem=True)
+    unfused = _port_trunk(trunk)
+    with torch.no_grad():
+        got = fused(_nchw_input(trunk["x"])).float().numpy()
+        ref = unfused(_nchw_input(trunk["x"])).float().numpy()
+    for want, what in ((_nchw(trunk["fused"]), "JAX fused"),
+                       (ref, "port unfused"), (_nchw(trunk["plain"]),
+                                               "JAX plain")):
+        rel, worst = _rel(got, want)
+        assert rel < 3e-2 and worst < 0.15, (what, rel, worst)
+
+
+@pytest.mark.parametrize("case", ["geometry", "float32", "stage_blocks"])
+def test_fused_dispatch_takes_the_plain_modules(trunk, case):
+    """The JAX model's static dispatch: an unsupported geometry, float32
+    convs or a stage 1 without three blocks run the unfused modules, with
+    exactly their output."""
+    x = trunk["x"]
+    kw, dtype = {}, torch.bfloat16
+    if case == "geometry":
+        x = np.random.default_rng(3).normal(0, 1, (1, 32, 12, 3)).astype(
+            np.float32)
+    elif case == "float32":
+        dtype = torch.float32
+    else:
+        kw = dict(stage_blocks=(2, 1, 1, 1))
+    layout = {**SMALL, **kw}
+    fused = cast_compute(tbody.ResNeSt50(**layout, fused_stem=True), dtype)
+    plain = cast_compute(tbody.ResNeSt50(**layout), dtype)
+    plain.load_state_dict(fused.state_dict())
+    xi = _nchw_input(x, dtype)
+    assert not fused.uses_fused_stem(xi.shape[2], xi.shape[3])
+    with torch.no_grad():
+        assert torch.equal(fused.eval()(xi), plain.eval()(xi))
+
+
+def test_fold_follows_weight_updates(trunk):
+    """The folded weights are refolded when a weight is written in place."""
+    model = _port_trunk(trunk, fused_stem=True)
+    first = model.folded_stem_stage1()
+    assert model.folded_stem_stage1() is first
+    with torch.no_grad():
+        model._ConvBN_1.BatchNorm_0.running_var.mul_(2.0)
+    second = model.folded_stem_stage1()
+    assert second is not first
+    assert not torch.equal(second.stem[1].scale, first.stem[1].scale)
+
+
+def test_body_encode_and_compare_matches_jax():
+    """The body contract's order, (similarities, features), on the MINI
+    float32 encoder."""
+    mini = dict(stage_blocks=(1, 1, 1, 1), stage_widths=(8, 16, 32, 64),
+                stem_width=8)
+    model = jbody.FastReIDSBS(**mini, dtype=jnp.float32)
+    x = np.random.default_rng(4).normal(0, 1, (3, 64, 32, 3)).astype(
+        np.float32)
+    targets = np.random.default_rng(5).normal(size=(4, 256)).astype(
+        np.float32)
+    params = model.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    want_s, want_f = jbody.encode_and_compare(model, params, jnp.asarray(x),
+                                              jnp.asarray(targets))
+    port = _port(tbody.FastReIDSBS(**mini), params, torch.float32)
+    with torch.no_grad():
+        got_s, got_f = tbody.encode_and_compare(port, torch.from_numpy(x),
+                                                torch.from_numpy(targets))
+    assert got_s.shape == (3, 4) and got_f.shape == (3, 256)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-4,
+                               atol=1e-3)
+
+
+# --- the slice: the embed stage with both lowered encoders ---------------
+
+TRK = TrackerConfig(max_dets=2, body_feature_dim=256, face_feature_dim=16)
+NMSC = NMSConfig(max_boxes_per_class=4)
+PIPE = PipelineConfig(body_reid_input_hw=(32, 16), face_reid_input_hw=(32, 32),
+                      max_reid_batch=2, compute_dtype="float32",
+                      crop_int8=False)
+
+
+def _port_cfg(cfg):
+    cls = getattr(tconfig, type(cfg).__name__)
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in dataclasses.asdict(cfg).items()
+                  if k in names})
+
+
+def test_embed_with_lowered_encoders_matches_jax(trunk, faces):
+    """embed_batched with FastReIDSBS(fused_stem=True) (SMALL, bfloat16)
+    and FaceReID(dw_mode="kernel") (MINI, float32) against the JAX embed
+    stage with the same lowerings, on injected detections: two bodies, one
+    with a face. Body features: relative L2 3e-2 (K4's tolerance carried
+    through bfloat16 stages 2-4, where Flax computes BN in bfloat16);
+    face features: atol 1e-4, as tests/test_torch_pipeline.py holds them."""
+    body_j = jbody.FastReIDSBS(**SMALL, dtype=jnp.bfloat16, fused_stem=True)
+    jv = trunk["variables"]
+    body_params = body_j.init(jax.random.PRNGKey(0),
+                              jnp.zeros((1, 32, 16, 3)))
+    body_params = {"params": {**body_params["params"],
+                              "ResNeSt50_0": jv["params"]},
+                   "batch_stats": {**body_params["batch_stats"],
+                                   "ResNeSt50_0": jv["batch_stats"]}}
+    _, face_params, face_j, _ = faces
+
+    rng = np.random.default_rng(9)
+    frame = rng.integers(0, 255, (64, 96, 3), dtype=np.uint8)
+    boxes = np.zeros((4, 4, 4), np.float32)
+    boxes[0, 0], boxes[0, 1] = (10, 5, 40, 60), (50, 8, 90, 62)  # bodies
+    boxes[1, 0] = (15, 6, 30, 20)                                # head
+    boxes[3, 0] = (17, 8, 28, 19)                                # face
+    face_for_head = np.array([0, -1, -1, -1], np.int32)
+    head_for_body = np.array([0, -1, -1, -1], np.int32)
+
+    @jax.jit
+    def jembed(frame, boxes, face_for_head, head_for_body):
+        def body(tlbr):
+            crops = jcrop.crop_and_resize(frame, tlbr,
+                                          PIPE.body_reid_input_hw)
+            return body_j.apply(body_params, jbody.preprocess(crops))
+
+        def face(tlbr):
+            crops = jcrop.crop_and_resize(frame, tlbr,
+                                          PIPE.face_reid_input_hw)
+            return face_j.apply(face_params, crops)
+
+        bf = jfs._encode_chunked(body, boxes[0][:2], 2, 2, 256, 2)
+        hb = head_for_body[:2]
+        fb = jnp.where(hb >= 0, face_for_head[jnp.clip(hb, 0, None)], -1)
+        face_tlbr = jnp.where((fb >= 0)[:, None],
+                              boxes[3][jnp.clip(fb, 0, None)], 0.0)
+        ff = jfs._encode_faces(face, face_tlbr, fb >= 0, 2, 2, 16, 2)
+        return bf, ff
+
+    want_b, want_f = jembed(jnp.asarray(frame), jnp.asarray(boxes),
+                            jnp.asarray(face_for_head),
+                            jnp.asarray(head_for_body))
+
+    body_t = _port(tbody.FastReIDSBS(**SMALL, fused_stem=True), body_params)
+    face_t = _port(tface.FaceReID(**FACE_MINI, dw_mode="kernel"),
+                   face_params, torch.float32)
+    assert body_t.ResNeSt50_0.uses_fused_stem(*PIPE.body_reid_input_hw)
+    bundle = tfs.ModelBundle(None, body_t, face_t)
+    with torch.no_grad():
+        got_b, got_f = tfs.embed_batched(
+            bundle, torch.from_numpy(frame)[None],
+            torch.from_numpy(boxes)[None],
+            torch.from_numpy(face_for_head)[None],
+            torch.from_numpy(head_for_body)[None], _port_cfg(TRK),
+            _port_cfg(NMSC), _port_cfg(PIPE), 2, 2)
+    rel, _ = _rel(got_b[0].numpy(), np.asarray(want_b))
+    assert rel <= 3e-2, f"body features: relative L2 {rel:.5f}"
+    np.testing.assert_allclose(got_f[0].numpy(), np.asarray(want_f), rtol=0,
+                               atol=1e-4)

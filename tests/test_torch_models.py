@@ -36,7 +36,7 @@ def bundles():
     jb = jbuild(mini=True, dtype=jnp.float32)
     flax_vars = [jax.device_get(v) for v in (
         jb.detector_params, jb.body_params, jb.face_params)]
-    tb = tassets.build_bundle(mini=True, dtype=torch.float32)
+    tb = tassets.build_bundle(mini=True, device="cpu", dtype=torch.float32)
     for model, variables in zip((tb.detector, tb.body_encoder,
                                  tb.face_encoder), flax_vars):
         load_flax_variables(model, variables)
@@ -108,9 +108,9 @@ def test_from_flax_rejects_mismatched_trees(bundles, fault):
 
 
 def test_seeded_init_is_deterministic_and_follows_the_recipe():
-    a = tassets.build_bundle(mini=True, seed=5, dtype=torch.float32)
-    b = tassets.build_bundle(mini=True, seed=5, dtype=torch.float32)
-    c = tassets.build_bundle(mini=True, seed=6, dtype=torch.float32)
+    a, b, c = (tassets.build_bundle(mini=True, device="cpu", seed=seed,
+                                    dtype=torch.float32)
+               for seed in (5, 5, 6))
     wa = a.detector.CSPDarknet_0.Focus_0.Conv_0.weight
     assert torch.equal(wa, b.detector.CSPDarknet_0.Focus_0.Conv_0.weight)
     assert not torch.equal(wa, c.detector.CSPDarknet_0.Focus_0.Conv_0.weight)
@@ -122,7 +122,8 @@ def test_seeded_init_is_deterministic_and_follows_the_recipe():
 
 
 def test_bf16_bundle_keeps_norms_in_float32():
-    tb = tassets.build_bundle(mini=True, dtype=torch.bfloat16)
+    tb = tassets.build_bundle(mini=True, device="cpu",
+                              dtype=torch.bfloat16)
     assert tb.detector.CSPDarknet_0.Focus_0.Conv_0.weight.dtype == \
         torch.bfloat16
     assert tb.detector.CSPDarknet_0.Focus_0.BatchNorm_0.weight.dtype == \
@@ -131,3 +132,12 @@ def test_bf16_bundle_keeps_norms_in_float32():
         0, 255, (1, 32, 32, 3)).astype(np.float32))
     out = tb.face_encoder(img)
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
+def test_build_bundle_defaults_to_the_card():
+    """The entry point runs on the card unless the caller asks for the
+    CPU: without a device and without a card it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tassets.build_bundle(mini=True)

@@ -83,7 +83,7 @@ def bundles():
     jb = jbuild(mini=True, dtype=jnp.float32)
     flax_vars = [jax.device_get(v) for v in (
         jb.detector_params, jb.body_params, jb.face_params)]
-    tb = tassets.build_bundle(mini=True, dtype=torch.float32)
+    tb = tassets.build_bundle(mini=True, device="cpu", dtype=torch.float32)
     for model, variables in zip((tb.detector, tb.body_encoder,
                                  tb.face_encoder), flax_vars):
         load_flax_variables(model, variables)
