@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from botsort_tpu_torch.models.common import BatchNorm, conv2d
-from botsort_tpu_torch.models.facereid_dw import dw_conv3x3_same
+from botsort_tpu_torch.models.facereid_dw import dw_conv3x3, taps_of
 
 # (expand, channels, repeats, stride) — MobileNetV2 layout.
 MOBILENETV2_LAYOUT = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
@@ -51,10 +51,27 @@ class _ConvBNRelu6(nn.Module):
         # The stride-1 depthwise 3x3s of dw_mode="kernel" run K5.
         self.dw_kernel = (dw_mode == "kernel" and groups > 1
                           and stride == 1)
+        self._taps = None
+        self._taps_key = None
+        self._taps_src = None
+
+    def taps(self) -> torch.Tensor:
+        """K5's taps [9, C] of the current weight, rebuilt whenever the
+        weight was replaced, moved, cast or written in place (an inference
+        constant: no gradient flows through it)."""
+        w = self.Conv_0.weight.detach()  # shares the weight's version
+        key = (w.data_ptr(), w._version, w.dtype, w.device, w.shape)
+        if key != self._taps_key:
+            self._taps = taps_of(w)
+            self._taps_key = key
+            # Holding the source keeps its memory from being handed to a
+            # later weight at the same address, which the key would miss.
+            self._taps_src = w
+        return self._taps
 
     def forward(self, x):
         if self.dw_kernel:
-            x = dw_conv3x3_same(x, self.Conv_0.weight)
+            x = dw_conv3x3(x, self.taps())
         else:
             x = self.Conv_0(x)
         x = self.BatchNorm_0(x)

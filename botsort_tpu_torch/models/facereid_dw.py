@@ -8,11 +8,16 @@ csrc/dw_conv3x3.cu, through ``dw_conv3x3_cuda``; a CPU tensor takes
 ``dw_conv3x3_plain``; any other device raises. Both compute the nine taps
 in float32 from 0 in the TPU kernel's (dy, dx) order and store once in the
 input's type, so they agree bit for bit.
+
+``dw_plan`` is the kernel's tiling, computed here and passed to the C entry
+point: the one definition, checked on the CPU by the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,18 +25,77 @@ import torch.nn.functional as F
 from botsort_tpu_torch.runtime import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024  # static launch: no opt-in to more shared memory
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block can use
+SPAN_PIXELS = 256   # planes up to this many pixels are tiled whole
+SPAN_ELEMS = 2048   # elements of a span tile, about
+BAND_ELEMS = 2048   # elements of a band tile without its halo, about
+THREADS = 256       # threads of a block, at most
+
+
+class DwPlan(NamedTuple):
+    """K5's tiling of x [N, C, H, W]. A span block takes ``planes`` whole
+    planes (one contiguous span of memory); a band block takes ``rows``
+    rows of one plane and a one-row halo above and below. A thread
+    computes runs of ``rw`` outputs along x: one 16-byte store on the
+    vector path (8 bfloat16 or 4 float32), or one element on the scalar
+    path, for widths that are not a multiple of 8 or 4."""
+
+    band: bool
+    planes: int
+    rows: int
+    rw: int
+    threads: int
+    grid: Tuple[int, int]
+    smem: int
+
+
+def dw_plan(shape, itemsize: int, aligned: bool = True) -> DwPlan:
+    """The tiling of x of ``shape`` [N, C, H, W] with ``itemsize``-byte
+    elements; ``aligned``: x and out start on 16-byte boundaries."""
+    n, c, h, w = shape
+    vec = 16 // itemsize
+    rw = vec if aligned and w % vec == 0 else 1
+    n_planes = n * c
+    if h * w <= SPAN_PIXELS:
+        planes = min(n_planes, max(1, SPAN_ELEMS // (h * w)))
+        rows = h
+        grid = (-(-n_planes // planes), 1)
+        smem = planes * h * w * itemsize
+    else:
+        planes = 1
+        rows = min(h, max(1, BAND_ELEMS // w))
+        grid = (n_planes, -(-h // rows))
+        smem = (rows + 2) * w * itemsize
+    runs = planes * rows * w // rw
+    threads = min(THREADS, -(-runs // 32) * 32)
+    return DwPlan(h * w > SPAN_PIXELS, planes, rows, rw, threads, grid, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_params(shape, dtype: torch.dtype, aligned: bool):
+    """The C entry point's parameter array for x of ``shape`` and
+    ``dtype``: the dimensions, the dtype code and dw_plan, checked; cached,
+    since a network calls K5 at a few shapes over and over."""
+    plan = dw_plan(shape, dtype.itemsize, aligned)
+    if plan.smem > _SMEM_LIMIT:
+        raise ValueError(f"W={shape[3]} needs {plan.smem} B of shared "
+                         f"memory (limit {_SMEM_LIMIT})")
+    if plan.grid[1] > 65535:
+        raise ValueError(f"H={shape[2]} needs {plan.grid[1]} row bands "
+                         "(limit 65535)")
+    values = (*shape, _DTYPES[dtype], int(plan.band), plan.planes,
+              plan.rows, plan.rw, plan.threads, *plan.grid,
+              plan.smem)
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("dw_conv3x3")
     fn = lib.dw_conv3x3_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.dw_conv3x3_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.dw_conv3x3_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -85,17 +149,13 @@ def dw_conv3x3_cuda(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
                          f"{taps.device}")
     if not (x.is_contiguous() and taps.is_contiguous()):
         raise ValueError("x and taps must be contiguous")
-    lib = _lib()
-    smem = lib.dw_conv3x3_smem_bytes(h, w)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"W={w} needs {smem} B of shared memory "
-                         f"(limit {_SMEM_LIMIT})")
     out = torch.empty_like(x)
+    params = _launch_params(tuple(x.shape), x.dtype,
+                            (x.data_ptr() | out.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dw_conv3x3_launch(x.data_ptr(), taps.data_ptr(),
-                                   out.data_ptr(), n, c, h, w,
-                                   _DTYPES[x.dtype], stream)
+        rc = _lib().dw_conv3x3_launch(x.data_ptr(), taps.data_ptr(),
+                                      out.data_ptr(), params,
+                                      kernels.current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"dw_conv3x3 launch failed: CUDA error {rc}")
     dw_conv3x3_cuda.launches += 1
@@ -105,13 +165,17 @@ def dw_conv3x3_cuda(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 dw_conv3x3_cuda.launches = 0
 
 
-def dw_conv3x3_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise 3x3, stride 1, SAME: x [N, C, H, W], kernel [C, 1, 3, 3]
+def dw_conv3x3(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3, stride 1, SAME: x [N, C, H, W], taps [9, C] float32
     -> [N, C, H, W] in x's dtype. CUDA tensors launch K5, CPU tensors take
     the plain version."""
-    taps = taps_of(kernel)
     if x.is_cuda:
         return dw_conv3x3_cuda(x.contiguous(), taps)
     if x.device.type == "cpu":
         return dw_conv3x3_plain(x, taps)
     raise ValueError(f"dw_conv3x3_same: no kernel for device {x.device}")
+
+
+def dw_conv3x3_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """``dw_conv3x3`` with the depthwise weight [C, 1, 3, 3]."""
+    return dw_conv3x3(x, taps_of(kernel))

@@ -239,7 +239,7 @@ def stem_stage1_cuda(x: torch.Tensor,
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[t.data_ptr() if t is not None else None for t in tensors])
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = kernels.current_stream(x.device)
         rc = lib.stem_stage1_launch(x.data_ptr(),
                                     ctypes.cast(ptrs, ctypes.c_void_p),
                                     out.data_ptr(),

@@ -114,7 +114,9 @@ def jv_solve_plain(ext: torch.Tensor, p0: torch.Tensor,
     the sentinel S); n_live [B] int32 -> owner [B, S] int32, the row that
     owns each column. Each live row is augmented by a shortest augmenting
     path with dual potentials; the float32 operations are the kernel's,
-    in its order.
+    in its order. ``jv_solve_plain.pops`` counts the Dijkstra pops of every
+    call (the kernels' sequential steps; the count depends only on the
+    data).
     """
     bsz, s, _ = ext.shape
     dev = ext.device
@@ -152,6 +154,7 @@ def jv_solve_plain(ext: torch.Tensor, p0: torch.Tensor,
                     cur = nxt
                 j_from = j1
                 it += 1
+            jv_solve_plain.pops += it
             way_l = way.tolist()
             j0, it = j_from, 0
             while j0 < s and it < max_iters:
@@ -162,6 +165,9 @@ def jv_solve_plain(ext: torch.Tensor, p0: torch.Tensor,
         owners.append(p)
     return torch.tensor(owners, dtype=torch.int32,
                         device=dev).reshape(bsz, s)
+
+
+jv_solve_plain.pops = 0
 
 
 def _jv_extended(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,

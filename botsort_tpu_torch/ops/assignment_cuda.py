@@ -10,6 +10,10 @@ Jonker-Volgenant solve per problem; its plain version is
 ops/assignment.py::jv_solve_plain. ``solve_cascade_masked`` and
 ``solve_masked`` dispatch between kernel and plain version by the tensors'
 device.
+
+Each problem (each stream of a K2 batch) is one thread block: of one warp
+up to S = N + D = 256 columns (csrc/lap_common.cuh), of up to 1024
+threads above that, up to ``MAX_COLUMNS``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from botsort_tpu_torch.ops.assignment import MAX_ITERS, half_limit
 from botsort_tpu_torch.runtime import kernels
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block can use
+MAX_COLUMNS = 8 * 1024    # lap_common.cuh's kMaxS
 
 
 def _lib() -> ctypes.CDLL:
@@ -32,7 +37,7 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.cascade_lap_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.cascade_lap_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.cascade_lap_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -68,8 +73,9 @@ def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
     """costs [B, 3, N, D] f32, masks [B, 3N+3D] int32, big [B] f32, all
     contiguous on one CUDA device -> (cfr [B, 3, N], rfc [B, 3, D]) int32.
 
-    One thread block per problem, launched on the current stream; nothing
-    is synchronised. ``cascade_solve_cuda.launches`` counts launches at
+    One warp per stream (one block above N + D = 256), launched on the
+    current stream; nothing is synchronised.
+    ``cascade_solve_cuda.launches`` counts launches at
     B = 1 (K1), ``cascade_solve_cuda.batched_launches`` those at B > 1
     (K2).
     """
@@ -88,19 +94,21 @@ def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
     _check(big, "big", torch.float32, (bsz,), dev)
     if len(limits) != 3:
         raise ValueError("limits must hold the three pass limits")
+    if n + d > MAX_COLUMNS:
+        raise ValueError(f"N+D={n + d} is above {MAX_COLUMNS}")
     lib = _lib()
     smem = lib.cascade_lap_smem_bytes(n, d)
-    if smem > _SMEM_LIMIT:
+    if not 0 <= smem <= _SMEM_LIMIT:
         raise ValueError(f"N+D={n + d} needs {smem} B of shared memory "
                          f"(limit {_SMEM_LIMIT})")
     cfr = torch.empty((bsz, 3, n), dtype=torch.int32, device=dev)
     rfc = torch.empty((bsz, 3, d), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.cascade_lap_launch(
             costs.data_ptr(), masks.data_ptr(), big.data_ptr(),
             cfr.data_ptr(), rfc.data_ptr(), bsz, n, d,
-            *(half_limit(x) for x in limits), int(max_iters), stream)
+            *(half_limit(x) for x in limits), int(max_iters),
+            kernels.current_stream(dev))
     if rc != 0:
         raise RuntimeError(f"cascade_lap launch failed: CUDA error {rc}")
     if bsz == 1:
@@ -121,8 +129,9 @@ def jv_solve_cuda(ext: torch.Tensor, p0: torch.Tensor,
     n_live [B] int32, all contiguous on one CUDA device -> owner [B, S]
     int32 (see ops.assignment.jv_solve_plain for the contract).
 
-    One thread block per problem, launched on the current stream; nothing
-    is synchronised. ``jv_solve_cuda.launches`` counts launches.
+    One warp per problem (one block above S = 256), launched on the
+    current stream; nothing is synchronised. ``jv_solve_cuda.launches``
+    counts launches.
     """
     if not ext.is_cuda:
         raise ValueError("jv_solve_cuda takes CUDA tensors; the plain "
@@ -137,18 +146,19 @@ def jv_solve_cuda(ext: torch.Tensor, p0: torch.Tensor,
     _check(p0, "p0", torch.int32, (bsz, s), dev)
     _check(live_order, "live_order", torch.int32, (bsz, s), dev)
     _check(n_live, "n_live", torch.int32, (bsz,), dev)
+    if s > MAX_COLUMNS:
+        raise ValueError(f"S={s} is above {MAX_COLUMNS}")
     lib = _jv_lib()
     smem = lib.jv_lap_smem_bytes(s)
-    if smem > _SMEM_LIMIT:
+    if not 0 <= smem <= _SMEM_LIMIT:
         raise ValueError(f"S={s} needs {smem} B of shared memory "
                          f"(limit {_SMEM_LIMIT})")
     owner = torch.empty((bsz, s), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jv_lap_launch(
             ext.data_ptr(), p0.data_ptr(), live_order.data_ptr(),
             n_live.data_ptr(), owner.data_ptr(), bsz, s, int(max_iters),
-            stream)
+            kernels.current_stream(dev))
     if rc != 0:
         raise RuntimeError(f"jv_lap launch failed: CUDA error {rc}")
     jv_solve_cuda.launches += 1

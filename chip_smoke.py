@@ -9,9 +9,10 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
-              degenerate and tie-heavy instances.
+              degenerate and tie-heavy instances (k1_instances).
   4. K3       the square JV kernel against its plain version: random,
-              odd-shaped, all-parked and tie-heavy problems, S up to 114.
+              odd-shaped, all-parked and tie-heavy problems, S up to 114
+              (k3_problems).
   5. K2       eight 8-stream batches at N=64, D=50 (one stream without
               live rows), each one launch: equal to the plain version
               and to eight one-stream K1 launches.
@@ -32,7 +33,8 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               the same tracks on every stream.
  10. K5       the depthwise stencil against its plain version: the face
               encoder's 13 stride-1 shapes at 50 faces, odd shapes in
-              float32 and bfloat16, C > 1024; bit for bit.
+              float32 and bfloat16, C > 1024, a partial span of planes,
+              narrow planes on the scalar path; bit for bit.
  11. K4       the fused stem + stage 1 against its plain version at full
               width (N = 1, 7, 50 at 256x128, N = 8 at 384x128; relative
               L2 <= 1e-2, no element off by more than 5% of the largest)
@@ -48,7 +50,10 @@ Drives the port's paths on the card and fails loudly if any phase fails:
  13. timings  frame and step times, stage tables, and each kernel against
               its plain version (and a PyTorch call for the same function,
               where there is one) at the main paths' shapes, beside the
-              least time the card could take for the same work.
+              least time the card could take for the same work; the
+              solvers' pops per solve and time per pop, and K5's eager
+              time minus its CUDA-graph time (the wrapper's host cost) per
+              layer.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}. Run from the repository root:
@@ -186,9 +191,10 @@ def bound(nbytes, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_k1(torch, assignment, assignment_cuda, dev):
-    """Kernel vs plain version on the card; returns the K1 inputs at the
-    main path's shape for the timing phase and the max index error."""
+def k1_instances(torch, assignment, dev):
+    """phase_k1's instances in order: (N, D, generator options, the
+    kernel's arguments). The first 8 at N_TRACKS x N_DETS without options
+    are the timing inputs."""
     rng = np.random.default_rng(2024)
     cases = [(N_TRACKS, N_DETS, {})] * 100
     cases += [(n, d, {}) for n, d in ((12, 9), (5, 14), (16, 16), (3, 2))
@@ -197,13 +203,24 @@ def phase_k1(torch, assignment, assignment_cuda, dev):
               (10, 8, dict(empty_rows=True, empty_cols=True))]
     cases += [(n, d, dict(quantum=0.05)) for n, d in
               ((N_TRACKS, N_DETS), (12, 9), (16, 16)) for _ in range(8)]
-    timing_inputs = []
-    max_err = 0
-    for k, (n, d, kw) in enumerate(cases):
+    for n, d, kw in cases:
         inst = [torch.from_numpy(a).to(dev)
                 for a in cascade_instance(rng, n, d, **kw)]
         costs, masks, big = assignment.prepare_cascade(*inst, LIMITS)
-        args = (costs[None], masks[None], big[None], LIMITS)
+        yield n, d, kw, (costs[None], masks[None], big[None], LIMITS)
+
+
+def is_k1_timing(n, d, kw):
+    return (n, d) == (N_TRACKS, N_DETS) and not kw
+
+
+def phase_k1(torch, assignment, assignment_cuda, dev):
+    """Kernel vs plain version on the card; returns the K1 inputs at the
+    main path's shape for the timing phase and the max index error."""
+    timing_inputs = []
+    max_err = 0
+    for k, (n, d, kw, args) in enumerate(k1_instances(torch, assignment,
+                                                      dev)):
         got = assignment_cuda.cascade_solve_cuda(*args)
         want = assignment.cascade_solve_plain(*args)
         torch.cuda.synchronize()
@@ -211,17 +228,16 @@ def phase_k1(torch, assignment, assignment_cuda, dev):
             max_err = max(max_err, index_err(
                 torch, g, w, f"K1 != plain on instance {k} (N={n}, D={d}, "
                 f"{kw})"))
-        if (n, d) == (N_TRACKS, N_DETS) and not kw and \
-                len(timing_inputs) < 8:
+        if is_k1_timing(n, d, kw) and len(timing_inputs) < 8:
             timing_inputs.append(args)
-    log(f"K1: {len(cases)} instances equal to the plain version")
+    log(f"K1: {k + 1} instances equal to the plain version")
     return timing_inputs, max_err
 
 
-def phase_k3(torch, assignment, assignment_cuda, dev):
-    """K3 vs jv_solve_plain on solve_masked's square problems (S = N + D)
-    and on dense problems; returns the S = 114 inputs and the max index
-    error."""
+def k3_problems(torch, assignment, dev):
+    """phase_k3's problems in order, as the kernel's arguments: K3 on
+    solve_masked's square problems (S = N + D) and on dense ones. The
+    first 8 at S = N_TRACKS + N_DETS are the timing inputs."""
     rng = np.random.default_rng(33)
     problems = []
     for n, d, kind in ([(N_TRACKS, N_DETS, "random")] * 12
@@ -245,6 +261,13 @@ def phase_k3(torch, assignment, assignment_cuda, dev):
         problems.append(tuple(torch.from_numpy(a).to(dev) for a in (
             ext.astype(np.float32), p0, order,
             np.array([live], np.int32))))
+    return problems
+
+
+def phase_k3(torch, assignment, assignment_cuda, dev):
+    """K3 vs jv_solve_plain on k3_problems; returns the S = 114 timing
+    inputs and the max index error."""
+    problems = k3_problems(torch, assignment, dev)
     max_err = 0
     timing_inputs = []
     for k, args in enumerate(problems):
@@ -547,7 +570,9 @@ def phase_k5(torch, facereid_dw, dev):
     cases = [((N_FACES, c, h, w), bf16) for h, w, c in FACE_DW_SHAPES]
     cases += [((1, 8, 9, 13), f32), ((1, 8, 9, 13), bf16),
               ((4, 130, 6, 10), f32), ((4, 130, 6, 10), bf16),
-              ((2, 1100, 5, 7), bf16)]
+              ((2, 1100, 5, 7), bf16), ((3, 40, 12, 24), bf16),
+              ((1, 100, 16, 16), bf16), ((2, 33, 4, 4), bf16),
+              ((2, 12, 6, 2), f32)]
     face_inputs, max_err = [], 0.0
     for k, (shape, dtype) in enumerate(cases):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
@@ -566,7 +591,7 @@ def phase_k5(torch, facereid_dw, dev):
             face_inputs.append((x, taps))
     log(f"K5: {len(cases)} cases equal to the plain version bit for bit "
         f"(13 face-encoder shapes at N={N_FACES}, odd shapes in float32 and "
-        "bfloat16, C=1100)")
+        "bfloat16, C=1100, a partial span, narrow planes)")
     return face_inputs, max_err
 
 
@@ -838,35 +863,51 @@ def phase_encoder_timing(torch, F, fastreid_fused, facereid_dw, k4_model,
         b_ms, b_by = bound(nbytes, 18 * x.numel(), F32_FLOPS)
         all_bytes += nbytes
         all_flops += 18 * x.numel()
+        plan = facereid_dw.dw_plan(x.shape, x.element_size())
         log(f"timing: K5 N={n} {h}x{w}x{c}: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, F.conv2d(groups=C) {lib:.4f} ms; from a CUDA "
-            f"graph: kernel {dev_ms:.4f} ms, F.conv2d {dev_lib:.4f} ms; "
-            f"bound {b_ms:.4f} ms by {b_by}")
+            f"graph: kernel {dev_ms:.4f} ms ({nbytes / dev_ms / 1e9:.3f} "
+            f"TB/s), F.conv2d {dev_lib:.4f} ms; eager minus graph: kernel "
+            f"{ms - dev_ms:.4f} ms, F.conv2d {lib - dev_lib:.4f} ms; bound "
+            f"{b_ms:.4f} ms by {b_by}; plan {tuple(plan)}")
         for i, v in enumerate((ms, plain, lib, dev_ms, dev_lib)):
             totals[i] += v
     b_ms, b_by = bound(all_bytes, all_flops, F32_FLOPS)
     log(f"timing: K5 all 13 layers at N={N_FACES}: kernel {totals[0]:.4f} "
         f"ms, plain {totals[1]:.4f} ms, F.conv2d(groups=C) {totals[2]:.4f} "
         f"ms; from CUDA graphs: kernel {totals[3]:.4f} ms, F.conv2d "
-        f"{totals[4]:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"{totals[4]:.4f} ms; eager minus graph: kernel "
+        f"{totals[0] - totals[3]:.4f} ms, F.conv2d "
+        f"{totals[2] - totals[4]:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
         f"({all_bytes / 1e6:.2f} MB, {all_flops / 1e9:.3f} GFLOP); {card}")
     out["K5"] = (totals[0], totals[1], b_ms, b_by, totals[2])
     return out
 
 
+def pops_per_solve(torch, assignment, plain, args):
+    """Dijkstra pops of one plain solve on CPU copies of args (the count
+    depends only on the data): the kernels' sequential steps."""
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    before = assignment.jv_solve_plain.pops
+    plain(*cpu)
+    return assignment.jv_solve_plain.pops - before
+
+
 def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
                  k3_inputs, card):
-    """CUDA-event times of each kernel and its plain version on the card,
-    at the main paths' shapes; returns {kernel: (ms, plain ms)}."""
+    """CUDA-event times of each solver kernel and its plain version on the
+    card, at the main paths' shapes, with the pops each solve takes;
+    returns {kernel: (ms, plain ms, bound ms, bound by, library ms)}."""
     cuda = assignment_cuda.cascade_solve_cuda
     jv = assignment_cuda.jv_solve_cuda
+    k2_args = [b[1] for b in k2_batches[:3]]
     rows = {
         "K1": ([lambda a=a: cuda(*a) for a in k1_inputs],
                [lambda a=a: assignment.cascade_solve_plain(*a)
                 for a in k1_inputs]),
-        "K2": ([lambda a=b[1]: cuda(*a) for b in k2_batches[:3]],
-               [lambda a=b[1]: assignment.cascade_solve_plain(*a)
-                for b in k2_batches[:3]]),
+        "K2": ([lambda a=a: cuda(*a) for a in k2_args],
+               [lambda a=a: assignment.cascade_solve_plain(*a)
+                for a in k2_args]),
         "K3": ([lambda a=a: jv(*a) for a in k3_inputs],
                [lambda a=a: assignment.jv_solve_plain(*a)
                 for a in k3_inputs]),
@@ -874,6 +915,17 @@ def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
     shapes = {"K1": f"N={N_TRACKS} D={N_DETS}",
               "K2": f"{STREAMS} streams, N={N_TRACKS} D={N_DETS}",
               "K3": f"S={N_TRACKS + N_DETS}"}
+    # Pops per solve: a K2 batch waits for its slowest stream, so its
+    # critical path is the largest stream's count.
+    cascade_pops = lambda a: pops_per_solve(  # noqa: E731
+        torch, assignment, assignment.cascade_solve_plain, a)
+    pops = {
+        "K1": [cascade_pops(a) for a in k1_inputs],
+        "K2": [max(cascade_pops((c[s:s + 1], m[s:s + 1], b[s:s + 1], lim))
+                   for s in range(STREAMS)) for c, m, b, lim in k2_args],
+        "K3": [pops_per_solve(torch, assignment, assignment.jv_solve_plain,
+                              a) for a in k3_inputs],
+    }
     # Bytes: every input read once, every output written once. The
     # operations a solve needs depend on its data; at least one look at
     # each cost entry per pass, far below the bytes' time on this card.
@@ -887,9 +939,13 @@ def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
         k_ms = statistics.median(event_ms(torch, f, 50) for f in kernel)
         p_ms = statistics.median(event_ms(torch, f, 1) for f in plain)
         b_ms, b_by = bound(*work[name], F32_FLOPS)
+        med_pops = statistics.median(pops[name])
         log(f"timing: {name} {shapes[name]}: kernel {k_ms:.4f} ms, plain "
             f"PyTorch on the card {p_ms:.3f} ms (medians over "
-            f"{len(kernel)} inputs), bound {b_ms:.6f} ms by {b_by}, {card}")
+            f"{len(kernel)} inputs), bound {b_ms:.6f} ms by {b_by}; pops "
+            f"per solve{' (slowest stream)' if name == 'K2' else ''} "
+            f"{pops[name]} (median {med_pops}), {1e6 * k_ms / med_pops:.1f}"
+            f" ns per pop; {card}")
         # No single PyTorch call solves an assignment problem.
         out[name] = (k_ms, p_ms, b_ms, b_by, None)
     return out

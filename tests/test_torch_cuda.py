@@ -17,7 +17,7 @@ from botsort_tpu_torch.models import facereid, facereid_dw, fastreid
 from botsort_tpu_torch.models import fastreid_fused
 from botsort_tpu_torch.models.common import cast_compute
 from botsort_tpu_torch.ops import assignment, assignment_cuda
-from botsort_tpu_torch.runtime import assets
+from botsort_tpu_torch.runtime import assets, kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +74,44 @@ def test_k1_strided_lanes_equal_plain(dev):
         _instance(rng, 700, 400, p_row=0.05, p_col=0.1), dev)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,d", [(128, 128), (128, 129), (200, 56),
+                                 (56, 201)])
+def test_k1_warp_and_block_equal_plain(dev, n, d):
+    """N + D = 256 (one warp, 8 columns a lane) and 257 (one block): the
+    two instantiations of the pop loop."""
+    rng = np.random.default_rng(n + 7 * d)
+    for _ in range(2):
+        got, want = _kernel_and_plain(
+            _instance(rng, n, d, p_row=0.5, p_col=0.5, quantum=0.05), dev)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_k2_uneven_streams_equal_plain(dev):
+    """Eight streams whose pop counts differ widely (live rows from none
+    to nearly all), one warp each: equal to the plain version."""
+    rng = np.random.default_rng(12)
+    insts = [_instance(rng, 64, 50, p_row=p, p_col=p)
+             for p in (0.0, 0.05, 0.2, 0.4, 0.6, 0.8, 0.95, 1.0)]
+    batched = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*insts)]
+    costs, masks, big = assignment.prepare_cascade(*batched, LIMITS)
+    got = assignment_cuda.cascade_solve_cuda(costs, masks, big, LIMITS)
+    want = assignment.cascade_solve_plain(costs, masks, big, LIMITS)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(got[k], want[k])
+
+
+def test_wrappers_launch_on_the_current_stream(dev):
+    """The raw handle every wrapper passes is the current stream's, on
+    the default stream and inside a side stream."""
+    assert kernels.current_stream(dev) == \
+        torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert kernels.current_stream(dev) == side.cuda_stream
 
 
 def test_dispatcher_launches_k1_for_cuda_tensors(dev):
@@ -146,9 +184,11 @@ def _jv_problem(rng, s, n_live, quantum=None):
 
 @pytest.mark.parametrize("s,n_live,quantum", [
     (24, 7, None), (24, 0, None), (114, 60, None), (114, 114, 0.05),
-    (5, 5, None), (1, 1, None), (1100, 40, None)])
+    (5, 5, None), (1, 1, None), (1100, 40, None), (256, 200, 0.05),
+    (257, 200, 0.05), (240, 120, None)])
 def test_k3_equals_plain(dev, s, n_live, quantum):
-    """Square solves, including S > 1024 (more columns than threads)."""
+    """Square solves: one warp up to S = 256 (S = 240 too wide to stage
+    in shared memory), one block from 257, S > 1024 included."""
     rng = np.random.default_rng(s + n_live)
     probs = [_jv_problem(rng, s, n_live, quantum) for _ in range(3)]
     args = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*probs)]
@@ -211,16 +251,35 @@ def _dw_case(rng, shape, dtype, dev):
     ((50, 960, 4, 4), torch.bfloat16),
     ((1, 8, 9, 13), torch.float32), ((1, 8, 9, 13), torch.bfloat16),
     ((4, 130, 6, 10), torch.float32), ((4, 130, 6, 10), torch.bfloat16),
-    ((2, 1100, 5, 7), torch.bfloat16), ((1, 3, 40, 1500), torch.float32)])
+    ((2, 1100, 5, 7), torch.bfloat16), ((1, 3, 40, 1500), torch.float32),
+    ((2, 20, 40, 8), torch.bfloat16), ((2, 20, 24, 16), torch.bfloat16),
+    ((3, 40, 12, 24), torch.bfloat16), ((1, 100, 16, 16), torch.bfloat16),
+    ((2, 33, 4, 4), torch.bfloat16), ((2, 12, 6, 2), torch.float32),
+    ((1, 5, 300, 8), torch.float32)])
 def test_k5_equals_plain(dev, shape, dtype):
     """Bit for bit: the same float32 multiplies and adds in the same
-    order, none contracted (C > 1024 and a plane wider than a tile
-    included)."""
+    order, none contracted (C > 1024, a plane wider than a tile, widths 8,
+    16 and 24, a partial span of planes, and 4-wide bfloat16 and 2-wide
+    float32 planes on the scalar path included)."""
     x, taps = _dw_case(np.random.default_rng(shape[1]), shape, dtype, dev)
     got = facereid_dw.dw_conv3x3_cuda(x, taps)
     want = facereid_dw.dw_conv3x3_plain(x, taps)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_k5_unaligned_input_takes_the_scalar_path(dev):
+    """An input that does not start on a 16-byte boundary: equal to the
+    plain version."""
+    x, taps = _dw_case(np.random.default_rng(2), (1, 6, 8, 16),
+                       torch.bfloat16, dev)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    x_off = flat[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 != 0
+    got = facereid_dw.dw_conv3x3_cuda(x_off, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, facereid_dw.dw_conv3x3_plain(x, taps))
 
 
 def test_face_kernel_mode_launches_k5_per_layer(dev):

@@ -124,6 +124,105 @@ def test_dw_plain_matches_jax_stencil(shape, dtype):
                                    atol=1e-5)
 
 
+# The face encoder's 13 stride-1 depthwise layers at 128x128, (H, W, C),
+# and the odd shapes the card tests run.
+FACE_DW_SHAPES = ([(64, 64, 32), (32, 32, 144)] + [(16, 16, 192)] * 2
+                  + [(8, 8, 384)] * 4 + [(8, 8, 576)] * 2 + [(4, 4, 960)] * 3)
+PLAN_CASES = sorted({(50, c, h, w, 2) for h, w, c in FACE_DW_SHAPES}) + [
+    (1, 8, 9, 13, 4), (1, 8, 9, 13, 2), (4, 130, 6, 10, 2),
+    (2, 1100, 5, 7, 2), (1, 3, 40, 1500, 4), (2, 20, 40, 8, 2),
+    (2, 20, 24, 16, 2), (3, 40, 12, 24, 2), (1, 100, 16, 16, 2),
+    (2, 33, 4, 4, 2), (2, 12, 6, 2, 4), (1, 5, 300, 8, 4), (1, 1, 1, 1, 2)]
+
+
+def _plan_block(plan, shape, bx, by):
+    """What one block of csrc/dw_conv3x3.cu does under ``plan``, in the
+    kernel's own index arithmetic: (p0, the loaded span's first element
+    and length, where it lands in the tile, and every run as arrays of
+    plane-in-tile, output row, first column)."""
+    n, c, h, w = shape
+    if plan.band:
+        p0, y0 = bx, by * plan.rows
+        rows, planes = min(plan.rows, h - y0), 1
+        tile_y0, tile_rows = y0 - 1, plan.rows + 2
+        lo, hi = max(y0 - 1, 0), min(y0 + rows + 1, h)
+    else:
+        p0, y0, rows = bx * plan.planes, 0, h
+        planes = min(plan.planes, n * c - p0)
+        tile_y0, tile_rows, lo, hi = 0, h, 0, h * planes
+    load = ((p0 * h + lo) * w, (hi - lo) * w, (lo - tile_y0) * w)
+    rpr = w // plan.rw
+    runs = []
+    stride = plan.threads
+    sc, sr = stride % rpr, stride // rpr
+    sp, sr = sr // rows, sr % rows
+    for t in range(plan.threads):
+        rc, rr = t % rpr, t // rpr
+        lp, rr = rr // rows, rr % rows
+        while lp < planes:
+            runs.append((lp, y0 + rr, rc * plan.rw))
+            rc += sc
+            carry = int(rc >= rpr)
+            rc -= carry * rpr
+            rr += sr + carry
+            carry = int(rr >= rows)
+            rr -= carry * rows
+            lp += sp + carry
+    runs = np.array(runs, np.int64).reshape(-1, 3)
+    return p0, load, (tile_y0, tile_rows), runs
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_dw_plan_writes_every_output_once_and_reads_in_bounds(case):
+    """K5's launch plan on the face encoder's shapes at 50 faces and the
+    card tests' odd shapes: every output is written by exactly one run,
+    every tile read lies in the loaded span or is masked as padding, and
+    the vector path's loads and stores are aligned. Blocks of one kind
+    differ only by their offset, so each kind is walked once."""
+    *shape, itemsize = case
+    n, c, h, w = shape
+    plan = facereid_dw.dw_plan(shape, itemsize)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.smem <= 227 * 1024 and w % plan.rw == 0
+    if plan.rw > 1:
+        assert plan.rw * itemsize == 16
+    n_planes = n * c
+    gx, gy = plan.grid
+    count = np.zeros((n_planes, h, w), np.int32)
+    kinds = {}
+    for bx in range(gx):
+        for by in range(gy):
+            full = (bx + 1) * plan.planes <= n_planes
+            key = (by, full) if not plan.band else by
+            if key not in kinds:
+                kinds[key] = _plan_block(plan, shape, bx, by)
+            p0_kind, load, (tile_y0, tile_rows), runs = kinds[key]
+            p0 = bx * (1 if plan.band else plan.planes)
+            shift = (p0 - p0_kind) * h * w
+            start, length, dst = load
+            assert 0 <= start + shift and \
+                start + shift + length <= n_planes * h * w
+            assert 0 <= dst and (dst + length) * itemsize <= plan.smem
+            lp, y, x0 = runs.T
+            for j in range(plan.rw):
+                np.add.at(count, (p0 + lp, y, x0 + j), 1)
+    assert (count == 1).all()
+    for key, (p0, (start, length, dst), (tile_y0, tile_rows),
+              runs) in kinds.items():
+        lp, y, x0 = runs.T
+        if plan.rw > 1:
+            assert (((p0 + lp) * h * w + y * w + x0) % plan.rw == 0).all()
+        for r in range(3):
+            wy = y - 1 + r
+            inside = (wy >= 0) & (wy < h)
+            tile_at = (lp * tile_rows + wy - tile_y0) * w
+            loaded = (tile_at >= dst) & (tile_at + w <= dst + length)
+            assert (loaded | ~inside).all()
+            assert ((tile_at + w) * itemsize <= plan.smem)[inside].all()
+            assert ((tile_at + x0) % plan.rw == 0)[inside].all()
+        assert ((x0 >= 0) & (x0 + plan.rw <= w)).all()
+
+
 @pytest.fixture(scope="module")
 def faces():
     x = np.random.default_rng(11).uniform(0, 255, (3, 32, 32, 3)).astype(
@@ -163,6 +262,48 @@ def test_face_encode_and_compare_matches_jax(faces):
                                atol=2e-5)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=0,
                                atol=1e-4)
+
+
+def test_face_taps_follow_weight_updates(faces):
+    """The depthwise layers' [9, C] taps are built once per weight and
+    rebuilt after an in-place write, a load_state_dict, a new tensor
+    assigned to the weight's data and a dtype round trip; the features
+    still equal the JAX lowered model."""
+    x, params, _, want = faces
+    kern = _port(tface.FaceReID(**FACE_MINI, dw_mode="kernel"), params,
+                 torch.float32)
+    layers = [m for m in kern.modules() if getattr(m, "dw_kernel", False)]
+    assert layers
+    layer = layers[0]
+    first = layer.taps()
+    assert layer.taps() is first
+    state = {k: v.clone() for k, v in kern.state_dict().items()}
+    with torch.no_grad():
+        layer.Conv_0.weight.mul_(2.0)
+    second = layer.taps()
+    assert second is not first
+    assert torch.equal(second, facereid_dw.taps_of(layer.Conv_0.weight))
+    assert torch.equal(second, 2.0 * first)
+    kern.load_state_dict(state)
+    third = layer.taps()
+    assert third is not second and torch.equal(third, first)
+    # A new tensor behind the parameter, and a dtype round trip: both
+    # replace the weight's data without an in-place write.
+    weight = layer.Conv_0.weight
+    kept = weight.data
+    weight.data = 3.0 * kept
+    assert torch.equal(layer.taps(), 3.0 * first)
+    weight.data = kept.clone()
+    assert torch.equal(layer.taps(), first)
+    kern.to(torch.bfloat16).to(torch.float32)
+    rounded = layer.taps()
+    assert torch.equal(rounded, facereid_dw.taps_of(layer.Conv_0.weight))
+    assert not torch.equal(rounded, first)
+    kern.load_state_dict(state)
+    assert torch.equal(layer.taps(), first)
+    with torch.no_grad():
+        got = kern(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("mode", ["shift", "skip"])

@@ -11,6 +11,9 @@ equal JAX ``solve_masked`` exactly on random, degenerate and tie-heavy
 instances. Integers throughout: every comparison is exact.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -159,3 +162,68 @@ def test_library_name_follows_shared_headers(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     for name, path in before.items():
         assert kernels.library_path(name) != path, name
+
+
+def _pops(fn, *args):
+    before = tassign.jv_solve_plain.pops
+    fn(*args)
+    return tassign.jv_solve_plain.pops - before
+
+
+def test_pop_count_of_a_diagonal_problem_is_its_live_rows():
+    """Zero on the diagonal, one elsewhere, each live row's own column
+    free: every augmentation ends at its first pop."""
+    s, n_live = 12, 7
+    ext = np.ones((s, s), np.float32)
+    np.fill_diagonal(ext, 0.0)
+    parked = np.arange(s) >= n_live
+    args = _parked_problem(ext, parked, np.arange(s, dtype=np.int32))
+    assert _pops(tassign.jv_solve_plain, *args) == n_live
+
+
+def test_cascade_pops_are_its_three_solves():
+    rng = np.random.default_rng(3)
+    n, d = 12, 9
+    inst = [torch.from_numpy(a) for a in (
+        *(rng.uniform(0, 1, (n, d)).astype(np.float32) for _ in range(3)),
+        rng.uniform(0, 1, n) < 0.7, rng.uniform(0, 1, n) < 0.5,
+        rng.uniform(0, 1, n) < 0.3, rng.uniform(0, 1, d) < 0.7,
+        rng.uniform(0, 1, d) < 0.4)]
+    limits = (0.8, 0.5, 0.7)
+    costs, masks, big = tassign.prepare_cascade(*inst, limits)
+    total = _pops(tassign.cascade_solve_plain, costs[None], masks[None],
+                  big[None], limits)
+    m = masks.bool()
+    pool, tracked, unconf = m[:n], m[n:2 * n], m[2 * n:3 * n]
+    high1, high3, low = m[3 * n:3 * n + d], m[3 * n + d:3 * n + 2 * d], \
+        m[3 * n + 2 * d:]
+    halves = [tassign.half_limit(x) for x in limits]
+    before = tassign.jv_solve_plain.pops
+    c1, r1 = tassign._jv_extended(costs[0], pool, high1, halves[0], big)
+    tassign._jv_extended(costs[1], tracked & (c1 < 0), low, halves[1], big)
+    tassign._jv_extended(costs[2], unconf, high3 & (r1 < 0), halves[2], big)
+    assert total == tassign.jv_solve_plain.pops - before > 0
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_pop_counts_of_chip_smoke_timing_inputs_are_stable():
+    """The pops per solve that chip_smoke.py prints beside K1's and K3's
+    times: its own timing inputs (the first of each), counted twice."""
+    cs = _chip_smoke()
+    cpu = torch.device("cpu")
+    k1 = [a for n, d, kw, a in cs.k1_instances(torch, tassign, cpu)
+          if cs.is_k1_timing(n, d, kw)][:8]
+    k3 = [a for a in cs.k3_problems(torch, tassign, cpu)
+          if a[0].shape[1] == cs.N_TRACKS + cs.N_DETS][:8]
+    for plain, inputs in ((tassign.cascade_solve_plain, k1),
+                          (tassign.jv_solve_plain, k3)):
+        first = [_pops(plain, *args) for args in inputs]
+        assert first == [_pops(plain, *args) for args in inputs]
+        assert len(first) == 8 and min(first) > 0
