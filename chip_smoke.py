@@ -36,10 +36,11 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               float32 and bfloat16, C > 1024, a partial span of planes,
               narrow planes on the scalar path; bit for bit.
  11. K4       the fused stem + stage 1 against its plain version at full
-              width (N = 1, 7, 50 at 256x128, N = 8 at 384x128; relative
-              L2 <= 1e-2, no element off by more than 5% of the largest)
-              and against the unfused modules (3e-2, 15%), seeded weights
-              with perturbed batch norms.
+              width (N = 1, 7, 50, 128 at 256x128, N = 8 at 384x128;
+              relative L2 <= 1e-2, no element off by more than 5% of the
+              largest) and against the unfused modules (3e-2, 15%), seeded
+              weights with perturbed batch norms; two calls on one input
+              give the same bits (no atomics).
  12. lowered  the 8-stream path again with FastReIDSBS(fused_stem=True)
               and FaceReID(dw_mode="kernel") loaded with the same weights:
               K4 once per step run with body crops, K5 13 times per
@@ -51,9 +52,11 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               its plain version (and a PyTorch call for the same function,
               where there is one) at the main paths' shapes, beside the
               least time the card could take for the same work; the
-              solvers' pops per solve and time per pop, and K5's eager
-              time minus its CUDA-graph time (the wrapper's host cost) per
-              layer.
+              solvers' pops per solve and time per pop, K4's and K5's
+              eager time minus their CUDA-graph time (the wrappers' host
+              cost), and K4's time split by CUDA kernel (torch.profiler)
+              with each convolution's achieved TFLOP/s, its scratch bytes
+              and the least time its layer-by-layer bytes allow.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}. Run from the repository root:
@@ -65,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -93,7 +97,8 @@ FACE_DW_SHAPES = ([(64, 64, 32), (32, 32, 144)] + [(16, 16, 192)] * 2
 N_FACES = 50
 # K4's checks (N, H, W) and timings (N at 256x128), on a full-width stem
 # and stage 1 (later stages one block each: K4 does not reach them).
-K4_CASES = ((1, 256, 128), (7, 256, 128), (N_FACES, 256, 128), (8, 384, 128))
+K4_CASES = ((1, 256, 128), (7, 256, 128), (N_FACES, 256, 128),
+            (128, 256, 128), (8, 384, 128))
 K4_TIMING_N = (N_FACES, 128)
 K4_LAYOUT = dict(stage_blocks=(3, 1, 1, 1))
 # The H100's published peaks (NVIDIA data sheet, SXM, dense): bytes/s of
@@ -637,16 +642,21 @@ def phase_k4(torch, F, assets, fastreid, fastreid_fused, cast_compute,
             x = torch.from_numpy(rng.normal(0, 1, (n, h, w, 3)).astype(
                 np.float32)).to(dev, torch.bfloat16)
             got = fastreid_fused.stem_stage1_cuda(x, folded)
+            again = fastreid_fused.stem_stage1_cuda(x, folded)
             want = fastreid_fused.stem_stage1_plain(x, folded)
             ref = unfused_segment(torch, F, model, x)
             torch.cuda.synchronize()
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"K4 non-finite at N={n} {h}x{w}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K4 gave other bits on a second call "
+                                     f"at N={n} {h}x{w}")
             rel, worst, abs_err = rel_err(torch, got, want)
             rel_u, worst_u, _ = rel_err(torch, got, ref)
             log(f"K4: N={n} {h}x{w}: vs plain relative L2 {rel:.3e}, max "
                 f"{worst:.3e} of scale (abs {abs_err:.4g}); vs unfused "
-                f"modules {rel_u:.3e}, max {worst_u:.3e}")
+                f"modules {rel_u:.3e}, max {worst_u:.3e}; a second call "
+                "gives the same bits")
             if rel > 1e-2 or worst > 0.05:
                 raise AssertionError(f"K4 differs from plain at N={n} "
                                      f"{h}x{w}")
@@ -798,6 +808,75 @@ def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
     return k4_launches, k5_launches
 
 
+# The CUDA kernels of one K4 call, in launch order.
+K4_KERNELS = ["stem0", "stem1", "stem2", "maxpool"] + [
+    f"block{b}.{part}" for b in range(3)
+    for part in ("in", "split", "attention", "out")]
+
+
+def k4_layer_bytes(n, h, w, sw, width):
+    """Bytes a layer-by-layer K4 has to move through device memory: every
+    layer's input read once and its output written once (block 0 reads the
+    pooled stem for its first 1x1 and again for its shortcut; blocks 1 and 2
+    read their input as the residual too), and the weights."""
+    s1, s2 = n * (h // 2) * (w // 2), n * (h // 4) * (w // 4)
+    x, stem, stem2 = n * h * w * 3, s1 * sw, s1 * 2 * sw
+    pooled, t, y, out = s2 * 2 * sw, s2 * width, s2 * 2 * width, s2 * 4 * width
+    written = stem + stem + stem2 + pooled + 3 * (t + y + out)
+    read = (x + stem + stem + stem2            # the stem and the pool
+            + (pooled + t + y + pooled)        # block 0
+            + 2 * (out + t + y + out))         # blocks 1 and 2
+    return 2 * (written + read)
+
+
+def k4_split(torch, fastreid_fused, k4, x, folded, card):
+    """One K4 call under torch.profiler: device time of each of its CUDA
+    kernels, and each convolution's achieved TFLOP/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, h, w, _ = x.shape
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        k4(x, folded)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "kernel" in e.name]
+    events.sort(key=lambda e: e.time_range.start)
+    if len(events) != len(K4_KERNELS):
+        raise AssertionError(
+            f"K4 ran {len(events)} CUDA kernels under the profiler, expected "
+            f"{len(K4_KERNELS)}: {[e.name[:40] for e in events]}")
+    flops = {}
+    for sp in fastreid_fused.conv_specs(folded.stem_width, folded.width):
+        name = "block0.out" if sp.name == "block0.shortcut" else sp.name
+        pixels = n * (h >> sp.level) * (w >> sp.level)
+        flops[name] = flops.get(name, 0) + (
+            2 * pixels * sp.cout * (sp.cin // sp.groups) * sp.ksize ** 2)
+    plans = {p.name: p for p in fastreid_fused.conv_plan(
+        n, h, w, folded.stem_width, folded.width)}
+    total = 0.0
+    for label, ev in zip(K4_KERNELS, events):
+        us = getattr(ev, "device_time", None)
+        if us is None:
+            us = ev.cuda_time
+        total += us
+        found = re.search(r"\w+_kernel(<[^>]*>)?", ev.name)
+        short = found.group(0) if found else ev.name[:40]
+        line = f"timing: K4 split N={n}: {label:16s} {us:8.1f} us  {short}"
+        if label in flops:
+            plan = plans[label]
+            line += (f"  {flops[label] / us / 1e6:.1f} TFLOP/s, path "
+                     f"{plan.path}, tile {plan.m_tile}x{plan.n_tile}, grid "
+                     f"{plan.grid}, {plan.smem} B shared")
+        log(line)
+    if total <= 0.0:
+        raise AssertionError("torch.profiler gave K4's kernels no device "
+                             "time")
+    log(f"timing: K4 split N={n}: {len(events)} kernels, {total / 1e3:.4f} "
+        f"ms of device time in all; {card}")
+
+
 def phase_encoder_timing(torch, F, fastreid_fused, facereid_dw, k4_model,
                          face_inputs, card):
     """CUDA-event times of K4 and K5 against their plain versions, with
@@ -834,13 +913,24 @@ def phase_encoder_timing(torch, F, fastreid_fused, facereid_dw, k4_model,
         nbytes = (x.numel() * 2 + n * 4 * folded.width * 64 * 32 * 2
                   + weights)
         b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOPS)
-        log(f"timing: K4 N={n} 256x128: kernel {ms:.4f} ms (17 CUDA kernels "
-            f"per call), plain PyTorch on the card {plain:.3f} ms, the "
-            f"unfused modules (cuDNN, context only) {unfused:.4f} ms; "
-            f"replayed from a CUDA graph: kernel {dev_ms:.4f} ms, unfused "
-            f"{dev_unfused:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
-            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); {card}")
+        sw, width = folded.stem_width, folded.width
+        layer_bytes = k4_layer_bytes(n, 256, 128, sw, width) + weights
+        scratch = fastreid_fused.stem_stage1_scratch_bytes(n, 256, 128, sw,
+                                                           width)
+        log(f"timing: K4 N={n} 256x128: kernel {ms:.4f} ms "
+            f"({len(K4_KERNELS)} CUDA kernels per call), plain PyTorch on "
+            f"the card {plain:.3f} ms, the unfused modules (cuDNN, context "
+            f"only) {unfused:.4f} ms; replayed from a CUDA graph: kernel "
+            f"{dev_ms:.4f} ms, unfused {dev_unfused:.4f} ms; eager minus "
+            f"graph: kernel {ms - dev_ms:.4f} ms; bound {b_ms:.4f} ms by "
+            f"{b_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); the "
+            f"layers' own bytes {layer_bytes / 1e6:.1f} MB: at least "
+            f"{layer_bytes / HBM_BYTES_S * 1e3:.4f} ms layer by layer; "
+            f"scratch {scratch} B; {card}")
         out[f"K4@{n}"] = (ms, plain, b_ms, b_by, None)
+        if n == K4_TIMING_N[-1]:
+            with torch.no_grad():
+                k4_split(torch, fastreid_fused, k4, x, folded, card)
 
     totals = [0.0] * 5
     all_bytes = all_flops = 0

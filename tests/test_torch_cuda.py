@@ -338,7 +338,7 @@ def _rel(got, want):
                      stem_width=8))])
 def test_k4_close_to_plain(dev, n, h, w, layout):
     """Full width at both body geometries, and the SMALL preset (its
-    grouped conv has 4 input channels a group: the scalar gather path).
+    grouped conv has 4 input channels a group: the general WMMA path).
     Relative L2 1e-2, no element off by more than 5% of the largest."""
     model = _trunk(dev, 7, **layout)
     folded = model.folded_stem_stage1()
@@ -350,6 +350,62 @@ def test_k4_close_to_plain(dev, n, h, w, layout):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     rel, worst = _rel(got, want)
     assert rel <= 1e-2 and worst <= 0.05, (rel, worst)
+
+
+FULL_STEM = dict(stage_blocks=(3, 1, 1, 1))
+
+
+def _k4_input(dev, seed, n, h, w):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 1, (n, h, w, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,h,w", [
+    (1, 256, 128),      # fewer tiles than persistent blocks
+    (3, 40, 16),        # 40 stage-1 pixels an image: one partial tile
+    (5, 72, 24),        # 432 and 108 pixels: partial last tiles, odd N
+    (128, 256, 128)])   # the lowered 8-stream step's batch
+def test_k4_close_to_plain_across_batches(dev, n, h, w):
+    model = _trunk(dev, 12, **FULL_STEM)
+    folded = model.folded_stem_stage1()
+    x = _k4_input(dev, 13, n, h, w)
+    got = fastreid_fused.stem_stage1_cuda(x, folded)
+    want = fastreid_fused.stem_stage1_plain(x, folded)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, 256, h // 4, w // 4)
+    rel, worst = _rel(got, want)
+    assert rel <= 1e-2 and worst <= 0.05, (rel, worst)
+
+
+def test_k4_block0_shortcut_fusion(dev):
+    """Block 0's shortcut made to dominate its output (batch-norm scale x4,
+    bias +1): the fused second product must carry it."""
+    model = _trunk(dev, 14, **FULL_STEM)
+    x = _k4_input(dev, 15, 3, 256, 128)
+    before = fastreid_fused.stem_stage1_cuda(x, model.folded_stem_stage1())
+    with torch.no_grad():
+        bn = model.SplAtBottleneck_0._ConvBN_2.BatchNorm_0
+        bn.weight.mul_(4.0)
+        bn.bias.add_(1.0)
+    folded = model.folded_stem_stage1()
+    got = fastreid_fused.stem_stage1_cuda(x, folded)
+    want = fastreid_fused.stem_stage1_plain(x, folded)
+    torch.cuda.synchronize()
+    rel, worst = _rel(got, want)
+    assert rel <= 1e-2 and worst <= 0.05, (rel, worst)
+    assert _rel(got, before)[0] > 0.1    # the perturbation shows
+
+
+@pytest.mark.parametrize("n,h,w", [(7, 256, 128), (3, 40, 16)])
+def test_k4_is_deterministic(dev, n, h, w):
+    """No atomics anywhere: two calls on one input give the same bits."""
+    model = _trunk(dev, 16, **FULL_STEM)
+    folded = model.folded_stem_stage1()
+    x = _k4_input(dev, 17, n, h, w)
+    first = fastreid_fused.stem_stage1_cuda(x, folded)
+    second = fastreid_fused.stem_stage1_cuda(x, folded)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_trunk_launches_k4_once(dev):

@@ -429,6 +429,260 @@ def test_fold_follows_weight_updates(trunk):
     assert not torch.equal(second.stem[1].scale, first.stem[1].scale)
 
 
+# K4's tiling (fastreid_fused.conv_plan), walked on the CPU: the kernels'
+# index arithmetic in numpy, no card.
+
+FULL_W = dict(sw=32, width=64)
+SMALL_W = dict(sw=SMALL["stem_width"], width=SMALL["stage_widths"][0])
+
+
+def _group_width(spec):
+    return spec.cout // spec.groups
+
+
+@pytest.mark.parametrize("n,h,w", [(128, 256, 128), (8, 384, 128),
+                                   (1, 256, 128), (7, 40, 16)])
+def test_conv_plan_full_width_takes_the_fast_paths(n, h, w):
+    ff = fastreid_fused
+    plans = ff.conv_plan(n, h, w, **FULL_W)
+    specs = ff.conv_specs(**FULL_W)
+    assert [p.name for p in plans] == [s.name for s in specs]
+    assert len(plans) == 13 and plans[0].path == ff.STEM0
+    for plan, spec in zip(plans[1:], specs[1:]):
+        want = {("conv", 3): ff.HALO, ("conv", 1): ff.RING,
+                ("out", 1): ff.OUT}[(spec.role, spec.ksize)]
+        assert plan.path == want, plan
+        # Nothing is padded: the tile is the group's own output width.
+        assert plan.n_tile == _group_width(spec), plan
+        assert plan.m_tile == ff.TILE_M and plan.n_inst in (32, 64)
+        assert plan.threads == ff.FAST_THREADS
+        assert plan.smem <= ff.SMEM_LIMIT
+        if plan.path == ff.RING:
+            assert plan.stages >= 3
+    # K steps of 64: two taps of 32 channels, a quarter of a 256-wide 1x1.
+    steps = {p.name: p.k_steps for p in plans}
+    assert steps["stem1"] == steps["block1.split"] == 5
+    assert steps["block0.in"] == 1 and steps["block1.in"] == 4
+    fused = [p for p in plans if p.fused_into]
+    assert [p.name for p in fused] == ["block0.shortcut"]
+    assert fused[0].fused_into == "block0.out" and fused[0].smem == 0
+    tiles = -(-(h // 4) * (w // 4) // ff.TILE_M)
+    out = {p.name: p for p in plans}["block2.out"]
+    assert out.grid == (n * tiles, 1, 1)
+
+
+def test_conv_plan_small_preset_takes_the_general_path():
+    ff = fastreid_fused
+    plans = ff.conv_plan(2, 32, 16, **SMALL_W)
+    assert plans[0].path == ff.STEM0      # 8 output channels: one chunk
+    assert all(p.path == ff.GENERAL for p in plans[1:])
+    # ... and so do the folded weights' packings, conv for conv.
+    model = cast_compute(tbody.ResNeSt50(**SMALL), torch.bfloat16)
+    folded = fastreid_fused.fold_stem_stage1(model)
+    assert ff._folded_paths(folded) == [p.path for p in plans]
+    full = cast_compute(tbody.ResNeSt50(stage_blocks=(3, 1, 1, 1)),
+                        torch.bfloat16)
+    assert ff._folded_paths(fastreid_fused.fold_stem_stage1(full)) == [
+        p.path for p in ff.conv_plan(1, 256, 128, **FULL_W)]
+
+
+def test_launch_plan_refuses_what_does_not_fit():
+    ff = fastreid_fused
+    plan, total = ff._launch_plan(2, 256, 128, 32, 64)
+    assert total == ff.stem_stage1_scratch_bytes(2, 256, 128, 32, 64)
+    assert len(plan) == 9 + 12 * 5
+    assert list(plan[9:14]) == [2, 8, 2, ff.conv_plan(
+        2, 256, 128, 32, 64)[0].smem, 1]
+    with pytest.raises(ValueError, match="shared memory"):
+        ff._launch_plan(1, 64, 8192, 32, 64)   # a 2048-pixel-wide halo
+
+
+@pytest.mark.parametrize("shape,groups,path", [
+    ((32, 3, 3, 3), 1, "stem0"), ((8, 3, 3, 3), 1, "general"),
+    ((32, 32, 3, 3), 1, "halo"), ((64, 32, 3, 3), 1, "halo"),
+    ((128, 32, 3, 3), 2, "halo"), ((64, 256, 1, 1), 1, "ring"),
+    ((256, 64, 1, 1), 1, "out"), ((16, 4, 3, 3), 2, "general"),
+    ((72, 40, 1, 1), 1, "general")])
+def test_pack_conv_round_trips(shape, groups, path):
+    rng = np.random.default_rng(sum(shape))
+    w = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        torch.bfloat16)
+    packed = fastreid_fused.pack_conv(w, groups, path)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    k = shape[1] * shape[2] * shape[3]
+    if path in ("halo", "ring", "out"):
+        assert packed.shape == (groups, -(-k // 64), shape[0] // groups, 64)
+    assert int((packed != 0).sum()) == int((w != 0).sum())  # zeros pad
+    back = fastreid_fused.unpack_conv(packed, shape, groups, path)
+    assert torch.equal(back, w)
+
+
+def _halo_conv_walk(x, weight, groups):
+    """The 3x3 kernel's arithmetic (csrc/stem_stage1.cu::halo_conv_kernel)
+    in numpy: per block the table of every k16 slice's tap and halo byte
+    offset, per tile of 128 consecutive pixels the halo span with
+    zero-fill, per row the nine taps' validity bits from a row mask and a
+    column mask. Returns the float32 sums [n, h, w, cout], how often each
+    output was written, and checks every read."""
+    ff = fastreid_fused
+    n, h, w, cin = x.shape
+    cout = weight.shape[0]
+    cin_g, n_tile = cin // groups, cout // groups
+    assert ff.conv_path("conv", cin_g, n_tile, 3, 1) == ff.HALO
+    lg = cin_g.bit_length() - 1
+    packed = ff.pack_conv(weight, groups, ff.HALO).float().numpy()
+    k_steps = packed.shape[1]
+    hw = h * w
+    tiles = -(-hw // ff.TILE_M)
+    halo_px = ff.halo_pixels(w)
+    pitch = ff.halo_pitch(cin_g)
+    assert 4 * k_steps <= 128                   # the table's room
+    table = []
+    for k in range(0, 64 * k_steps, 16):
+        tap = k >> lg
+        at = min(tap, 8)        # K past the ninth tap: read tap 8, masked
+        ky = (at * 11) >> 5
+        assert ky == at // 3
+        off = (ky * w + at - 3 * ky) * pitch + (k & (cin_g - 1)) * 2
+        assert off < 1 << 24
+        table.append(tap << 24 | off)
+    xf = x.reshape(n, hw, cin)
+    out = np.zeros((n, hw, cout), np.float32)
+    written = np.zeros((n, hw, cout), np.int32)
+    for t in range(n * tiles):
+        img, tile = divmod(t, tiles)
+        p0 = tile * ff.TILE_M
+        for g in range(groups):
+            halo = np.zeros((halo_px, cin_g), np.float32)
+            for hq in range(halo_px):
+                q = p0 - w - 1 + hq
+                if 0 <= q < hw:             # else zero-filled, nothing read
+                    halo[hq] = xf[img, q, g * cin_g:(g + 1) * cin_g]
+            acc = np.zeros((ff.TILE_M, n_tile), np.float32)
+            for row in range(ff.TILE_M):
+                p = p0 + row
+                oy, ox = divmod(p, w)
+                rows = (0x007 if oy > 0 else 0) | 0x038 | (
+                    0x1C0 if oy + 1 < h else 0)
+                cols = (0x049 if ox > 0 else 0) | 0x092 | (
+                    0x124 if ox + 1 < w else 0)
+                taps_ok = rows & cols if p < hw else 0
+                for tp in range(9):
+                    iy, ix = oy + tp // 3 - 1, ox + tp % 3 - 1
+                    inside = p < hw and 0 <= iy < h and 0 <= ix < w
+                    assert bool((taps_ok >> tp) & 1) == inside
+                for ks in range(k_steps):
+                    for kk in range(4):
+                        tap, off = divmod(table[ks * 4 + kk], 1 << 24)
+                        hq, ci = row + off // pitch, off % pitch // 2
+                        assert 0 <= hq < halo_px       # ldmatrix's read
+                        assert ci + 16 <= cin_g
+                        a = halo[hq, ci:ci + 16]
+                        assert a.shape == (16,)
+                        if not (taps_ok >> tap) & 1:
+                            a = np.zeros(16, np.float32)
+                        acc[row] += a @ packed[g, ks, :, kk * 16:kk * 16 + 16].T
+            rows_valid = hw - p0
+            for row in range(min(ff.TILE_M, rows_valid)):
+                sl = slice(g * n_tile, (g + 1) * n_tile)
+                out[img, p0 + row, sl] = acc[row]
+                written[img, p0 + row, sl] += 1
+    return out.reshape(n, h, w, cout), written
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,groups", [
+    (1, 10, 16, 32, 32, 1),     # 160 pixels: a partial second tile
+    (3, 6, 8, 64, 128, 2),      # odd N, one partial tile, two groups
+    (1, 16, 8, 64, 64, 1)])     # a tap of 64 channels a K step
+def test_halo_conv_walk_covers_every_output_once(n, h, w, cin, cout, groups):
+    rng = np.random.default_rng(n * 100 + h)
+    x = rng.integers(-4, 5, (n, h, w, cin)).astype(np.float32)
+    weight = torch.from_numpy(rng.integers(-3, 4, (
+        cout, cin // groups, 3, 3)).astype(np.float32))
+    got, written = _halo_conv_walk(x, weight, groups)
+    assert (written == 1).all()
+    want = torch.nn.functional.conv2d(
+        torch.from_numpy(x).permute(0, 3, 1, 2), weight, padding=1,
+        groups=groups).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(got, want)   # small integers: exact
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 256, 128), (3, 40, 16), (2, 384, 128)])
+def test_tiles_cover_every_stage1_pixel_once(n, h, w):
+    """The ring and last-1x1 kernels' tiles: image x tile of 128 pixels,
+    chunk tid % 8 of rows tid / 8 + 32 i, rows past the image masked."""
+    ff = fastreid_fused
+    hw = (h // 4) * (w // 4)
+    tiles = -(-hw // ff.TILE_M)
+    plan = {p.name: p for p in ff.conv_plan(n, h, w, **FULL_W)}["block1.out"]
+    assert plan.grid[0] == n * tiles
+    seen = np.zeros((n, hw, 8), np.int32)
+    for block in range(plan.grid[0]):
+        img, tile = divmod(block, tiles)
+        p0 = tile * ff.TILE_M
+        rows_valid = hw - p0
+        for tid in range(ff.FAST_THREADS):
+            for i in range(4):
+                r = (tid >> 3) + 32 * i
+                if r < rows_valid:
+                    seen[img, p0 + r, tid & 7] += 1
+    assert (seen == 1).all()
+
+
+def test_scratch_layout_matches_the_plan():
+    ff = fastreid_fused
+    n, h, w = 5, 256, 128
+    offsets, total = ff.scratch_layout(n, h, w, **FULL_W)
+    assert list(offsets) == ["stem_a", "stem_b", "pooled", "t", "y",
+                             "partial", "att", "x1", "x2"]
+    assert all(o % 256 == 0 for o in offsets.values())
+    s1, s2 = n * 128 * 64, n * 64 * 32
+    tiles = {p.name: p for p in ff.conv_plan(n, h, w, **FULL_W)}[
+        "block0.split"]
+    assert tiles.m_tile == 128
+    sizes = [s1 * 64 * 2, s1 * 64 * 2, s2 * 64 * 2, s2 * 64 * 2,
+             s2 * 128 * 2, n * (64 * 32 // 128) * 128 * 4, n * 128 * 4,
+             s2 * 256 * 2, s2 * 256 * 2]
+    assert total == sum(-(-b // 256) * 256 for b in sizes)
+    assert total == ff.stem_stage1_scratch_bytes(n, h, w, **FULL_W)
+    # Gone: the float32 shortcut [N, H/4, W/4, 256] and the attention's
+    # bfloat16 output [N, H/4, W/4, 64].
+    assert total < sum(sizes[:5] + sizes[7:]) + s2 * 64 * 2
+
+
+def test_prepared_pointers_are_cached_per_folded_object():
+    ff = fastreid_fused
+    model = cast_compute(tbody.ResNeSt50(**SMALL), torch.bfloat16)
+    folded = ff.fold_stem_stage1(model)
+    cpu = torch.device("cpu")
+    first = ff._prepared(folded, cpu)
+    assert ff._prepared(folded, cpu) is first and len(first) == 57
+    again = ff.fold_stem_stage1(model)
+    assert ff._prepared(again, cpu) is not first
+    # Weights packed for another path than the plan's are refused.
+    blk = again.blocks[0]
+    bad = blk._replace(conv_in=blk.conv_in._replace(path=ff.RING))
+    with pytest.raises(ValueError, match="packed for"):
+        ff._prepared(again._replace(blocks=(bad,) + again.blocks[1:]), cpu)
+
+
+def test_k4_probe_layers_end_in_the_plain_output():
+    """cli/k4_probe.py holds each scratch buffer against the plain version
+    layer by layer: its layer walk must end in stem_stage1_plain's output
+    and name the buffers scratch_layout keeps."""
+    from botsort_tpu_torch.cli import k4_probe
+
+    model = cast_compute(tbody.ResNeSt50(**SMALL), torch.bfloat16).eval()
+    folded = fastreid_fused.fold_stem_stage1(model)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (2, 32, 16, 3)).astype(np.float32)).to(torch.bfloat16)
+    kept = k4_probe.plain_layers(x, folded)
+    assert torch.equal(kept["x2"],
+                       fastreid_fused.stem_stage1_plain(x, folded))
+    assert kept["stem1"].shape == (2, 8, 16, 8)
+    assert kept["y2"].shape == (2, 16, 8, 4)
+
+
 def test_body_encode_and_compare_matches_jax():
     """The body contract's order, (similarities, features), on the MINI
     float32 encoder."""
