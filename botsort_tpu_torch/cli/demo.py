@@ -2,10 +2,12 @@
 
 The flags of botsort_tpu/cli/demo.py, with ``-ep cuda|cpu`` choosing the
 device; ``cuda`` fails when no card is present. Video decoding, writing
-and drawing use OpenCV, which only this entry point imports. Model names
-select the architectures and input geometry; the weights are the seeded
-random init (runtime/assets.py), since loading converted checkpoints is
-not ported yet.
+and drawing use OpenCV, which only this entry point imports. The model
+names select the input geometry and the checkpoints:
+``{weights_dir}/{stem}.pt`` is loaded where it exists
+(tools/convert_orbax_to_torch.py writes these files); a network without
+one runs its seeded random init, with a warning. ``--gmc`` switches
+camera-motion compensation on (io/gmc.py).
 
 Run: python -m botsort_tpu_torch.cli.demo -v video.mp4 -ep cuda --headless
 """
@@ -47,7 +49,8 @@ def build_parser() -> ArgumentParser:
                         help="Classes rendered/attached in outputs (0 body, "
                              "1 head, 2 hand, 3 face).")
     parser.add_argument("--weights_dir", type=str, default="weights",
-                        help="Checkpoint directory (not read yet).")
+                        help="Checkpoint directory: {stem}.pt per model "
+                             "name.")
     parser.add_argument("--output", type=str, default="output.mp4")
     parser.add_argument("--headless", action="store_true",
                         help="No GUI window; default when no DISPLAY.")
@@ -58,13 +61,16 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--no_reid", action="store_true",
                         help="IoU-only association: skip both ReID encoders.")
     parser.add_argument("--gmc", action="store_true",
-                        help="Camera-motion compensation (not ported yet).")
+                        help="Camera-motion compensation: a sparse "
+                             "optical-flow affine per frame, applied to "
+                             "the Kalman states.")
     parser.add_argument("--int8", action="store_true",
                         help="int8 body ReID (not ported yet).")
     parser.add_argument("--int8_calib_frames", type=int, default=4,
                         help="Frames read for int8 calibration.")
     parser.add_argument("--profile", action="store_true",
-                        help="Print per-stage timing averages at exit.")
+                        help="Print per-stage timing averages at exit "
+                             "(every stage then waits for the card).")
     return parser
 
 
@@ -90,8 +96,10 @@ def main(argv=None):
     print(f"device: {name}")
     # bfloat16 networks on the card; float32 on the CPU.
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    bundle = assets.build_bundle(mini=args.mini, device=device,
-                                 dtype=dtype)
+    bundle = assets.build_bundle(
+        args.object_detection_model, args.body_feature_extractor_model,
+        args.face_feature_extractor_model, weights_dir=args.weights_dir,
+        mini=args.mini, device=device, dtype=dtype)
     pipe_cfg = PipelineConfig(
         detector_input_hw=assets.parse_detector_input_hw(
             args.object_detection_model) if not args.mini else (96, 128),
@@ -107,7 +115,8 @@ def main(argv=None):
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8,
     )
-    pipeline = BoTSORTPipeline(bundle, tracker_cfg, NMSConfig(), pipe_cfg)
+    pipeline = BoTSORTPipeline(bundle, tracker_cfg, NMSConfig(), pipe_cfg,
+                               profile=args.profile)
 
     cap = PrefetchingCapture(args.video)
     writer = None

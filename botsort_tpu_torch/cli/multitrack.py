@@ -5,17 +5,22 @@ streams of ``BatchedBoTSORTPipeline``: perception batched over the
 streams, the B association cascades one launch of kernel K2 per step.
 ``-ep cuda|cpu`` chooses the device; ``cuda`` fails when no card is
 present. Video decoding, writing and drawing use OpenCV, which only the
-CLI entry points import. The weights are the seeded random init
-(runtime/assets.py), since loading converted checkpoints is not ported.
+CLI entry points import. ``--weights_dir`` holds the checkpoints
+(``{stem}.pt`` per default model name, runtime/assets.py); a network
+without one runs its seeded random init, with a warning.
 
 Run:
   python -m botsort_tpu_torch.cli.multitrack -v a.mp4 b.mp4 [...] \\
-      -ep cuda [--output_dir out/] [--max_frames N]
+      -ep cuda [--output_dir out/] [--max_frames N] [--temporal T]
 
 Writes one annotated {stem}_tracked.mp4 per input (unless -dvw) and
 prints the aggregate frame rate. All videos must share one resolution;
 streams that end early are fed their last frame (their tracker state
-keeps coasting, outputs ignored).
+keeps coasting, outputs ignored). ``--temporal T`` steps T consecutive
+frames per stream at once (``TemporalBatchedBoTSORTPipeline``): more
+frames per second for T - 1 frames of added latency; a stream that ends
+inside a group coasts on its last frame to the group's end and only its
+real frames are written.
 """
 
 from __future__ import annotations
@@ -42,10 +47,11 @@ def build_parser() -> ArgumentParser:
                         action="store_true")
     parser.add_argument("--output_dir", type=str, default=".")
     parser.add_argument("--weights_dir", type=str, default="weights",
-                        help="Checkpoint directory (not read yet).")
+                        help="Checkpoint directory: {stem}.pt per model "
+                             "name.")
     parser.add_argument("--max_frames", type=int, default=0,
-                        help="Stop after N steps (0 = until every video "
-                             "ends).")
+                        help="Stop after N frames per stream (0 = until "
+                             "every video ends).")
     parser.add_argument("--artifact_dir", type=str, default="",
                         help="Serve from exported artifacts (not ported "
                              "yet: ROADMAP Queue 1 item 12).")
@@ -55,17 +61,16 @@ def build_parser() -> ArgumentParser:
                         help="Cards to spread the streams over (only 1 is "
                              "ported: ROADMAP Queue 1 item 11).")
     parser.add_argument("--temporal", type=int, default=1, metavar="T",
-                        help="Frames per stream per step (only 1 is "
-                             "ported: ROADMAP Queue 1 item 10).")
+                        help="Consecutive frames per stream per step: "
+                             "T - 1 frames of added latency for a higher "
+                             "frame rate.")
     parser.add_argument("--profile", action="store_true",
-                        help="Print per-stage timing averages at exit.")
+                        help="Print per-stage timing averages at exit "
+                             "(every stage then waits for the card).")
     return parser
 
 
 def _check_ported(args) -> None:
-    if args.temporal > 1:
-        raise NotImplementedError(
-            "--temporal > 1 is not ported yet (ROADMAP Queue 1 item 10)")
     if str(args.chips) != "1":
         raise NotImplementedError(
             "--chips other than 1 is not ported yet (ROADMAP Queue 1 "
@@ -90,14 +95,18 @@ def main(argv=None):
 
     from botsort_tpu_torch.io.draw import draw_tracks
     from botsort_tpu_torch.io.video import make_writer
-    from botsort_tpu_torch.pipeline.host import BatchedBoTSORTPipeline
+    from botsort_tpu_torch.pipeline.host import (
+        BatchedBoTSORTPipeline,
+        TemporalBatchedBoTSORTPipeline,
+    )
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {name}")
     # bfloat16 networks on the card; float32 on the CPU.
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    bundle = assets.build_bundle(mini=args.mini, device=device, dtype=dtype)
+    bundle = assets.build_bundle(weights_dir=args.weights_dir,
+                                 mini=args.mini, device=device, dtype=dtype)
     pipe_cfg = PipelineConfig() if not args.mini else PipelineConfig(
         detector_input_hw=(96, 128), body_reid_input_hw=(64, 32),
         face_reid_input_hw=(32, 32), max_reid_batch=4)
@@ -106,8 +115,17 @@ def main(argv=None):
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
     b = len(args.videos)
-    pipeline = BatchedBoTSORTPipeline(bundle, b, tracker_cfg, NMSConfig(),
-                                      pipe_cfg)
+    t_batch = max(1, int(args.temporal))
+    if t_batch > 1:
+        print(f"temporal batching: {t_batch} frames per stream per step "
+              f"({t_batch - 1} frame(s) of added latency)")
+        pipeline = TemporalBatchedBoTSORTPipeline(
+            bundle, b, t_batch, tracker_cfg, NMSConfig(), pipe_cfg,
+            profile=args.profile)
+    else:
+        pipeline = BatchedBoTSORTPipeline(bundle, b, tracker_cfg,
+                                          NMSConfig(), pipe_cfg,
+                                          profile=args.profile)
 
     caps = [cv2.VideoCapture(p) for p in args.videos]
     writers = [None] * b
@@ -116,53 +134,76 @@ def main(argv=None):
     n = 0
     live_frames = 0  # frames of live streams after the first step
     t_start = None
-    prev = None  # (frames, live flags, tracks) of the previous step
+    prev = None  # (frames[t][s], real frames per stream, tracks[t][s])
 
-    def emit(frames, real, tracks):
-        for s in range(b):
-            if not real[s]:
-                continue
-            if writers[s] is None and not args.disable_video_writer:
-                stem = os.path.splitext(os.path.basename(args.videos[s]))[0]
-                h, w = frames[s].shape[:2]
-                writers[s] = make_writer(
-                    os.path.join(args.output_dir, f"{stem}_tracked.mp4"),
-                    caps[s].get(cv2.CAP_PROP_FPS) or 30.0, (w, h))
-            draw_tracks(frames[s], tracks[s])
-            if writers[s] is not None:
-                writers[s].write(frames[s])
+    def emit(frames, real_t, tracks):
+        # A group's frames past a stream's last real one are coasting
+        # copies: dropped, as the streams that have ended are.
+        for tt in range(len(frames)):
+            for s in range(b):
+                if tt >= real_t[s]:
+                    continue
+                if writers[s] is None and not args.disable_video_writer:
+                    stem = os.path.splitext(
+                        os.path.basename(args.videos[s]))[0]
+                    h, w = frames[tt][s].shape[:2]
+                    writers[s] = make_writer(
+                        os.path.join(args.output_dir, f"{stem}_tracked.mp4"),
+                        caps[s].get(cv2.CAP_PROP_FPS) or 30.0, (w, h))
+                draw_tracks(frames[tt][s], tracks[tt][s])
+                if writers[s] is not None:
+                    writers[s].write(frames[tt][s])
 
     try:
         while any(live):
-            frames, real = [], []
-            for s, cap in enumerate(caps):
-                ok, f = cap.read() if live[s] else (False, None)
-                if not ok:
-                    live[s] = False
-                    f = last[s]
-                last[s] = f
-                frames.append(f)
-                real.append(ok)
-            if not any(real) or any(f is None for f in frames):
+            # One group: t_batch frames per stream. A stream that ends
+            # inside it coasts on its last frame; real_t counts its real
+            # frames.
+            group, real_t = [], [0] * b
+            for tt in range(t_batch):
+                row = []
+                for s, cap in enumerate(caps):
+                    ok, f = cap.read() if live[s] else (False, None)
+                    if not ok:
+                        live[s] = False
+                        f = last[s]
+                        if f is None:
+                            break
+                    else:
+                        real_t[s] = tt + 1
+                    last[s] = f
+                    row.append(f)
+                if len(row) < b:
+                    break
+                group.append(row)
+            if len(group) < t_batch or not any(real_t):
                 break
-            if len({f.shape for f in frames}) > 1:
+            shapes = {f.shape[:2] for row in group for f in row}
+            if len(shapes) > 1:
                 print("ERROR: all videos must share one resolution; got "
-                      f"{sorted({f.shape[:2] for f in frames})} (HxW).")
+                      f"{sorted(shapes)} (HxW).")
                 if prev is not None:
                     emit(*prev)
+                    prev = None
                 return 1
-            # Step this batch, then draw and encode the previous one while
-            # the card works on it.
-            handle = pipeline.update_async(np.stack(frames))
+            # Enqueue this step, then draw and encode the previous one
+            # while the card works on it.
+            if t_batch == 1:
+                handle = pipeline.update_async(np.stack(group[0]))
+            else:  # [T][B] -> [B, T, H, W, 3]
+                handle = pipeline.update_async(np.stack(
+                    [np.stack([group[tt][s] for tt in range(t_batch)])
+                     for s in range(b)]))
             if prev is not None:
                 emit(*prev)
-            prev = (frames, real, handle.result())
+            tracks = handle.result()
+            prev = (group, real_t, [tracks] if t_batch == 1 else tracks)
             if t_start is None:
                 t_start = time.perf_counter()  # the first step warms up
             else:
-                live_frames += sum(real)
+                live_frames += sum(real_t)
             n += 1
-            if args.max_frames and n >= args.max_frames:
+            if args.max_frames and n * t_batch >= args.max_frames:
                 break
         if prev is not None:
             emit(*prev)

@@ -82,7 +82,9 @@ class PipelineConfig:
     # Classes emitted in outputs and drawing (0 body, 1 head, 2 hand,
     # 3 face).
     track_target_classes: Tuple[int, ...] = (0, 1, 2, 3)
-    # Camera-motion compensation (not ported yet: the pipeline raises).
+    # Camera-motion compensation: BoTSORTPipeline estimates an affine per
+    # frame on the host (io/gmc.py) and the step applies it to the Kalman
+    # states.
     enable_gmc: bool = False
     # Pick the ReID bucket on the host from the previous frame's counts
     # and re-run a frame that overflows it; False embeds every slot.

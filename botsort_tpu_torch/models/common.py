@@ -7,7 +7,9 @@ so that runtime/from_flax.py maps a Flax variable tree onto them by path.
 
 Precision follows the JAX package: convolutions and dense layers run in
 the model's compute dtype (bfloat16 on the card); batch normalisation
-computes in float32 from float32 statistics and casts back.
+computes in float32 from float32 statistics and casts back. A norm and the
+activation after it are one call of models/bn_act.py::bn_act: kernel K6 on
+the card, one pass over the activation.
 """
 
 from __future__ import annotations
@@ -18,11 +20,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from botsort_tpu_torch.models.bn_act import bn_act
+
 
 class BatchNorm(nn.Module):
     """Inference batch norm over dim 1, Flax's formula:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast
-    back to the input dtype. Parameters and statistics stay float32."""
+    back to the input dtype, then the activation ``act`` (one of
+    models/bn_act.py::ACTS) on the cast value. Parameters and statistics
+    stay float32."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -31,12 +37,30 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self._mul = None
+        self._mul_key = None
+        self._mul_src = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
-        return (y + self.bias.view(shape)).to(x.dtype)
+    def mul(self) -> torch.Tensor:
+        """``rsqrt(var + eps) * scale`` [C] float32 of the current
+        statistics, rebuilt whenever the variance or the scale was
+        replaced, moved or written in place, or eps changed (an inference
+        constant: no gradient flows through it)."""
+        var, weight = self.running_var, self.weight.detach()
+        key = (var.data_ptr(), var._version, weight.data_ptr(),
+               weight._version, self.eps, var.device, var.dtype)
+        if key != self._mul_key:
+            with torch.no_grad():
+                self._mul = torch.rsqrt(var + self.eps) * weight
+            self._mul_key = key
+            # Holding the sources keeps their memory from being handed to
+            # later tensors at the same addresses, which the key would
+            # miss.
+            self._mul_src = (var, weight)
+        return self._mul
+
+    def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        return bn_act(x, self.running_mean, self.mul(), self.bias, act)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -66,8 +90,8 @@ class ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
-        return F.silu(x) if self.act else x
+        return self.BatchNorm_0(self.Conv_0(x),
+                                "silu" if self.act else "none")
 
 
 class Bottleneck(nn.Module):
@@ -136,4 +160,4 @@ class Focus(nn.Module):
         self.BatchNorm_0 = BatchNorm(features, 1e-3)
 
     def forward(self, x):
-        return F.silu(self.BatchNorm_0(self.Conv_0(x)))
+        return self.BatchNorm_0(self.Conv_0(x), "silu")

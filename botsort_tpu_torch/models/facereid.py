@@ -74,8 +74,7 @@ class _ConvBNRelu6(nn.Module):
             x = dw_conv3x3(x, self.taps())
         else:
             x = self.Conv_0(x)
-        x = self.BatchNorm_0(x)
-        return torch.clamp(x, 0.0, 6.0) if self.act else x
+        return self.BatchNorm_0(x, "relu6" if self.act else "none")
 
 
 class InvertedResidual(nn.Module):

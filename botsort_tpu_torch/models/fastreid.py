@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from botsort_tpu_torch.models.common import BatchNorm, conv2d
+from botsort_tpu_torch.utils.consts import const
 from botsort_tpu_torch.models.fastreid_fused import (
     fold_stem_stage1,
     geometry_ok,
@@ -42,8 +43,8 @@ class _ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
-        return F.relu(x) if self.act else x
+        return self.BatchNorm_0(self.Conv_0(x),
+                                "relu" if self.act else "none")
 
 
 class SplAtConv(nn.Module):
@@ -67,7 +68,7 @@ class SplAtConv(nn.Module):
         r = self.radix
         splits = x.view(b, r, -1, h, w)
         gap = splits.sum(dim=1).mean(dim=(2, 3))                     # [B, C]
-        z = F.relu(self.BatchNorm_0(self.Dense_0(gap)))
+        z = self.BatchNorm_0(self.Dense_0(gap), "relu")
         atten = self.Dense_1(z).view(b, r, -1)
         atten = torch.softmax(atten.float(), dim=1).to(x.dtype)      # rSoftmax
         return (splits * atten[..., None, None]).sum(dim=1)
@@ -210,6 +211,6 @@ def encode_and_compare(model: FastReIDSBS, images: torch.Tensor,
 def preprocess(images_bgr: torch.Tensor) -> torch.Tensor:
     """BGR [N, H, W, 3] -> normalised RGB float32 (ImageNet mean/std)."""
     rgb = images_bgr.flip(-1).float() / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, device=rgb.device)
-    std = torch.tensor(IMAGENET_STD, device=rgb.device)
+    mean = const(IMAGENET_MEAN, torch.float32, rgb.device)
+    std = const(IMAGENET_STD, torch.float32, rgb.device)
     return (rgb - mean) / std

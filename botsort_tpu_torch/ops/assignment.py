@@ -35,6 +35,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from botsort_tpu_torch.utils.consts import const
+
 # The reference solver's "unreached" value (a float, not a tensor, so
 # importing this module allocates nothing).
 _INF = 1e30
@@ -60,7 +62,7 @@ def _ext_matrix(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,
     n, d = cost.shape
     dev = cost.device
     f32 = torch.float32
-    half_t = torch.tensor(half, dtype=f32, device=dev)
+    half_t = const(half, f32, dev)
     zero = torch.zeros((), dtype=f32, device=dev)
     big = big.to(f32)
     ext = torch.zeros((n + d, n + d), dtype=f32, device=dev)
@@ -191,7 +193,7 @@ def masked_problem(cost: torch.Tensor, row_valid: torch.Tensor,
     parking. Returns (ext [S, S], p0 [S], live_order [S], n_live [],
     row_valid, col_valid) with the pre-parked masks."""
     cost = cost.to(torch.float32)
-    limit = torch.tensor(cost_limit, dtype=torch.float32, device=cost.device)
+    limit = const(cost_limit, torch.float32, cost.device)
     valid_pair = row_valid[:, None] & col_valid[None, :]
     feasible = valid_pair & (cost <= limit)
     row_valid = row_valid & feasible.any(dim=1)
@@ -244,7 +246,7 @@ def prepare_cascade(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
     tracked, unconf, high1, high3, low) and big [...] f32.
     """
     f32 = torch.float32
-    lim = [torch.tensor(x, dtype=f32, device=dists1.device) for x in limits]
+    lim = [const(x, f32, dists1.device) for x in limits]
     costs = torch.stack([dists1, iou_d, dists3], dim=-3).to(f32)
     costs = torch.nan_to_num(costs, posinf=1e9, neginf=-1e9)
     big = (costs.abs().amax(dim=(-3, -2, -1))

@@ -13,6 +13,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from botsort_tpu_torch.ops.boxes import iou_matrix
+from botsort_tpu_torch.utils.consts import const
 
 
 def greedy_assign_batch(problems: Sequence[tuple]) -> List[tuple]:
@@ -30,9 +31,9 @@ def greedy_assign_batch(problems: Sequence[tuple]) -> List[tuple]:
     target = torch.stack([pr[2] for pr in problems])          # [P, T, 4]
     target_valid = torch.stack([pr[3] for pr in problems])    # [P, T]
     dev = base.device
-    round_active = torch.tensor(
+    round_active = const(
         [[r < pr[4] for r in range(max_rounds)] for pr in problems],
-        device=dev)                                           # [P, R]
+        torch.bool, dev)                                      # [P, R]
 
     iou = iou_matrix(base, target)                            # [P, B, T]
     iou = torch.where(base_valid[:, :, None] & target_valid[:, None, :],
@@ -46,7 +47,7 @@ def greedy_assign_batch(problems: Sequence[tuple]) -> List[tuple]:
     picks = torch.empty((b, len(problems), max_rounds), dtype=torch.int32,
                         device=dev)
     zero = torch.zeros((), dtype=iou.dtype, device=dev)
-    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dev)
+    inf = const(float("inf"), dist.dtype, dev)
     for bi in range(b):
         for r in range(max_rounds):
             row_iou = torch.where(used, zero, iou[:, bi, :])  # [P, T]

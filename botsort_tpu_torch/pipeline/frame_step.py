@@ -7,8 +7,14 @@
 
 ``frame_step_batched`` steps B independent streams at once, every stage
 batched over the stream axis; ``frame_step`` and the single-frame stage
-functions are its one-stream case. All per-frame shapes are fixed (padded
-slots + masks), as in the JAX package. The ReID encoders run at a static
+functions are its one-stream case. ``frame_step_batched_temporal`` takes T
+consecutive frames per stream: perception over the B x T frames as one
+batch, then T chained cascades (``frame_step_temporal`` is one stream's).
+All per-frame shapes are fixed (padded slots + masks), as in the JAX
+package. Between the frames coming in and the FrameResult going out a
+step only enqueues work on the device: no stage reads a value back (the
+JAX package's step is one jitted program), so a step can be captured in a
+CUDA graph and replayed (pipeline/graphed.py). The ReID encoders run at a static
 bucket: the first ``bucket`` body slots of every stream are embedded and
 the rest are zeros, which is exact whenever the bucket covers each
 stream's live detections (the host facades guarantee that by re-running a
@@ -37,6 +43,7 @@ from botsort_tpu_torch.track.cascade import (
     tracker_update_batched,
 )
 from botsort_tpu_torch.track.state import TrackStore
+from botsort_tpu_torch.utils.consts import const
 
 BODIES, HEADS, HANDS, FACES = 0, 1, 2, 3
 
@@ -54,6 +61,9 @@ class FrameResult(NamedTuple):
     hand1_for_body: torch.Tensor  # [K] int32
     hand2_for_body: torch.Tensor  # [K] int32
     nms_clipped: torch.Tensor    # [C] bool — NMS pre-top-k saturated
+    # [] bool — the NMS fixpoint was reached within its fixed iteration
+    # count (ops/nms.py); the host re-runs a frame where it was not.
+    nms_converged: torch.Tensor
     tracks: TrackOutputs
 
 
@@ -158,17 +168,20 @@ def postprocess_detections_batched(cand_boxes: torch.Tensor,
                                    cand_scores: torch.Tensor, src_hw,
                                    tracker_cfg: TrackerConfig,
                                    nms_cfg: NMSConfig,
-                                   pipe_cfg: PipelineConfig):
+                                   pipe_cfg: PipelineConfig,
+                                   nms_iters: Optional[int] = None):
     """Candidates [B, A, 4] / [B, A, C] in detector-input pixels ->
     (Detections [B, ...], det_boxes [B, C, K, 4] in source pixels,
     det_valid [B, C, K]): class-aware NMS over all frames and classes at
-    once, the truncating rescale and the detector's score filter."""
+    once, the truncating rescale and the detector's score filter.
+    nms_iters: iterations of the suppression fixpoint (None = ops/nms.py's
+    FIXPOINT_ITERS)."""
     dets = nms.multiclass_nms_dense_batched(
         cand_boxes, cand_scores,
         iou_threshold=nms_cfg.iou_threshold,
         score_threshold=nms_cfg.score_threshold,
         max_per_class=nms_cfg.max_boxes_per_class,
-        pre_nms_top_k=nms_cfg.pre_nms_top_k)
+        pre_nms_top_k=nms_cfg.pre_nms_top_k, iters=nms_iters)
     det_boxes = _rescale_to_source(dets.boxes, pipe_cfg.detector_input_hw,
                                    src_hw)
     det_valid = dets.valid & (dets.scores > tracker_cfg.det_score_threshold)
@@ -178,12 +191,13 @@ def postprocess_detections_batched(cand_boxes: torch.Tensor,
 def postprocess_detections(cand_boxes: torch.Tensor,
                            cand_scores: torch.Tensor, src_hw,
                            tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
-                           pipe_cfg: PipelineConfig):
+                           pipe_cfg: PipelineConfig,
+                           nms_iters: Optional[int] = None):
     """One frame: candidates [A, 4] / [A, C] -> (Detections, det_boxes
     [C, K, 4], det_valid [C, K])."""
     dets, det_boxes, det_valid = postprocess_detections_batched(
         cand_boxes[None], cand_scores[None], src_hw, tracker_cfg, nms_cfg,
-        pipe_cfg)
+        pipe_cfg, nms_iters)
     return _first(dets), det_boxes[0], det_valid[0]
 
 
@@ -270,13 +284,81 @@ def embed(bundle: ModelBundle, frame_bgr: torch.Tensor,
     return body[0], face[0]
 
 
+class Perception(NamedTuple):
+    """Everything a step computes before the cascade, for G frames."""
+
+    dets: nms.Detections         # [G, ...] NMS output, detector pixels
+    det_boxes: torch.Tensor      # [G, C, K, 4] source pixels
+    det_valid: torch.Tensor      # [G, C, K]
+    face_for_head: torch.Tensor  # [G, K]
+    head_for_body: torch.Tensor
+    hand1_for_body: torch.Tensor
+    hand2_for_body: torch.Tensor
+    body_feats: torch.Tensor     # [G, D, Db]
+    face_feats: torch.Tensor     # [G, D, Df]
+
+
+def _perception_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
+                        tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
+                        pipe_cfg: PipelineConfig, reid_bucket: Optional[int],
+                        face_bucket: Optional[int],
+                        nms_iters: Optional[int]) -> Perception:
+    """The stages before the cascade, batched over the G frames of
+    frames_bgr [G, H, W, 3]: resize, detector, NMS, hierarchy and both
+    encoders (the JAX package's ``_perception_batched``)."""
+    g = frames_bgr.shape[0]
+    src_hw = (frames_bgr.shape[1], frames_bgr.shape[2])
+    d = _det_width(tracker_cfg, nms_cfg)
+    if reid_bucket is None:
+        reid_bucket = d
+    if face_bucket is None:
+        face_bucket = reid_bucket
+    full = const((0.0, 0.0, float(src_hw[1]), float(src_hw[0])),
+                 torch.float32, frames_bgr.device).expand(g, 1, 4)
+    det_in = crop_and_resize_batched(frames_bgr, full,
+                                     pipe_cfg.detector_input_hw)[:, 0]
+    cand_boxes, cand_scores = bundle.detector(det_in)
+    dets, det_boxes, det_valid = postprocess_detections_batched(
+        cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg,
+        nms_iters)
+    face_for_head, head_for_body, hand1_for_body, hand2_for_body = \
+        attach_hierarchy_batched(det_boxes, det_valid)
+    body_feats, face_feats = embed_batched(
+        bundle, frames_bgr, det_boxes, face_for_head, head_for_body,
+        tracker_cfg, nms_cfg, pipe_cfg, reid_bucket, face_bucket)
+    return Perception(dets, det_boxes, det_valid, face_for_head,
+                      head_for_body, hand1_for_body, hand2_for_body,
+                      body_feats, face_feats)
+
+
+def _frame_result(p: Perception, tracks: TrackOutputs, shape=None
+                  ) -> FrameResult:
+    """The FrameResult of a perception and its tracks; ``shape`` = (B, T)
+    folds the perception's leading B*T into [B, T]."""
+    fold = (lambda x: x) if shape is None else (
+        lambda x: x.reshape(shape + tuple(x.shape[1:])))
+    return FrameResult(
+        det_boxes=fold(p.det_boxes),
+        det_scores=fold(p.dets.scores),
+        det_valid=fold(p.det_valid),
+        head_for_body=fold(p.head_for_body),
+        face_for_head=fold(p.face_for_head),
+        hand1_for_body=fold(p.hand1_for_body),
+        hand2_for_body=fold(p.hand2_for_body),
+        nms_clipped=fold(p.dets.clipped),
+        nms_converged=fold(p.dets.converged),
+        tracks=tracks,
+    )
+
+
 @torch.no_grad()
 def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
                        frames_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
                        nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                        gmc_affines: Optional[torch.Tensor] = None,
                        reid_bucket: Optional[int] = None,
-                       face_bucket: Optional[int] = None
+                       face_bucket: Optional[int] = None,
+                       nms_iters: Optional[int] = None
                        ) -> Tuple[TrackStore, FrameResult]:
     """B independent streams through one step: frames_bgr [B, H, W, 3]
     uint8 on the bundle's device, one frame per stream; stores carries a
@@ -291,46 +373,20 @@ def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
     reid_bucket: body crops embedded per stream (None = the full det
     width, always exact); face_bucket: face crops per stream (defaults to
     reid_bucket). gmc_affines: optional [B, 2, 3] per-stream camera
-    motion. ``PipelineConfig.crop_int8`` and ``compute_dtype`` are TPU
+    motion. nms_iters: iterations of the NMS fixpoint (None = ops/nms.py's
+    FIXPOINT_ITERS; ``FrameResult.nms_converged`` says whether they were
+    enough). ``PipelineConfig.crop_int8`` and ``compute_dtype`` are TPU
     lowerings and are not read: crops interpolate in float32 and the
     networks run in the bundle's dtype.
     """
-    bsz = frames_bgr.shape[0]
-    src_hw = (frames_bgr.shape[1], frames_bgr.shape[2])
     d = _det_width(tracker_cfg, nms_cfg)
-    if reid_bucket is None:
-        reid_bucket = d
-    if face_bucket is None:
-        face_bucket = reid_bucket
-
-    full = torch.tensor([0.0, 0.0, float(src_hw[1]), float(src_hw[0])],
-                        device=frames_bgr.device).expand(bsz, 1, 4)
-    det_in = crop_and_resize_batched(frames_bgr, full,
-                                     pipe_cfg.detector_input_hw)[:, 0]
-    cand_boxes, cand_scores = bundle.detector(det_in)
-    dets, det_boxes, det_valid = postprocess_detections_batched(
-        cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg)
-    face_for_head, head_for_body, hand1_for_body, hand2_for_body = \
-        attach_hierarchy_batched(det_boxes, det_valid)
-    body_feats, face_feats = embed_batched(
-        bundle, frames_bgr, det_boxes, face_for_head, head_for_body,
-        tracker_cfg, nms_cfg, pipe_cfg, reid_bucket, face_bucket)
+    p = _perception_batched(bundle, frames_bgr, tracker_cfg, nms_cfg,
+                            pipe_cfg, reid_bucket, face_bucket, nms_iters)
     stores, tracks = tracker_update_batched(
-        stores, det_boxes[:, BODIES, :d], dets.scores[:, BODIES, :d],
-        det_valid[:, BODIES, :d], body_feats, face_feats, tracker_cfg,
+        stores, p.det_boxes[:, BODIES, :d], p.dets.scores[:, BODIES, :d],
+        p.det_valid[:, BODIES, :d], p.body_feats, p.face_feats, tracker_cfg,
         gmc_affines)
-    result = FrameResult(
-        det_boxes=det_boxes,
-        det_scores=dets.scores,
-        det_valid=det_valid,
-        head_for_body=head_for_body,
-        face_for_head=face_for_head,
-        hand1_for_body=hand1_for_body,
-        hand2_for_body=hand2_for_body,
-        nms_clipped=dets.clipped,
-        tracks=tracks,
-    )
-    return stores, result
+    return stores, _frame_result(p, tracks)
 
 
 def frame_step(bundle: ModelBundle, store: TrackStore,
@@ -338,7 +394,8 @@ def frame_step(bundle: ModelBundle, store: TrackStore,
                nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                gmc_affine: Optional[torch.Tensor] = None,
                reid_bucket: Optional[int] = None,
-               face_bucket: Optional[int] = None
+               face_bucket: Optional[int] = None,
+               nms_iters: Optional[int] = None
                ) -> Tuple[TrackStore, FrameResult]:
     """One stream's step: frame_bgr [H, W, 3] uint8 on the bundle's
     device, a store without the stream dimension, gmc_affine [2, 3] or
@@ -346,5 +403,63 @@ def frame_step(bundle: ModelBundle, store: TrackStore,
     stores, result = frame_step_batched(
         bundle, store.map(lambda x: x[None]), frame_bgr[None], tracker_cfg,
         nms_cfg, pipe_cfg, None if gmc_affine is None else gmc_affine[None],
-        reid_bucket, face_bucket)
+        reid_bucket, face_bucket, nms_iters)
+    return stores.map(lambda x: x[0]), stream_result(result, 0)
+
+
+@torch.no_grad()
+def frame_step_batched_temporal(bundle: ModelBundle, stores: TrackStore,
+                                frames_bgr: torch.Tensor,
+                                tracker_cfg: TrackerConfig,
+                                nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
+                                gmc_affines: Optional[torch.Tensor] = None,
+                                reid_bucket: Optional[int] = None,
+                                face_bucket: Optional[int] = None,
+                                nms_iters: Optional[int] = None
+                                ) -> Tuple[TrackStore, FrameResult]:
+    """B streams x T consecutive frames each in one step: frames_bgr
+    [B, T, H, W, 3] uint8, stores with a leading [B], gmc_affines
+    [B, T, 2, 3] or None. Perception runs batched over all B x T frames
+    (the detector at batch B*T, each encoder once on every frame's crops);
+    then the cascades run as T chained ``tracker_update_batched`` calls
+    through the stores (T launches of kernel K2 on the card). Returns the
+    stores after the last frame and a FrameResult whose every field has a
+    leading [B, T]. Equal to T ``frame_step_batched`` calls on perception
+    of the same batch size; a stream waits T - 1 frames longer for its
+    first result."""
+    b, t = frames_bgr.shape[0], frames_bgr.shape[1]
+    d = _det_width(tracker_cfg, nms_cfg)
+    p = _perception_batched(bundle, frames_bgr.flatten(0, 1), tracker_cfg,
+                            nms_cfg, pipe_cfg, reid_bucket, face_bucket,
+                            nms_iters)
+
+    def at(x, tt):  # [B*T, ...] -> frame tt of every stream, [B, ...]
+        return x.reshape((b, t) + tuple(x.shape[1:]))[:, tt]
+
+    outs = []
+    for tt in range(t):
+        stores, tracks = tracker_update_batched(
+            stores, at(p.det_boxes, tt)[:, BODIES, :d],
+            at(p.dets.scores, tt)[:, BODIES, :d],
+            at(p.det_valid, tt)[:, BODIES, :d], at(p.body_feats, tt),
+            at(p.face_feats, tt), tracker_cfg,
+            None if gmc_affines is None else gmc_affines[:, tt])
+        outs.append(tracks)
+    tracks = TrackOutputs(*(torch.stack(xs, dim=1) for xs in zip(*outs)))
+    return stores, _frame_result(p, tracks, (b, t))
+
+
+def frame_step_temporal(bundle: ModelBundle, store: TrackStore,
+                        frames_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
+                        nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
+                        reid_bucket: Optional[int] = None,
+                        face_bucket: Optional[int] = None,
+                        nms_iters: Optional[int] = None
+                        ) -> Tuple[TrackStore, FrameResult]:
+    """T consecutive frames [T, H, W, 3] of one stream in one step: the
+    FrameResult's fields carry a leading [T].
+    ``frame_step_batched_temporal`` at B = 1."""
+    stores, result = frame_step_batched_temporal(
+        bundle, store.map(lambda x: x[None]), frames_bgr[None], tracker_cfg,
+        nms_cfg, pipe_cfg, None, reid_bucket, face_bucket, nms_iters)
     return stores.map(lambda x: x[0]), stream_result(result, 0)

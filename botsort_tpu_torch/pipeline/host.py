@@ -3,10 +3,20 @@
 ``BoTSORTPipeline.update(frame) -> List[STrackView]`` uploads one frame,
 runs the frame step at a static ReID bucket picked from the previous
 frame's live counts, re-runs the rare frame whose counts overflow that
-bucket, reads the FrameResult back and assembles the host track list
+bucket (or whose NMS fixpoint did not converge in its fixed iteration
+count), reads the FrameResult back and assembles the host track list
 with its box hierarchy. ``BatchedBoTSORTPipeline`` does the same for B
 streams per step through ``frame_step_batched``, with one bucket sized by
-the largest count across the streams.
+the largest count across the streams, and
+``TemporalBatchedBoTSORTPipeline`` for B streams x T consecutive frames
+per step through ``frame_step_batched_temporal``.
+
+Between a step's upload and its readback the host only enqueues work. The
+upload goes through a pinned staging buffer without waiting; on a CUDA
+device the step is a CUDA graph replayed from pipeline/graphed.py
+(``graphs=False`` runs it eagerly, as every device other than CUDA does);
+the FrameResult's fields are packed into one buffer on the device and
+come back in one copy, the step's only synchronisation.
 """
 
 from __future__ import annotations
@@ -14,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import types
-from typing import Any, List, Optional
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +37,18 @@ from botsort_tpu_torch.pipeline.frame_step import (
     _det_width,
     frame_step,
     frame_step_batched,
+    frame_step_batched_temporal,
     reid_bucket_set,
     stream_result,
 )
+from botsort_tpu_torch.pipeline.graphed import GraphCache, step_key
 from botsort_tpu_torch.track.cascade import TrackOutputs
-from botsort_tpu_torch.track.state import empty_store, empty_stores
+from botsort_tpu_torch.track.state import (
+    TrackStore,
+    empty_store,
+    empty_stores,
+)
+from botsort_tpu_torch.utils.consts import const
 from botsort_tpu_torch.utils.profiling import StageTimers
 
 
@@ -53,22 +70,64 @@ def _live_and_face_counts(res_host: FrameResult, d: int):
     return int(valid.sum()), int(has_face.sum())
 
 
-def to_host(result: FrameResult) -> FrameResult:
-    """The same FrameResult with numpy arrays in place of tensors."""
-    def np_(x):
-        return x.cpu().numpy()
+# The dtypes a FrameResult's fields have.
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+                 torch.int64: np.int64, torch.bool: np.bool_}
 
-    tracks = TrackOutputs(*(np_(x) for x in result.tracks))
-    return FrameResult(*(np_(x) for x in result[:-1]), tracks)
+
+def _result_tensors(result: FrameResult) -> List[torch.Tensor]:
+    return [*result[:-1], *result.tracks]
+
+
+def _result_from(fields) -> FrameResult:
+    n = len(FrameResult._fields) - 1
+    return FrameResult(*fields[:n], TrackOutputs(*fields[n:]))
+
+
+class PackedResult(NamedTuple):
+    """A FrameResult on the device as one buffer: ``packed`` [bytes] uint8
+    holds the fields back to back (each starting on an 8-byte boundary),
+    ``layout`` their (shape, dtype) in field order."""
+
+    packed: torch.Tensor
+    layout: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
+
+    def to_host(self) -> FrameResult:
+        """The FrameResult as numpy arrays: one device-to-host copy, which
+        is also the wait for the step that made it."""
+        raw = self.packed.cpu().numpy()
+        fields, off = [], 0
+        for shape, dtype in self.layout:
+            nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            fields.append(raw[off:off + nbytes].view(_NUMPY_DTYPES[dtype])
+                          .reshape(shape))
+            off += -(-nbytes // 8) * 8
+        return _result_from(fields)
+
+
+def pack_result(result: FrameResult) -> PackedResult:
+    """Pack a device FrameResult's fields into one uint8 buffer on the
+    device (no synchronisation)."""
+    tensors = _result_tensors(result)
+    pad = const((0,) * 8, torch.uint8, tensors[0].device)
+    pieces = []
+    for t in tensors:
+        raw = t.contiguous().reshape(-1).view(torch.uint8)
+        pieces.append(raw)
+        if raw.numel() % 8:
+            pieces.append(pad[:8 - raw.numel() % 8])
+    layout = tuple((tuple(t.shape), t.dtype) for t in tensors)
+    return PackedResult(torch.cat(pieces), layout)
+
+
+def to_host(result: FrameResult) -> FrameResult:
+    """The same FrameResult with numpy arrays in place of tensors, read
+    back in one copy."""
+    return pack_result(result).to_host()
 
 
 def _check_dispatch(pipe_cfg: PipelineConfig):
     """The configurations the JAX package's facades refuse."""
-    if pipe_cfg.enable_gmc:
-        raise NotImplementedError(
-            "camera-motion compensation is not ported yet "
-            "(tracker_update takes a gmc_affine; the estimator does not "
-            "exist in this package)")
     if pipe_cfg.disable_reid and not pipe_cfg.host_bucket_dispatch:
         raise ValueError(
             "disable_reid (IoU-only mode) requires "
@@ -82,6 +141,14 @@ def _pick_bucket(buckets: List[int], n: int) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def _store_tensors(store: TrackStore) -> List[Optional[torch.Tensor]]:
+    return [getattr(store, f.name) for f in dataclasses.fields(store)]
+
+
+def _store_from(tensors) -> TrackStore:
+    return TrackStore(*tensors)
 
 
 @dataclasses.dataclass
@@ -100,32 +167,168 @@ class STrackView:
         return out
 
 
-class BoTSORTPipeline:
-    """End-to-end tracker over one video stream on the bundle's device."""
+class _Facade:
+    """What the three facades share: the configuration, the upload, one
+    step at a static bucket pair (eager or replayed from a CUDA graph),
+    and the loop that re-runs a step whose buckets overflowed or whose NMS
+    did not converge."""
 
-    def __init__(self, bundle: ModelBundle,
-                 tracker_cfg: TrackerConfig = TrackerConfig(),
-                 nms_cfg: NMSConfig = NMSConfig(),
-                 pipe_cfg: PipelineConfig = PipelineConfig()):
+    # The step kind, part of a captured step's key.
+    kind = "step"
+
+    def __init__(self, bundle: ModelBundle, tracker_cfg: TrackerConfig,
+                 nms_cfg: NMSConfig, pipe_cfg: PipelineConfig, graphs: bool,
+                 profile: bool):
         _check_dispatch(pipe_cfg)
         self.bundle = bundle
         self.tracker_cfg = tracker_cfg
         self.nms_cfg = nms_cfg
         self.pipe_cfg = pipe_cfg
         self.device = bundle.device
-        self.store = empty_store(tracker_cfg, self.device)
         self.frame_id = 0
-        self.timers = StageTimers(cuda_sync=self.device.type == "cuda")
+        # Stage times are host-clock times; with ``profile`` every stage
+        # ends in a device synchronisation, so that it covers the device
+        # work it enqueued. Without it no stage waits for the card.
+        self.timers = StageTimers(
+            cuda_sync=profile and self.device.type == "cuda")
         self._buckets = reid_bucket_set(tracker_cfg, nms_cfg, pipe_cfg)
         self._det_width = _det_width(tracker_cfg, nms_cfg)
-        self._last_n_live: Optional[int] = None
-        self._last_n_face = 0
-        # The host FrameResult of the latest frame (detections, hierarchy
-        # and track outputs as numpy arrays).
+        # Captured steps (CUDA devices only; None runs every step eagerly).
+        self._graphs: Optional[GraphCache] = GraphCache(self.device) \
+            if graphs and self.device.type == "cuda" else None
+        self._layouts = {}
+        self._staging = {}
+        # The host FrameResult of the latest step (numpy arrays).
         self.last_result: Optional[FrameResult] = None
 
     def _pick_bucket(self, n: int) -> int:
         return _pick_bucket(self._buckets, n)
+
+    def _upload(self, name: str, array: np.ndarray) -> torch.Tensor:
+        """``array`` on the device. On a CUDA device it goes through a
+        pinned staging buffer kept per ``name`` and the copy is not waited
+        for; the buffer is rewritten by the next upload of that name, after
+        the step that read it has been read back."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(array)).to(
+                self.device)
+        stage = self._staging.get(name)
+        if stage is None or stage[0].shape != array.shape or \
+                stage[0].dtype != array.dtype:
+            pinned = torch.empty(array.shape, dtype=torch.from_numpy(
+                np.empty(0, array.dtype)).dtype, pin_memory=True)
+            stage = (pinned.numpy(), pinned)
+            self._staging[name] = stage
+        np.copyto(stage[0], array)
+        return stage[1].to(self.device, non_blocking=True)
+
+    def _first_buckets(self, last_live: Optional[int], last_face: int):
+        """(reid bucket, face bucket, whether they can overflow) for the
+        next step, from the previous step's counts."""
+        cfg = self.pipe_cfg
+        if not cfg.host_bucket_dispatch:
+            return None, None, False  # every det slot embedded: exact
+        if cfg.disable_reid:
+            return 0, 0, False  # IoU-only: zero features
+        if last_live is None:
+            return self._buckets[-1], self._buckets[-1], True
+        return (self._pick_bucket(last_live),
+                self._pick_bucket(face_bucket_need(last_face, last_live)),
+                True)
+
+    def _dispatch(self, stores, frames_dev, gmc, reid_bucket, face_bucket,
+                  nms_iters) -> Tuple[TrackStore, FrameResult]:
+        """One device step at a static bucket pair, eagerly: the override
+        point for other ways of running a step. Must not write ``stores``
+        and must not wait for the device."""
+        raise NotImplementedError
+
+    def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None,
+              nms_iters=None) -> Tuple[TrackStore, PackedResult]:
+        """One step, with its FrameResult packed on the device: through
+        the graph cache where there is one, else eagerly."""
+        layout = []
+
+        def run(frames, gmc_t, *store_fields):
+            new, result = self._dispatch(
+                _store_from(store_fields), frames, gmc_t, reid_bucket,
+                face_bucket, nms_iters)
+            packed = pack_result(result)
+            layout[:] = [packed.layout]
+            return [packed.packed, *_store_tensors(new)]
+
+        inputs = [frames_dev, gmc, *_store_tensors(stores)]
+        if self._graphs is None:
+            out = run(*inputs)
+        else:
+            key = step_key(self.kind, frames_dev.shape, reid_bucket,
+                           face_bucket, gmc is not None, nms_iters)
+            out = self._graphs.run(key, run, inputs)
+            # A replay does not run the function: the key's first use
+            # did, and left its layout.
+            if layout:
+                self._layouts[key] = layout[0]
+            else:
+                layout.append(self._layouts[key])
+        return _store_from(out[1:]), PackedResult(out[0], layout[0])
+
+    def _counts(self, res: FrameResult) -> Tuple[int, int]:
+        """(largest live-body count, largest attached-face count) over the
+        frames of a host FrameResult."""
+        raise NotImplementedError
+
+    def _settle(self, backup, frames_dev, gmc, step, buckets):
+        """Read a step back and re-run it from ``backup``, the pre-step
+        stores, until it is exact: with the full NMS iteration count if the
+        fixed one did not converge, at larger buckets if the counts
+        overflowed the picked ones. Returns (stores, host FrameResult,
+        (live, face) counts or None)."""
+        stores, packed = step
+        bucket, fbucket, check = buckets
+        nms_iters = None
+        while True:
+            res = packed.to_host()
+            counts = None
+            if not bool(np.all(res.nms_converged)) and nms_iters is None:
+                nms_iters = self.nms_cfg.pre_nms_top_k
+            else:
+                if not check:
+                    break
+                counts = self._counts(res)
+                need = face_bucket_need(counts[1], counts[0])
+                if counts[0] <= bucket and need <= fbucket:
+                    break
+                bucket = self._pick_bucket(counts[0])
+                fbucket = self._pick_bucket(need)
+            stores, packed = self._step(backup, frames_dev, bucket, fbucket,
+                                        gmc, nms_iters)
+        return stores, res, counts
+
+
+class BoTSORTPipeline(_Facade):
+    """End-to-end tracker over one video stream on the bundle's device.
+
+    graphs: replay the step from a CUDA graph (CUDA devices; False runs it
+    eagerly). profile: synchronise at the end of every timed stage.
+    """
+
+    kind = "frame"
+
+    def __init__(self, bundle: ModelBundle,
+                 tracker_cfg: TrackerConfig = TrackerConfig(),
+                 nms_cfg: NMSConfig = NMSConfig(),
+                 pipe_cfg: PipelineConfig = PipelineConfig(),
+                 graphs: bool = True, profile: bool = False):
+        super().__init__(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
+                         profile)
+        self.store = empty_store(tracker_cfg, self.device)
+        self.gmc = None
+        if pipe_cfg.enable_gmc:
+            from botsort_tpu_torch.io.gmc import GMCEstimator
+
+            self.gmc = GMCEstimator()
+        self._last_n_live: Optional[int] = None
+        self._last_n_face = 0
 
     def reset(self):
         self.store = empty_store(self.tracker_cfg, self.device)
@@ -134,55 +337,49 @@ class BoTSORTPipeline:
         self._last_n_face = 0
         self.last_result = None
         self.timers.reset()
+        if self.gmc is not None:
+            self.gmc.reset()
 
-    def _step(self, store, frame_dev, reid_bucket, face_bucket):
-        store, result = frame_step(
+    def _dispatch(self, store, frame_dev, gmc_affine, reid_bucket,
+                  face_bucket, nms_iters=None):
+        return frame_step(
             self.bundle, store, frame_dev, self.tracker_cfg, self.nms_cfg,
-            self.pipe_cfg, reid_bucket=reid_bucket, face_bucket=face_bucket)
-        return store, to_host(result)
+            self.pipe_cfg, gmc_affine, reid_bucket=reid_bucket,
+            face_bucket=face_bucket, nms_iters=nms_iters)
+
+    def _counts(self, res: FrameResult):
+        return _live_and_face_counts(res, self._det_width)
 
     def update(self, frame_bgr: np.ndarray) -> List[STrackView]:
         """One frame. frame_bgr: [H, W, 3] uint8 (OpenCV layout)."""
         self.frame_id += 1
+        gmc_affine = None
+        if self.gmc is not None:
+            with self.timers.stage("gmc"):
+                gmc_host = self.gmc.estimate(frame_bgr)
         with self.timers.stage("upload"):
-            frame_dev = torch.from_numpy(
-                np.ascontiguousarray(frame_bgr)).to(self.device)
+            frame_dev = self._upload("frame", frame_bgr)
+            if self.gmc is not None:
+                gmc_affine = self._upload("gmc", gmc_host)
         with self.timers.stage("device_step"):
-            cfg = self.pipe_cfg
-            if not cfg.host_bucket_dispatch:
-                # Every det slot embedded: exact, no re-run.
-                self.store, res = self._step(self.store, frame_dev, None,
-                                             None)
-            elif cfg.disable_reid:
-                # IoU-only: zero features make the fused cost plain IoU.
-                self.store, res = self._step(self.store, frame_dev, 0, 0)
-            else:
-                if self._last_n_live is None:
-                    bucket = fbucket = self._buckets[-1]
-                else:
-                    bucket = self._pick_bucket(self._last_n_live)
-                    fbucket = self._pick_bucket(face_bucket_need(
-                        self._last_n_face, self._last_n_live))
-                # frame_step never writes its input store, so the
-                # pre-step store is the overflow re-run's backup as is.
-                backup = self.store
-                self.store, res = self._step(backup, frame_dev, bucket,
-                                             fbucket)
-                n_live, n_face = _live_and_face_counts(res, self._det_width)
-                need = face_bucket_need(n_face, n_live)
-                if n_live > bucket or need > fbucket:
-                    self.store, res = self._step(
-                        backup, frame_dev, self._pick_bucket(n_live),
-                        self._pick_bucket(need))
-                self._last_n_live = n_live
-                self._last_n_face = n_face
+            buckets = self._first_buckets(self._last_n_live,
+                                          self._last_n_face)
+            # frame_step never writes its input store, so the pre-step
+            # store is the re-run's backup as is.
+            backup = self.store
+            step = self._step(backup, frame_dev, buckets[0], buckets[1],
+                              gmc_affine)
+            self.store, res, counts = self._settle(
+                backup, frame_dev, gmc_affine, step, buckets)
+            if counts is not None:
+                self._last_n_live, self._last_n_face = counts
         self.last_result = res
         with self.timers.stage("assemble"):
             return assemble_tracks(res, self.tracker_cfg, self.nms_cfg,
                                    self.pipe_cfg, warn_state=self)
 
 
-class BatchedBoTSORTPipeline:
+class BatchedBoTSORTPipeline(_Facade):
     """B independent streams stepped together on the bundle's device.
 
     Every ``update`` takes one frame per stream (all of one resolution)
@@ -190,33 +387,37 @@ class BatchedBoTSORTPipeline:
     the B cascades one launch of kernel K2 on the card. The ReID bucket is
     shared, picked from the previous step's largest live count across the
     streams; a step that overflows it re-runs from the pre-step stores,
-    which the step never writes.
+    which the step never writes. Camera motion comes in with the frames,
+    as ``update``'s ``gmc_affines``: the per-frame estimator of
+    ``PipelineConfig.enable_gmc`` belongs to ``BoTSORTPipeline``, and the
+    batched facades refuse that option instead of ignoring it.
+
+    graphs: replay the step from a CUDA graph (CUDA devices; False runs it
+    eagerly). profile: synchronise at the end of every timed stage.
     """
+
+    kind = "batched"
 
     def __init__(self, bundle: ModelBundle, n_streams: int,
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
-                 pipe_cfg: PipelineConfig = PipelineConfig()):
-        _check_dispatch(pipe_cfg)
+                 pipe_cfg: PipelineConfig = PipelineConfig(),
+                 graphs: bool = True, profile: bool = False):
+        super().__init__(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
+                         profile)
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
-        self.bundle = bundle
+        if pipe_cfg.enable_gmc:
+            raise ValueError(
+                "enable_gmc estimates the camera motion in BoTSORTPipeline "
+                "only; give a batched pipeline its affines as "
+                "update(frames, gmc_affines)")
         self.n_streams = n_streams
-        self.tracker_cfg = tracker_cfg
-        self.nms_cfg = nms_cfg
-        self.pipe_cfg = pipe_cfg
-        self.device = bundle.device
         self.stores = empty_stores(tracker_cfg, n_streams, self.device)
-        self.frame_id = 0
-        self.timers = StageTimers(cuda_sync=self.device.type == "cuda")
-        self._buckets = reid_bucket_set(tracker_cfg, nms_cfg, pipe_cfg)
-        self._det_width = _det_width(tracker_cfg, nms_cfg)
         self._last_max_live: Optional[int] = None
         self._last_max_face = 0
         # Per-stream once-only warning state.
         self._warn = [types.SimpleNamespace() for _ in range(n_streams)]
-        # The host FrameResult of the latest step ([B, ...] numpy arrays).
-        self.last_result: Optional[FrameResult] = None
 
     def reset(self):
         self.stores = empty_stores(self.tracker_cfg, self.n_streams,
@@ -227,94 +428,135 @@ class BatchedBoTSORTPipeline:
         self.last_result = None
         self.timers.reset()
 
-    def _pick_bucket(self, n: int) -> int:
-        return _pick_bucket(self._buckets, n)
-
-    def _step(self, stores, frames_dev, reid_bucket, face_bucket):
+    def _dispatch(self, stores, frames_dev, gmc_affines, reid_bucket,
+                  face_bucket, nms_iters=None):
         return frame_step_batched(
             self.bundle, stores, frames_dev, self.tracker_cfg, self.nms_cfg,
-            self.pipe_cfg, reid_bucket=reid_bucket, face_bucket=face_bucket)
+            self.pipe_cfg, gmc_affines, reid_bucket=reid_bucket,
+            face_bucket=face_bucket, nms_iters=nms_iters)
 
-    def _counts(self, res_host: FrameResult):
-        """(max live bodies, max attached faces) across the streams."""
-        counts = [_live_and_face_counts(stream_result(res_host, s),
-                                        self._det_width)
-                  for s in range(self.n_streams)]
+    def _frame_results(self, res: FrameResult):
+        """(stream, host FrameResult of one frame) over a step's frames."""
+        return [(s, stream_result(res, s)) for s in range(self.n_streams)]
+
+    def _counts(self, res: FrameResult):
+        counts = [_live_and_face_counts(r, self._det_width)
+                  for _, r in self._frame_results(res)]
         return max(c[0] for c in counts), max(c[1] for c in counts)
 
-    def update(self, frames_bgr) -> List[List[STrackView]]:
-        """frames_bgr: [B, H, W, 3] uint8 (an array or a list of B frames,
-        OpenCV layout). Returns each stream's track list."""
-        return self.update_async(frames_bgr).result()
-
-    def update_async(self, frames_bgr) -> "PendingBatch":
-        """Run one step and return before reading it back: the card works
-        on the step while the caller draws or encodes the previous one;
-        ``result()`` reads back, re-runs an overflowing step and assembles
-        the track lists. Resolve each handle before the next
-        ``update_async``: the overflow check may replace the stores."""
-        frames = np.stack(frames_bgr)
+    def _check_frames(self, frames: np.ndarray):
         if frames.shape[0] != self.n_streams:
             raise ValueError(
                 f"expected {self.n_streams} frames, got {frames.shape[0]}")
+
+    def update(self, frames_bgr, gmc_affines=None):
+        """frames_bgr: [B, H, W, 3] uint8 (an array or a list of B frames,
+        OpenCV layout); gmc_affines: optional [B, 2, 3] float32 camera
+        motion per stream. Returns each stream's track list."""
+        return self.update_async(frames_bgr, gmc_affines).result()
+
+    def update_async(self, frames_bgr, gmc_affines=None) -> "PendingBatch":
+        """Enqueue one step and return without waiting for the card or
+        reading anything back: the card works on the step while the caller
+        draws or encodes the previous one; ``result()`` reads back, re-runs
+        a step that overflowed and assembles the track lists. Resolve each
+        handle before the next ``update_async``: the overflow check may
+        replace the stores, and the next upload reuses the staging
+        buffer."""
+        frames = frames_bgr if isinstance(frames_bgr, np.ndarray) \
+            else np.stack(frames_bgr)
+        self._check_frames(frames)
         self.frame_id += 1
         with self.timers.stage("upload"):
-            frames_dev = torch.from_numpy(frames).to(self.device)
-        cfg = self.pipe_cfg
-        if not cfg.host_bucket_dispatch:
-            # Every det slot embedded: exact, no re-run.
-            bucket = fbucket = None
-        elif cfg.disable_reid:
-            # IoU-only: zero features make the fused cost plain IoU.
-            bucket = fbucket = 0
-        elif self._last_max_live is None:
-            bucket = fbucket = self._buckets[-1]
-        else:
-            bucket = self._pick_bucket(self._last_max_live)
-            fbucket = self._pick_bucket(face_bucket_need(
-                self._last_max_face, self._last_max_live))
+            frames_dev = self._upload("frames", frames)
+            gmc = None if gmc_affines is None else self._upload(
+                "gmc", np.asarray(gmc_affines, np.float32))
+        buckets = self._first_buckets(self._last_max_live,
+                                      self._last_max_face)
         backup = self.stores
         with self.timers.stage("device_step"):
-            self.stores, result = self._step(backup, frames_dev, bucket,
-                                             fbucket)
-        # Only a picked bucket can overflow.
-        check = cfg.host_bucket_dispatch and not cfg.disable_reid
-        return PendingBatch(self, frames_dev, result, backup,
-                            (bucket, fbucket) if check else None)
+            step = self._step(backup, frames_dev, buckets[0], buckets[1],
+                              gmc)
+        self.stores = step[0]
+        return PendingBatch(self, frames_dev, gmc, step, backup, buckets)
 
-    def _resolve(self, frames_dev, result, backup, buckets
-                 ) -> List[List[STrackView]]:
+    def _resolve(self, frames_dev, gmc, step, backup, buckets):
         with self.timers.stage("readback"):
-            res = to_host(result)
-            if buckets is not None:
-                max_live, max_face = self._counts(res)
-                need = face_bucket_need(max_face, max_live)
-                if max_live > buckets[0] or need > buckets[1]:
-                    self.stores, result = self._step(
-                        backup, frames_dev, self._pick_bucket(max_live),
-                        self._pick_bucket(need))
-                    res = to_host(result)
-                self._last_max_live = max_live
-                self._last_max_face = max_face
+            self.stores, res, counts = self._settle(backup, frames_dev, gmc,
+                                                    step, buckets)
+            if counts is not None:
+                self._last_max_live, self._last_max_face = counts
         self.last_result = res
         with self.timers.stage("assemble"):
-            return [assemble_tracks(stream_result(res, s), self.tracker_cfg,
-                                    self.nms_cfg, self.pipe_cfg,
-                                    warn_state=self._warn[s])
-                    for s in range(self.n_streams)]
+            return self._assemble(res)
+
+    def _assemble(self, res: FrameResult) -> List[List[STrackView]]:
+        return [assemble_tracks(r, self.tracker_cfg, self.nms_cfg,
+                                self.pipe_cfg, warn_state=self._warn[s])
+                for s, r in self._frame_results(res)]
+
+
+class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
+    """B streams x T consecutive frames per step
+    (``frame_step_batched_temporal``): perception over all B x T frames as
+    one batch, T chained cascades. A stream waits T - 1 frames longer for
+    its first result; the buckets are picked per group of T frames, from
+    the previous group's largest counts.
+
+    ``update`` / ``update_async`` take [B, T, H, W, 3] (or a list of B
+    [T, H, W, 3] stacks) and optional affines [B, T, 2, 3], and resolve to
+    ``out[t][s]``, stream s's tracks at group frame t: time-major, so a
+    serving loop can emit frame t of every stream before it touches t + 1.
+    """
+
+    kind = "temporal"
+
+    def __init__(self, bundle: ModelBundle, n_streams: int, t_batch: int = 2,
+                 tracker_cfg: TrackerConfig = TrackerConfig(),
+                 nms_cfg: NMSConfig = NMSConfig(),
+                 pipe_cfg: PipelineConfig = PipelineConfig(),
+                 graphs: bool = True, profile: bool = False):
+        super().__init__(bundle, n_streams, tracker_cfg, nms_cfg, pipe_cfg,
+                         graphs, profile)
+        if t_batch < 1:
+            raise ValueError(f"t_batch must be >= 1, got {t_batch}")
+        self.t_batch = t_batch
+
+    def _dispatch(self, stores, frames_dev, gmc_affines, reid_bucket,
+                  face_bucket, nms_iters=None):
+        return frame_step_batched_temporal(
+            self.bundle, stores, frames_dev, self.tracker_cfg, self.nms_cfg,
+            self.pipe_cfg, gmc_affines, reid_bucket=reid_bucket,
+            face_bucket=face_bucket, nms_iters=nms_iters)
+
+    def _check_frames(self, frames: np.ndarray):
+        if frames.shape[:2] != (self.n_streams, self.t_batch):
+            raise ValueError(
+                f"expected [B={self.n_streams}, T={self.t_batch}, H, W, 3] "
+                f"frames, got {frames.shape}")
+
+    def _frame_results(self, res: FrameResult):
+        return [(s, stream_result(stream_result(res, s), t))
+                for t in range(self.t_batch) for s in range(self.n_streams)]
+
+    def _assemble(self, res: FrameResult) -> List[List[List[STrackView]]]:
+        flat = super()._assemble(res)
+        b = self.n_streams
+        return [flat[t * b:(t + 1) * b] for t in range(self.t_batch)]
 
 
 class PendingBatch:
-    """Handle for one ``BatchedBoTSORTPipeline`` step in flight."""
+    """Handle for one batched step in flight."""
 
-    def __init__(self, pipeline: BatchedBoTSORTPipeline, frames_dev, result,
-                 backup, buckets):
-        self._args = (frames_dev, result, backup, buckets)
+    def __init__(self, pipeline: BatchedBoTSORTPipeline, frames_dev, gmc,
+                 step, backup, buckets):
+        self._args = (frames_dev, gmc, step, backup, buckets)
         self._pipeline = pipeline
-        self._out: Optional[List[List[STrackView]]] = None
+        self._out = None
 
-    def result(self) -> List[List[STrackView]]:
-        """Read the step back (once) and return each stream's tracks."""
+    def result(self):
+        """Read the step back (once) and return each stream's tracks (for
+        a temporal step, ``out[t][s]``)."""
         if self._out is None:
             self._out = self._pipeline._resolve(*self._args)
             self._args = None

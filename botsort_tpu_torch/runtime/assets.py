@@ -7,16 +7,26 @@ numpy-seeded random init drawn by the JAX package's ``fake_params``
 recipe: conv and dense kernels normal x fan_in^-1/2, norm scales and
 variances 1, biases and means 0 (GeM's exponent keeps its init, 3).
 Random weights give no tracking accuracy, but non-degenerate detections
-flow through every stage. runtime/from_flax.py loads a Flax variable
-tree into a built network; loading converted checkpoints is not ported
-yet.
+flow through every stage.
+
+Checkpoints are torch's own format: ``{weights_dir}/{stem}.pt`` holds one
+network's ``state_dict`` as float32 tensors, ``stem`` being the model
+file name without its extension (the names the reference's ``-odm`` /
+``-bfem`` / ``-ffem`` options take). ``build_bundle`` loads the files it
+finds (``torch.load(..., weights_only=True)``) and warns on stderr about
+every network left at its seeded init; ``save_bundle`` writes them.
+runtime/from_flax.py loads a Flax variable tree into a built network, and
+tools/convert_orbax_to_torch.py turns the JAX package's orbax checkpoints
+into these files. Fetching checkpoints over the network is not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import re
-from typing import Any, Tuple
+import sys
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -107,12 +117,50 @@ def perturb_norms_(module: nn.Module, rng: np.random.Generator
     return module
 
 
-def build_bundle(mini: bool = False, seed: int = 0,
-                 device: Any = "cuda", dtype: torch.dtype = torch.bfloat16
-                 ) -> ModelBundle:
-    """The three networks with seeded weights on ``device`` (the card
-    unless the caller asks for another), convolutions and dense layers in
-    ``dtype``."""
+def checkpoint_path(weights_dir: str, model_name: str) -> str:
+    """``{weights_dir}/{stem}.pt`` for a model file name."""
+    stem = os.path.splitext(os.path.basename(model_name))[0]
+    return os.path.join(weights_dir, stem + ".pt")
+
+
+def save_state_dict(path: str, state: Dict[str, torch.Tensor]) -> None:
+    """Write one network's checkpoint: its state dict as float32 tensors
+    on the CPU."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({k: v.detach().to("cpu", torch.float32).contiguous()
+                for k, v in state.items()}, path)
+
+
+def save_bundle(bundle: ModelBundle, weights_dir: str,
+                detector_name: str = DEFAULT_DETECTOR,
+                body_reid_name: str = DEFAULT_BODY_REID,
+                face_reid_name: str = DEFAULT_FACE_REID) -> Tuple[str, ...]:
+    """Write the three networks' checkpoints where ``build_bundle`` with
+    the same names and ``weights_dir`` finds them; returns the paths."""
+    paths = []
+    for model, name in ((bundle.detector, detector_name),
+                        (bundle.body_encoder, body_reid_name),
+                        (bundle.face_encoder, face_reid_name)):
+        paths.append(checkpoint_path(weights_dir, name))
+        save_state_dict(paths[-1], model.state_dict())
+    return tuple(paths)
+
+
+def build_bundle(detector_name: str = DEFAULT_DETECTOR,
+                 body_reid_name: str = DEFAULT_BODY_REID,
+                 face_reid_name: str = DEFAULT_FACE_REID,
+                 weights_dir: str = "weights", mini: bool = False,
+                 seed: int = 0, device: Any = "cuda",
+                 dtype: torch.dtype = torch.bfloat16) -> ModelBundle:
+    """The three networks on ``device`` (the card unless the caller asks
+    for another), convolutions and dense layers in ``dtype``, with the
+    checkpoints ``{weights_dir}/{stem}.pt`` of the three model names where
+    they exist. A network without a checkpoint keeps its seeded init
+    (``seed``) and a warning on stderr says so. ``mini`` builds the
+    miniature architectures. The names' input sizes are
+    ``parse_detector_input_hw`` / ``parse_body_reid_input_hw`` of them: the
+    architectures are fully convolutional, so the sizes configure the
+    pipeline (``PipelineConfig``), not the networks."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_bundle: no CUDA device; pass device='cpu' "
@@ -121,7 +169,17 @@ def build_bundle(mini: bool = False, seed: int = 0,
     models = (YOLOX(**arch["detector"]), FastReIDSBS(**arch["body"]),
               FaceReID(**arch["face"]))
     rng = np.random.default_rng(seed)
-    for model in models:
-        seeded_init_(model, rng)
+    for model, name in zip(models, (detector_name, body_reid_name,
+                                    face_reid_name)):
+        seeded_init_(model, rng)  # every network draws, loaded or not
+        path = checkpoint_path(weights_dir, name)
+        if os.path.isfile(path):
+            model.load_state_dict(
+                torch.load(path, map_location="cpu", weights_only=True))
+        else:
+            # stderr: callers may keep stdout for their own output.
+            print(f"WARNING: no checkpoint at {path}; using random init "
+                  "(tools/convert_orbax_to_torch.py converts the JAX "
+                  "package's checkpoints)", file=sys.stderr)
         cast_compute(model, dtype).to(device).eval().requires_grad_(False)
     return ModelBundle(*models)

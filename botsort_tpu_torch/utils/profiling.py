@@ -1,8 +1,9 @@
 """Per-stage wall-clock timers (port of botsort_tpu/utils/profiling.py).
 
-PyTorch returns before the card finishes, so on a CUDA device every stage
-ends with ``torch.cuda.synchronize()``: a stage's time then covers the
-device work it enqueued, not only the enqueueing.
+PyTorch returns before the card finishes. With ``cuda_sync`` every stage
+ends with ``torch.cuda.synchronize()``, so that its time covers the device
+work it enqueued (the facades ask for that only when profiling); without
+it a stage's time is the enqueueing alone and nothing waits for the card.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Kernels K1-K5 on the card, against their plain PyTorch versions.
+"""Kernels K1-K6 on the card, against their plain PyTorch versions, and
+the frame step replayed from a CUDA graph against the eager step.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card
 and skips without one. The file imports neither JAX nor the JAX package,
@@ -13,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from botsort_tpu_torch.models import facereid, facereid_dw, fastreid
+from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
+from botsort_tpu_torch.models import bn_act, facereid, facereid_dw, fastreid
 from botsort_tpu_torch.models import fastreid_fused
 from botsort_tpu_torch.models.common import cast_compute
 from botsort_tpu_torch.ops import assignment, assignment_cuda
+from botsort_tpu_torch.pipeline import frame_step as fs
+from botsort_tpu_torch.pipeline import host
 from botsort_tpu_torch.runtime import assets, kernels
 
 pytestmark = pytest.mark.cuda
@@ -438,3 +442,226 @@ def test_k4_wrapper_rejects_malformed_inputs(dev):
         with pytest.raises(ValueError):
             fastreid_fused.stem_stage1_cuda(*args)
     assert fastreid_fused.stem_stage1_cuda.launches == before
+
+
+# --- K6: batch norm + activation ------------------------------------------
+
+
+def _bn_inputs(rng, shape, dtype, dev):
+    c = shape[1]
+    x = torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32)).to(
+        dev, dtype)
+    mean, bias = (torch.from_numpy(rng.normal(0, 0.5, c).astype(
+        np.float32)).to(dev) for _ in range(2))
+    mul = torch.from_numpy(rng.uniform(0.3, 2.0, c).astype(np.float32)).to(
+        dev)
+    return x, mean, mul, bias
+
+
+def _ulp_apart(got, want):
+    """Largest distance of two tensors of one floating dtype, in units in
+    the last place (the bit patterns as ordered integers)."""
+    int_t = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    a, b = (t.contiguous().view(int_t).to(torch.int64) for t in (got, want))
+    a, b = (torch.where(t < 0, -(t & (2 ** (8 * got.element_size() - 1) - 1)),
+                        t) for t in (a, b))
+    return int((a - b).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (8, 80, 240, 320),   # the detector's stem at 8 streams
+    (2, 1280, 15, 20),   # inner = 300: vectors straddle channels
+    (128, 64, 64, 32),   # the body encoder's stage 1
+    (50, 32, 64, 64),    # the face encoder's stem
+    (128, 32),           # a dense layer's norm, [N, C]
+    (3, 7, 5, 3),        # odd everything, a tail after the last vector
+    (1, 1, 1, 1),
+])
+def test_k6_equals_plain(dev, shape, dtype):
+    """none / ReLU / ReLU6 bit for bit; SiLU within one unit in the last
+    place of the dtype (the two exponentials may round differently)."""
+    rng = np.random.default_rng(sum(shape))
+    x, mean, mul, bias = _bn_inputs(rng, shape, dtype, dev)
+    for act in bn_act.ACTS:
+        before = bn_act.bn_act_cuda.launches
+        got = bn_act.bn_act(x, mean, mul, bias, act)
+        assert bn_act.bn_act_cuda.launches == before + 1
+        want = bn_act.bn_act_plain(x, mean, mul, bias, act)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == x.dtype
+        if act == "silu":
+            assert _ulp_apart(got, want) <= 1, act
+        else:
+            assert torch.equal(got, want), act
+
+
+def test_k6_unaligned_view_and_nan(dev):
+    """A contiguous view that starts off a 16-byte boundary takes the
+    scalar path; NaN passes through every activation as in the plain
+    version."""
+    rng = np.random.default_rng(9)
+    x, mean, mul, bias = _bn_inputs(rng, (5, 6, 4, 4), torch.bfloat16, dev)
+    view = x.flatten()[16 * 6 + 0:].view(4, 6, 4, 4)
+    odd = x.flatten()[3:3 + 4 * 6 * 16].view(4, 6, 4, 4)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    for t in (view, odd):
+        t = t.clone() if t is view else t
+        for act in ("none", "relu", "relu6"):
+            assert torch.equal(bn_act.bn_act_cuda(t, mean, mul, bias, act),
+                               bn_act.bn_act_plain(t, mean, mul, bias, act))
+    x[0, 0, 0, 0] = float("nan")
+    for act in bn_act.ACTS:
+        got = bn_act.bn_act_cuda(x, mean, mul, bias, act)
+        want = bn_act.bn_act_plain(x, mean, mul, bias, act)
+        assert torch.isnan(got[0, 0, 0, 0]) and torch.isnan(want[0, 0, 0, 0])
+
+
+def test_k6_refuses_what_it_does_not_take(dev):
+    x, mean, mul, bias = _bn_inputs(np.random.default_rng(1), (2, 4, 3, 3),
+                                    torch.float32, dev)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_cuda(x.cpu(), mean, mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_cuda(x.half(), mean, mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_cuda(x, mean[:3], mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_cuda(x.permute(0, 1, 3, 2), mean, mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_cuda(x, mean, mul, bias, "gelu")
+
+
+def test_batchnorm_mul_cache_follows_the_statistics(dev):
+    from botsort_tpu_torch.models.common import BatchNorm
+
+    bn = BatchNorm(8, 1e-3).to(dev).eval()
+    x = torch.randn(2, 8, 4, 4, device=dev)
+    first = bn(x, "relu")
+    assert bn.mul() is bn.mul()
+    with torch.no_grad():
+        bn.running_var.fill_(4.0)
+    second = bn(x, "relu")
+    assert not torch.equal(first, second)
+    want = torch.relu((x - bn.running_mean.view(1, -1, 1, 1))
+                      * (torch.rsqrt(bn.running_var + 1e-3)
+                         * bn.weight).view(1, -1, 1, 1)
+                      + bn.bias.view(1, -1, 1, 1))
+    assert torch.equal(second, want)
+
+
+# --- the step under a CUDA graph and without synchronisation --------------
+
+MINI_TRK = TrackerConfig(
+    max_tracks=16, body_feature_dim=256, face_feature_dim=256,
+    det_score_threshold=0.05, track_high_thresh=0.22, track_low_thresh=0.05,
+    new_track_thresh=0.24, max_dets=8)
+MINI_NMS = NMSConfig(max_boxes_per_class=8, score_threshold=0.01)
+MINI_PIPE = PipelineConfig(detector_input_hw=(96, 128),
+                           body_reid_input_hw=(64, 32),
+                           face_reid_input_hw=(32, 32), max_reid_batch=4)
+
+
+def _mini_frames(n, b, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(n):
+        img = rng.integers(0, 255, (b, 240, 320, 3), dtype=np.uint8)
+        for k in range(3):
+            x = 30 + 90 * k + 4 * t
+            img[:, 60:200, x:x + 50] = (40 + 70 * k, 200, 120)
+        out.append(img)
+    return out
+
+
+def _same_result(a, b):
+    for name, x, y in zip(a._fields[:-1], a[:-1], b[:-1]):
+        assert np.array_equal(x, y), name
+    for name, x, y in zip(a.tracks._fields, a.tracks, b.tracks):
+        assert np.array_equal(x, y), f"tracks.{name}"
+
+
+@pytest.mark.parametrize("streams", [1, 3])
+def test_mini_graphed_step_equals_eager(dev, streams):
+    """The facades with and without CUDA graphs over the same frames:
+    every FrameResult field and the final stores bit-equal, across bucket
+    changes and a forced overflow re-run; K1 / K2 counted once per step run
+    under replay."""
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    cuda = assignment_cuda.cascade_solve_cuda
+
+    def make(graphs):
+        if streams == 1:
+            return host.BoTSORTPipeline(bundle, MINI_TRK, MINI_NMS,
+                                        MINI_PIPE, graphs=graphs)
+        return host.BatchedBoTSORTPipeline(bundle, streams, MINI_TRK,
+                                           MINI_NMS, MINI_PIPE,
+                                           graphs=graphs)
+
+    eager, graphed = make(False), make(True)
+    assert eager._graphs is None and graphed._graphs is not None
+    runs = []
+    real = graphed._step
+    graphed._step = lambda *a: runs.append(a[2:4]) or real(*a)
+    for t, frames in enumerate(_mini_frames(6, streams, 5)):
+        arg = frames[0] if streams == 1 else frames
+        if t == 3:  # force an overflow: pretend the last step saw nothing
+            for p in (eager, graphed):
+                if streams == 1:
+                    p._last_n_live, p._last_n_face = 0, 0
+                else:
+                    p._last_max_live, p._last_max_face = 0, 0
+        eager.update(arg)
+        before = (cuda.launches, cuda.batched_launches, len(runs))
+        graphed.update(arg)
+        torch.cuda.synchronize()
+        _same_result(eager.last_result, graphed.last_result)
+        n_runs = len(runs) - before[2]
+        counted = (cuda.launches - before[0]) if streams == 1 else (
+            cuda.batched_launches - before[1])
+        # Every run replays once; a key's first use also warms up eagerly.
+        assert n_runs <= counted <= 2 * n_runs, (t, n_runs, counted)
+    assert len({r for r in runs}) >= 2, runs          # a bucket change
+    assert len(runs) > 6, runs                        # the overflow re-run
+    a = eager.store if streams == 1 else eager.stores
+    b = graphed.store if streams == 1 else graphed.stores
+    for x, y in zip(host._store_tensors(a), host._store_tensors(b)):
+        assert (x is None and y is None) or torch.equal(x, y)
+    g = graphed._graphs
+    assert g.captures == len(g.keys()) and g.replays == len(runs)
+
+
+def test_mini_step_never_synchronises(dev):
+    """After one step has filled the caches, a whole eager step and a
+    replayed one run under torch's synchronisation debug mode."""
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    frames = [torch.from_numpy(f).to(dev) for f in _mini_frames(3, 2, 6)]
+    stores = host.empty_stores(MINI_TRK, 2, dev)
+    stores, _ = fs.frame_step_batched(bundle, stores, frames[0], MINI_TRK,
+                                      MINI_NMS, MINI_PIPE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stores, result = fs.frame_step_batched(
+            bundle, stores, frames[1], MINI_TRK, MINI_NMS, MINI_PIPE)
+        packed = host.pack_result(result)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res = packed.to_host()
+    assert np.isfinite(res.det_boxes).all() and res.nms_converged.all()
+
+    pipe = host.BatchedBoTSORTPipeline(bundle, 2, MINI_TRK, MINI_NMS,
+                                       MINI_PIPE)
+    for f in _mini_frames(3, 2, 6)[:2]:
+        pipe.update(f)                       # captures the steady key
+    keys = len(pipe._graphs.keys())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = pipe.update_async(_mini_frames(3, 2, 6)[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(pipe._graphs.keys()) == keys  # a replay, not a capture
+    assert len(handle.result()) == 2

@@ -594,8 +594,7 @@ def test_multitrack_cli_cpu_mini(tmp_path):
         cap.release()
 
 
-@pytest.mark.parametrize("flag", [["--temporal", "2"], ["--chips", "2"],
-                                  ["--artifact_dir", "x"]])
+@pytest.mark.parametrize("flag", [["--chips", "2"], ["--artifact_dir", "x"]])
 def test_multitrack_refuses_unported_modes(tmp_path, flag):
     from botsort_tpu_torch.cli import multitrack
 

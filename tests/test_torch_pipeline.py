@@ -295,10 +295,20 @@ def test_pipeline_dispatch_modes_match_jax(bundles, pipe_cfg):
 
 
 def test_gmc_is_not_ported_yet(bundles):
+    """The name is from before camera-motion compensation was ported:
+    ``enable_gmc`` now builds the estimator (it raised
+    NotImplementedError), times it as stage ``gmc`` and resets it. The
+    comparison with the JAX pipeline is in tests/test_torch_gmc.py."""
     _, tb = bundles
-    with pytest.raises(NotImplementedError):
-        TPipeline(tb, T_TRK, T_NMSC,
-                  tconfig.PipelineConfig(enable_gmc=True))
+    pipe = TPipeline(tb, T_TRK, T_NMSC,
+                     dataclasses.replace(T_PIPE, enable_gmc=True))
+    assert pipe.gmc is not None
+    for frame in _frames(2, seed=4):
+        pipe.update(frame)
+    assert "gmc" in pipe.timers.report()
+    assert pipe.gmc._prev_gray is not None
+    pipe.reset()
+    assert pipe.gmc._prev_gray is None and pipe.frame_id == 0
 
 
 def test_demo_cli_cpu_mini(tmp_path):
@@ -339,6 +349,8 @@ def test_package_never_imports_jax_and_main_path_not_cv2():
         assert "cv2" not in sys.modules, "cv2 on the main path"
         from botsort_tpu_torch.pipeline import frame_step, host
         assert frame_step.frame_step_batched and host.BatchedBoTSORTPipeline
+        importlib.import_module("botsort_tpu_torch.io.gmc")
+        assert "cv2" not in sys.modules, "cv2 at io.gmc's import"
         importlib.import_module("botsort_tpu_torch.cli.demo")
         importlib.import_module("botsort_tpu_torch.cli.multitrack")
         importlib.import_module("botsort_tpu_torch.io.draw")
