@@ -65,7 +65,8 @@ def build_parser() -> ArgumentParser:
                              "optical-flow affine per frame, applied to "
                              "the Kalman states.")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 body ReID (not ported yet).")
+                        help="int8 body ReID (not ported yet: ROADMAP "
+                             "Queue 1 item 13).")
     parser.add_argument("--int8_calib_frames", type=int, default=4,
                         help="Frames read for int8 calibration.")
     parser.add_argument("--profile", action="store_true",
@@ -80,7 +81,8 @@ def main(argv=None):
         print(f"ERROR: video file not found: {args.video}")
         return 1
     if args.int8:
-        raise NotImplementedError("--int8 is not ported yet")
+        raise NotImplementedError(
+            "--int8 is not ported yet (ROADMAP Queue 1 item 13)")
     if args.execution_provider == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("-ep cuda: no CUDA device is available")
     device = torch.device(args.execution_provider)

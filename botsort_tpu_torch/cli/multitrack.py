@@ -20,7 +20,11 @@ keeps coasting, outputs ignored). ``--temporal T`` steps T consecutive
 frames per stream at once (``TemporalBatchedBoTSORTPipeline``): more
 frames per second for T - 1 frames of added latency; a stream that ends
 inside a group coasts on its last frame to the group's end and only its
-real frames are written.
+real frames are written. ``--artifact_dir DIR`` serves the batched
+programs that cli/export.py ``--streams N`` wrote (N = the number of
+videos; configurations from their manifest, weights from
+``--weights_dir``) instead of the live models; it steps one frame per
+stream (``--temporal`` is ignored there).
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ def build_parser() -> ArgumentParser:
                         help="Stop after N frames per stream (0 = until "
                              "every video ends).")
     parser.add_argument("--artifact_dir", type=str, default="",
-                        help="Serve from exported artifacts (not ported "
-                             "yet: ROADMAP Queue 1 item 12).")
+                        help="Serve the batched programs of cli/export.py "
+                             "--streams N (N = the number of videos).")
     parser.add_argument("--mini", action="store_true",
                         help="Miniature architectures (smoke tests).")
     parser.add_argument("--chips", default="1",
@@ -75,9 +79,6 @@ def _check_ported(args) -> None:
         raise NotImplementedError(
             "--chips other than 1 is not ported yet (ROADMAP Queue 1 "
             "item 11)")
-    if args.artifact_dir:
-        raise NotImplementedError(
-            "--artifact_dir is not ported yet (ROADMAP Queue 1 item 12)")
 
 
 def main(argv=None):
@@ -105,8 +106,13 @@ def main(argv=None):
     print(f"device: {name}")
     # bfloat16 networks on the card; float32 on the CPU.
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    bundle = assets.build_bundle(weights_dir=args.weights_dir,
-                                 mini=args.mini, device=device, dtype=dtype)
+    mini = args.mini
+    if args.artifact_dir:
+        from botsort_tpu_torch.runtime.exported import read_manifest
+
+        mini = read_manifest(args.artifact_dir)["mini"]
+    bundle = assets.build_bundle(weights_dir=args.weights_dir, mini=mini,
+                                 device=device, dtype=dtype)
     pipe_cfg = PipelineConfig() if not args.mini else PipelineConfig(
         detector_input_hw=(96, 128), body_reid_input_hw=(64, 32),
         face_reid_input_hw=(32, 32), max_reid_batch=4)
@@ -116,7 +122,16 @@ def main(argv=None):
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
     b = len(args.videos)
     t_batch = max(1, int(args.temporal))
-    if t_batch > 1:
+    if t_batch > 1 and args.artifact_dir:
+        print("WARNING: the exported programs step one frame per stream; "
+              "ignoring --temporal.")
+        t_batch = 1
+    if args.artifact_dir:
+        from botsort_tpu_torch.runtime.exported import load_batched_pipeline
+
+        pipeline = load_batched_pipeline(args.artifact_dir, bundle, b,
+                                         profile=args.profile)
+    elif t_batch > 1:
         print(f"temporal batching: {t_batch} frames per stream per step "
               f"({t_batch - 1} frame(s) of added latency)")
         pipeline = TemporalBatchedBoTSORTPipeline(

@@ -15,8 +15,12 @@ own, csrc/bn_act.cu: one read and one write of the activation.
 
 A CUDA tensor launches the kernel through ``bn_act_cuda``; a CPU tensor
 takes ``bn_act_plain``, the same float32 operations in the same order;
-any other device raises. none, ReLU and ReLU6 agree bit for bit. SiLU
-agrees to one unit in the last place of x's dtype: both compute
+any other device raises. The two are the CUDA and CPU implementations of
+the custom op ``torch.ops.botsort_tpu_torch.bn_act``, which is how a
+trace (``torch.export``) reaches them; eager calls skip the dispatcher.
+none, ReLU and ReLU6 agree bit for bit. SiLU agrees to one unit in the
+last place of x's dtype on the card (two units between the card and the
+CPU, whose SiLU is ATen's CPU one): both compute
 ``v / (1 + exp(-v))`` in float32, but the exponential is the CUDA math
 library's in the kernel and ATen's in the plain version, and the two may
 round differently.
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from botsort_tpu_torch.runtime import kernels
+from botsort_tpu_torch.utils.consts import tracing
 
 ACTS = ("none", "silu", "relu", "relu6")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -141,10 +146,36 @@ def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
 bn_act_cuda.launches = 0
 
 
+@torch.library.custom_op("botsort_tpu_torch::bn_act", mutates_args=(),
+                        device_types="cpu")
+def bn_act_op(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
+              bias: torch.Tensor, act: str) -> torch.Tensor:
+    """K6 as a custom op: the plain version on the CPU (its output laid out
+    as x is), the kernel on the card (registered below; its output is
+    contiguous)."""
+    return bn_act_plain(x, mean, mul, bias, act)
+
+
+@bn_act_op.register_kernel("cuda")
+def _bn_act_op_cuda(x, mean, mul, bias, act):
+    return bn_act_cuda(x.contiguous(), mean, mul, bias, act)
+
+
+@bn_act_op.register_fake
+def _bn_act_op_fake(x, mean, mul, bias, act):
+    _check_act(act)
+    if x.device.type == "cuda":
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    return torch.empty_like(x)
+
+
 def bn_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
            bias: torch.Tensor, act: str = "none") -> torch.Tensor:
     """Batch norm + activation: CUDA tensors launch K6, CPU tensors take
-    the plain version, any other device raises."""
+    the plain version, any other device raises. Under a trace, the custom
+    op."""
+    if tracing():
+        return bn_act_op(x, mean, mul, bias, act)
     if x.is_cuda:
         return bn_act_cuda(x.contiguous(), mean, mul, bias, act)
     if x.device.type == "cpu":

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from botsort_tpu_torch.models.bn_act import bn_act
+from botsort_tpu_torch.utils.consts import tracing
 
 
 class BatchNorm(nn.Module):
@@ -40,13 +41,25 @@ class BatchNorm(nn.Module):
         self._mul = None
         self._mul_key = None
         self._mul_src = None
+        # A ``mul`` given from outside: an exported program's input while
+        # runtime/exported.py traces the step.
+        self.bound_constant = None
+
+    def inference_constant(self) -> torch.Tensor:
+        """What an exported program takes as this norm's input: ``mul``."""
+        return self.mul()
 
     def mul(self) -> torch.Tensor:
         """``rsqrt(var + eps) * scale`` [C] float32 of the current
         statistics, rebuilt whenever the variance or the scale was
         replaced, moved or written in place, or eps changed (an inference
-        constant: no gradient flows through it)."""
+        constant: no gradient flows through it). Under a trace the cache is
+        neither read nor written: the bound value, else the formula."""
+        if self.bound_constant is not None:
+            return self.bound_constant
         var, weight = self.running_var, self.weight.detach()
+        if tracing():
+            return torch.rsqrt(var + self.eps) * weight
         key = (var.data_ptr(), var._version, weight.data_ptr(),
                weight._version, self.eps, var.device, var.dtype)
         if key != self._mul_key:

@@ -21,6 +21,7 @@ from torch import nn
 
 from botsort_tpu_torch.models.common import BatchNorm, conv2d
 from botsort_tpu_torch.models.facereid_dw import dw_conv3x3, taps_of
+from botsort_tpu_torch.utils.consts import tracing
 
 # (expand, channels, repeats, stride) — MobileNetV2 layout.
 MOBILENETV2_LAYOUT = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
@@ -54,12 +55,25 @@ class _ConvBNRelu6(nn.Module):
         self._taps = None
         self._taps_key = None
         self._taps_src = None
+        # Taps given from outside: an exported program's input while
+        # runtime/exported.py traces the step.
+        self.bound_constant = None
+
+    def inference_constant(self):
+        """What an exported program takes as this layer's input: K5's
+        taps (where the layer runs K5)."""
+        return self.taps() if self.dw_kernel else None
 
     def taps(self) -> torch.Tensor:
         """K5's taps [9, C] of the current weight, rebuilt whenever the
         weight was replaced, moved, cast or written in place (an inference
-        constant: no gradient flows through it)."""
+        constant: no gradient flows through it). Under a trace the cache is
+        neither read nor written: the bound value, else the formula."""
+        if self.bound_constant is not None:
+            return self.bound_constant
         w = self.Conv_0.weight.detach()  # shares the weight's version
+        if tracing():
+            return taps_of(w)
         key = (w.data_ptr(), w._version, w.dtype, w.device, w.shape)
         if key != self._taps_key:
             self._taps = taps_of(w)

@@ -7,7 +7,10 @@ holds, so a state dict serves every lowering). A CUDA tensor launches K5,
 csrc/dw_conv3x3.cu, through ``dw_conv3x3_cuda``; a CPU tensor takes
 ``dw_conv3x3_plain``; any other device raises. Both compute the nine taps
 in float32 from 0 in the TPU kernel's (dy, dx) order and store once in the
-input's type, so they agree bit for bit.
+input's type, so they agree bit for bit. The two are the CUDA and CPU
+implementations of the custom op ``torch.ops.botsort_tpu_torch.dw_conv3x3``
+(on the taps), which is how a trace reaches them; eager calls skip the
+dispatcher.
 
 ``dw_plan`` is the kernel's tiling, computed here and passed to the C entry
 point: the one definition, checked on the CPU by the tests.
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from botsort_tpu_torch.runtime import kernels
+from botsort_tpu_torch.utils.consts import tracing
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a Hopper block can use
@@ -165,10 +169,30 @@ def dw_conv3x3_cuda(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 dw_conv3x3_cuda.launches = 0
 
 
+@torch.library.custom_op("botsort_tpu_torch::dw_conv3x3", mutates_args=(),
+                        device_types="cpu")
+def dw_conv3x3_op(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """K5 as a custom op: the plain version on the CPU, the kernel on the
+    card (registered below). The output is contiguous."""
+    return dw_conv3x3_plain(x, taps).contiguous()
+
+
+@dw_conv3x3_op.register_kernel("cuda")
+def _dw_conv3x3_op_cuda(x, taps):
+    return dw_conv3x3_cuda(x.contiguous(), taps)
+
+
+@dw_conv3x3_op.register_fake
+def _dw_conv3x3_op_fake(x, taps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def dw_conv3x3(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Depthwise 3x3, stride 1, SAME: x [N, C, H, W], taps [9, C] float32
     -> [N, C, H, W] in x's dtype. CUDA tensors launch K5, CPU tensors take
-    the plain version."""
+    the plain version; under a trace, the custom op."""
+    if tracing():
+        return dw_conv3x3_op(x, taps)
     if x.is_cuda:
         return dw_conv3x3_cuda(x.contiguous(), taps)
     if x.device.type == "cpu":

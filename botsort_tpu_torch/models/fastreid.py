@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from botsort_tpu_torch.models.common import BatchNorm, conv2d
-from botsort_tpu_torch.utils.consts import const
+from botsort_tpu_torch.utils.consts import const, tracing
 from botsort_tpu_torch.models.fastreid_fused import (
     fold_stem_stage1,
     geometry_ok,
@@ -115,6 +115,9 @@ class ResNeSt50(nn.Module):
         self.stage1_blocks = stage_blocks[0]
         self._folded = None
         self._folded_key = None
+        # A fold given from outside: an exported program's inputs while
+        # runtime/exported.py traces the step.
+        self.bound_constant = None
         sw = stem_width
         self._ConvBN_0 = _ConvBN(3, sw, 3, 2)
         self._ConvBN_1 = _ConvBN(sw, sw, 3, 1)
@@ -137,9 +140,19 @@ class ResNeSt50(nn.Module):
                 and self._ConvBN_0.Conv_0.weight.dtype == torch.bfloat16
                 and geometry_ok(h, w))
 
+    def inference_constant(self):
+        """What an exported program takes as this trunk's input: K4's fold
+        (with ``fused_stem`` only)."""
+        return self.folded_stem_stage1() if self.fused_stem else None
+
     def folded_stem_stage1(self):
         """fold_stem_stage1 of the current weights, refolded whenever one of
-        them was replaced or written in place."""
+        them was replaced or written in place. Under a trace the cache is
+        neither read nor written: the bound fold, else a fresh one."""
+        if self.bound_constant is not None:
+            return self.bound_constant
+        if tracing():
+            return fold_stem_stage1(self)
         parts = [self._ConvBN_0, self._ConvBN_1, self._ConvBN_2,
                  self.SplAtBottleneck_0, self.SplAtBottleneck_1,
                  self.SplAtBottleneck_2]

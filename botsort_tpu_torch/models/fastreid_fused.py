@@ -14,7 +14,11 @@ with a float32 bias.
 returns stage 1's output in the port's NCHW layout, [N, 4*width, H/4, W/4]
 bfloat16. A CUDA tensor launches K4 (csrc/stem_stage1.cu) through
 ``stem_stage1_cuda``; a CPU tensor takes ``stem_stage1_plain``, which does
-what the TPU kernel does, step by step; any other device raises.
+what the TPU kernel does, step by step; any other device raises. The two
+are the CUDA and CPU implementations of the custom op
+``torch.ops.botsort_tpu_torch.stem_stage1``, which takes the folded
+weights as a list of tensors and a plan string (``fold_tensors``), and is
+how a trace reaches them; eager calls skip the dispatcher.
 
 The kernel runs layer by layer through bfloat16 NHWC scratch, so the bytes
 of that scratch bound it, not its operations; the design moves each
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from botsort_tpu_torch.runtime import kernels
+from botsort_tpu_torch.utils.consts import tracing
 
 # The paths of csrc/stem_stage1.cu, with the codes its launcher reads.
 GENERAL, RING, STEM0, OUT, HALO = "general", "ring", "stem0", "out", "halo"
@@ -236,7 +241,8 @@ def _split_attention(y: torch.Tensor, blk: FoldedBlock) -> torch.Tensor:
 def stem_stage1_plain(x: torch.Tensor,
                       folded: FoldedStemStage1) -> torch.Tensor:
     """x [N, H, W, 3] bfloat16 NHWC -> [N, 4*width, H/4, W/4] bfloat16
-    NCHW, step by step as the TPU kernel computes it."""
+    NCHW, contiguous as the kernel's, step by step as the TPU kernel
+    computes it."""
     h = x.permute(0, 3, 1, 2)
     for fc in folded.stem:
         h = _conv_relu(h, fc)
@@ -248,7 +254,7 @@ def stem_stage1_plain(x: torch.Tensor,
         sc = (_conv_acc(h, blk.shortcut) if blk.shortcut is not None
               else h.float())
         h = torch.relu(out + sc).to(torch.bfloat16)
-    return h
+    return h.contiguous()
 
 
 class ConvPlan(NamedTuple):
@@ -561,10 +567,87 @@ def stem_stage1_cuda(x: torch.Tensor,
 stem_stage1_cuda.launches = 0
 
 
+def _conv_fields(fc: FoldedConv) -> List[torch.Tensor]:
+    return [fc.weight, fc.scale, fc.bias, fc.packed]
+
+
+def fold_tensors(folded: FoldedStemStage1) -> Tuple[List[torch.Tensor], str]:
+    """``folded`` as (tensors, plan): every tensor in a fixed order (each
+    conv's weight, scale, bias and packed weight; each block's input conv,
+    grouped conv, the four attention tensors, last conv and shortcut), and
+    the rest in a string, "stem_width,width" then "stride,groups,path" per
+    conv ("-" for an absent shortcut). ``folded_from`` inverts it."""
+    tensors, convs = [], []
+
+    def conv(fc):
+        if fc is None:
+            convs.append("-")
+            return
+        tensors.extend(_conv_fields(fc))
+        convs.append(f"{fc.stride},{fc.groups},{fc.path}")
+
+    for fc in folded.stem:
+        conv(fc)
+    for blk in folded.blocks:
+        conv(blk.conv_in)
+        conv(blk.conv_split)
+        tensors.extend([blk.dense0_w, blk.dense0_b, blk.dense1_w,
+                        blk.dense1_b])
+        conv(blk.conv_out)
+        conv(blk.shortcut)
+    return tensors, ";".join([f"{folded.stem_width},{folded.width}"] + convs)
+
+
+def folded_from(tensors, plan: str) -> FoldedStemStage1:
+    """The FoldedStemStage1 of ``fold_tensors``' (tensors, plan)."""
+    head, *convs = plan.split(";")
+    sw, width = (int(v) for v in head.split(","))
+    it, specs = iter(tensors), iter(convs)
+
+    def conv():
+        spec = next(specs)
+        if spec == "-":
+            return None
+        stride, groups, path = spec.split(",")
+        w, s, b, packed = (next(it) for _ in range(4))
+        return FoldedConv(w, s, b, int(stride), int(groups), packed, path)
+
+    stem = (conv(), conv(), conv())
+    blocks = []
+    for _ in range(3):
+        c_in, c_split = conv(), conv()
+        dense = [next(it) for _ in range(4)]
+        blocks.append(FoldedBlock(c_in, c_split, *dense, conv(), conv()))
+    return FoldedStemStage1(stem, tuple(blocks), sw, width)
+
+
+@torch.library.custom_op("botsort_tpu_torch::stem_stage1", mutates_args=(),
+                         device_types="cpu")
+def stem_stage1_op(x: torch.Tensor, tensors: List[torch.Tensor],
+                   plan: str) -> torch.Tensor:
+    """K4 as a custom op on ``fold_tensors``' (tensors, plan): the plain
+    version on the CPU, the kernel on the card (registered below)."""
+    return stem_stage1_plain(x, folded_from(tensors, plan))
+
+
+@stem_stage1_op.register_kernel("cuda")
+def _stem_stage1_op_cuda(x, tensors, plan):
+    return stem_stage1_cuda(x.contiguous(), folded_from(tensors, plan))
+
+
+@stem_stage1_op.register_fake
+def _stem_stage1_op_fake(x, tensors, plan):
+    width = int(plan.split(";")[0].split(",")[1])
+    n, h, w, _ = x.shape
+    return x.new_empty((n, 4 * width, h // 4, w // 4), dtype=torch.bfloat16)
+
+
 def stem_stage1(x: torch.Tensor, folded: FoldedStemStage1) -> torch.Tensor:
     """Stem + stage 1: x [N, H, W, 3] bfloat16 NHWC -> [N, 4*width, H/4,
     W/4] bfloat16 NCHW. CUDA tensors launch K4, CPU tensors take the plain
-    version."""
+    version; under a trace, the custom op."""
+    if tracing():
+        return stem_stage1_op(x, *fold_tensors(folded))
     if x.is_cuda:
         return stem_stage1_cuda(x.contiguous(), folded)
     if x.device.type == "cpu":

@@ -26,6 +26,12 @@ their matchings are equal, ties included.
 tensors launch kernel K3 (csrc/jv_lap.cu) on the materialised square
 problem, CPU tensors take ``jv_solve_plain`` — the loop K1's plain version
 runs too, so the card has a second solver to hold K1 and K2 against.
+
+Each solver is also a custom op, ``torch.ops.botsort_tpu_torch.cascade_solve``
+(K1/K2) and ``torch.ops.botsort_tpu_torch.jv_solve`` (K3), with the kernel
+as its CUDA and the plain version as its CPU implementation: a trace
+(``torch.export``) reaches the solvers only through them, and sees their
+output shapes only. Eager calls skip the dispatcher.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from botsort_tpu_torch.utils.consts import const
+from botsort_tpu_torch.utils.consts import const, tracing
 
 # The reference solver's "unreached" value (a float, not a tensor, so
 # importing this module allocates nothing).
@@ -172,6 +178,28 @@ def jv_solve_plain(ext: torch.Tensor, p0: torch.Tensor,
 jv_solve_plain.pops = 0
 
 
+@torch.library.custom_op("botsort_tpu_torch::jv_solve", mutates_args=(),
+                         device_types="cpu")
+def jv_solve_op(ext: torch.Tensor, p0: torch.Tensor,
+                live_order: torch.Tensor, n_live: torch.Tensor,
+                max_iters: int) -> torch.Tensor:
+    """K3 as a custom op: ``jv_solve_plain`` on the CPU, the kernel on the
+    card (registered below)."""
+    return jv_solve_plain(ext, p0, live_order, n_live, max_iters)
+
+
+@jv_solve_op.register_kernel("cuda")
+def _jv_solve_op_cuda(ext, p0, live_order, n_live, max_iters):
+    from botsort_tpu_torch.ops.assignment_cuda import jv_solve_cuda
+
+    return jv_solve_cuda(ext, p0, live_order, n_live, max_iters)
+
+
+@jv_solve_op.register_fake
+def _jv_solve_op_fake(ext, p0, live_order, n_live, max_iters):
+    return ext.new_empty(tuple(p0.shape), dtype=torch.int32)
+
+
 def _jv_extended(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,
                  half: float, big: torch.Tensor,
                  max_iters: int = MAX_ITERS) -> Tuple[torch.Tensor,
@@ -219,7 +247,9 @@ def solve_masked(cost: torch.Tensor, row_valid: torch.Tensor,
     ext, p0, live_order, n_live, rv, cv = masked_problem(
         cost, row_valid, col_valid, cost_limit)
     args = (ext[None], p0[None], live_order[None], n_live[None], max_iters)
-    if ext.is_cuda:
+    if tracing():
+        owner = jv_solve_op(*args)
+    elif ext.is_cuda:
         from botsort_tpu_torch.ops.assignment_cuda import jv_solve_cuda
 
         owner = jv_solve_cuda(*args)
@@ -300,6 +330,31 @@ def cascade_solve_plain(costs: torch.Tensor, masks: torch.Tensor,
     return torch.stack(cfr_all), torch.stack(rfc_all)
 
 
+@torch.library.custom_op("botsort_tpu_torch::cascade_solve", mutates_args=(),
+                         device_types="cpu")
+def cascade_solve_op(costs: torch.Tensor, masks: torch.Tensor,
+                     big: torch.Tensor, limits: List[float],
+                     max_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 (B = 1) and K2 (B > 1) as a custom op on ``prepare_cascade``'s
+    output: ``cascade_solve_plain`` on the CPU, the kernel on the card
+    (registered below)."""
+    return cascade_solve_plain(costs, masks, big, limits, max_iters)
+
+
+@cascade_solve_op.register_kernel("cuda")
+def _cascade_solve_op_cuda(costs, masks, big, limits, max_iters):
+    from botsort_tpu_torch.ops.assignment_cuda import cascade_solve_cuda
+
+    return cascade_solve_cuda(costs, masks, big, limits, max_iters)
+
+
+@cascade_solve_op.register_fake
+def _cascade_solve_op_fake(costs, masks, big, limits, max_iters):
+    bsz, _, n, d = costs.shape
+    return (costs.new_empty((bsz, 3, n), dtype=torch.int32),
+            costs.new_empty((bsz, 3, d), dtype=torch.int32))
+
+
 def solve_cascade_masked(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
                          high_m, low_m, limits: Sequence[float],
                          max_iters: int = MAX_ITERS):
@@ -317,7 +372,7 @@ def solve_cascade_masked(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
     CUDA tensors launch the cascade kernel once for all streams (K1 at one
     stream, K2 at B); CPU tensors take the plain version; any other device
     raises. There is no fallback between the two: a kernel that fails to
-    build or launch raises.
+    build or launch raises. Under a trace, the custom op.
     """
     costs, masks, big = prepare_cascade(dists1, iou_d, dists3, pool_m,
                                         tracked_m, unconf_m, high_m, low_m,
@@ -325,7 +380,10 @@ def solve_cascade_masked(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
     single = costs.dim() == 3
     if single:
         costs, masks, big = costs[None], masks[None], big[None]
-    if costs.is_cuda:
+    if tracing():
+        cfr, rfc = cascade_solve_op(costs, masks, big,
+                                    [float(x) for x in limits], max_iters)
+    elif costs.is_cuda:
         from botsort_tpu_torch.ops.assignment_cuda import cascade_solve_cuda
 
         cfr, rfc = cascade_solve_cuda(costs, masks, big, limits, max_iters)

@@ -94,6 +94,9 @@ class GraphCache:
         self._entries: Dict[Tuple, _Entry] = {}
         self._inputs: Dict[Tuple, List[Optional[torch.Tensor]]] = {}
         self._pool = None
+        # What the callers keep per key beside the graph (the facades: the
+        # packed result's layout, which a replay does not recompute).
+        self.meta: Dict[Tuple, object] = {}
         # Totals, for checks: captures made, warm-up calls run eagerly and
         # replays.
         self.captures = 0

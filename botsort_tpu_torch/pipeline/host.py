@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 import types
 from typing import Any, List, NamedTuple, Optional, Tuple
 
@@ -178,7 +179,7 @@ class _Facade:
 
     def __init__(self, bundle: ModelBundle, tracker_cfg: TrackerConfig,
                  nms_cfg: NMSConfig, pipe_cfg: PipelineConfig, graphs: bool,
-                 profile: bool):
+                 profile: bool, graph_cache: Optional[GraphCache] = None):
         _check_dispatch(pipe_cfg)
         self.bundle = bundle
         self.tracker_cfg = tracker_cfg
@@ -194,9 +195,11 @@ class _Facade:
         self._buckets = reid_bucket_set(tracker_cfg, nms_cfg, pipe_cfg)
         self._det_width = _det_width(tracker_cfg, nms_cfg)
         # Captured steps (CUDA devices only; None runs every step eagerly).
-        self._graphs: Optional[GraphCache] = GraphCache(self.device) \
-            if graphs and self.device.type == "cuda" else None
-        self._layouts = {}
+        # ``graph_cache`` shares one with other facades of the same bundle
+        # and configuration (a server's connections).
+        self._graphs: Optional[GraphCache] = graph_cache
+        if graph_cache is None and graphs and self.device.type == "cuda":
+            self._graphs = GraphCache(self.device)
         self._staging = {}
         # The host FrameResult of the latest step (numpy arrays).
         self.last_result: Optional[FrameResult] = None
@@ -267,10 +270,43 @@ class _Facade:
             # A replay does not run the function: the key's first use
             # did, and left its layout.
             if layout:
-                self._layouts[key] = layout[0]
+                self._graphs.meta[key] = layout[0]
             else:
-                layout.append(self._layouts[key])
+                layout.append(self._graphs.meta[key])
         return _store_from(out[1:]), PackedResult(out[0], layout[0])
+
+    def save_session(self, path: str) -> None:
+        """Write the tracking session: the stores (runtime/checkpoint.py),
+        the frame count and the bucket hint, so that a facade resumed from
+        it picks the buckets this one would pick next and goes on bit for
+        bit (the encoders' batch size is part of the arithmetic). A GMC
+        estimator's previous frame is not saved."""
+        from botsort_tpu_torch.runtime.checkpoint import save_store
+
+        stores, live, face = self._session()
+        save_store(path, stores, frame_id=self.frame_id, last_live=live,
+                   last_face=face)
+
+    def load_session(self, path: str) -> bool:
+        """Resume the session saved at ``path`` (``save_session``); False
+        where there is none."""
+        from botsort_tpu_torch.runtime.checkpoint import load_checkpoint
+
+        saved = load_checkpoint(path, self.device)
+        if saved is None:
+            return False
+        stores, host = saved
+        self._resume(stores, host.get("last_live"), host.get("last_face", 0))
+        self.frame_id = host.get("frame_id", 0)
+        return True
+
+    def _session(self):
+        """(stores, bucket hint: the previous step's live and face
+        counts)."""
+        raise NotImplementedError
+
+    def _resume(self, stores, last_live: Optional[int], last_face: int):
+        raise NotImplementedError
 
     def _counts(self, res: FrameResult) -> Tuple[int, int]:
         """(largest live-body count, largest attached-face count) over the
@@ -310,6 +346,8 @@ class BoTSORTPipeline(_Facade):
 
     graphs: replay the step from a CUDA graph (CUDA devices; False runs it
     eagerly). profile: synchronise at the end of every timed stage.
+    graph_cache: a GraphCache shared with other facades of the same bundle
+    and configuration.
     """
 
     kind = "frame"
@@ -318,9 +356,10 @@ class BoTSORTPipeline(_Facade):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False):
+                 graphs: bool = True, profile: bool = False,
+                 graph_cache: Optional[GraphCache] = None):
         super().__init__(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
-                         profile)
+                         profile, graph_cache)
         self.store = empty_store(tracker_cfg, self.device)
         self.gmc = None
         if pipe_cfg.enable_gmc:
@@ -349,6 +388,13 @@ class BoTSORTPipeline(_Facade):
 
     def _counts(self, res: FrameResult):
         return _live_and_face_counts(res, self._det_width)
+
+    def _session(self):
+        return self.store, self._last_n_live, self._last_n_face
+
+    def _resume(self, store, last_live, last_face):
+        self.store, self._last_n_live, self._last_n_face = (
+            store, last_live, last_face)
 
     def update(self, frame_bgr: np.ndarray) -> List[STrackView]:
         """One frame. frame_bgr: [H, W, 3] uint8 (OpenCV layout)."""
@@ -394,6 +440,8 @@ class BatchedBoTSORTPipeline(_Facade):
 
     graphs: replay the step from a CUDA graph (CUDA devices; False runs it
     eagerly). profile: synchronise at the end of every timed stage.
+    graph_cache: a GraphCache shared with other facades of the same bundle
+    and configuration.
     """
 
     kind = "batched"
@@ -402,9 +450,10 @@ class BatchedBoTSORTPipeline(_Facade):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False):
+                 graphs: bool = True, profile: bool = False,
+                 graph_cache: Optional[GraphCache] = None):
         super().__init__(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
-                         profile)
+                         profile, graph_cache)
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         if pipe_cfg.enable_gmc:
@@ -443,6 +492,13 @@ class BatchedBoTSORTPipeline(_Facade):
         counts = [_live_and_face_counts(r, self._det_width)
                   for _, r in self._frame_results(res)]
         return max(c[0] for c in counts), max(c[1] for c in counts)
+
+    def _session(self):
+        return self.stores, self._last_max_live, self._last_max_face
+
+    def _resume(self, stores, last_live, last_face):
+        self.stores, self._last_max_live, self._last_max_face = (
+            stores, last_live, last_face)
 
     def _check_frames(self, frames: np.ndarray):
         if frames.shape[0] != self.n_streams:
@@ -515,9 +571,10 @@ class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False):
+                 graphs: bool = True, profile: bool = False,
+                 graph_cache: Optional[GraphCache] = None):
         super().__init__(bundle, n_streams, tracker_cfg, nms_cfg, pipe_cfg,
-                         graphs, profile)
+                         graphs, profile, graph_cache)
         if t_batch < 1:
             raise ValueError(f"t_batch must be >= 1, got {t_batch}")
         self.t_batch = t_batch
@@ -543,6 +600,36 @@ class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
         flat = super()._assemble(res)
         b = self.n_streams
         return [flat[t * b:(t + 1) * b] for t in range(self.t_batch)]
+
+
+def bucket_pairs(buckets: List[int]) -> List[Tuple[int, int]]:
+    """Every (reid bucket, face bucket) a facade can pick from ``buckets``:
+    the face bucket never exceeds the body bucket."""
+    return [(b, fb) for b in buckets for fb in buckets if fb <= b]
+
+
+def warm_up(pipeline: BoTSORTPipeline, frame_hw: Tuple[int, int]
+            ) -> List[Tuple[Tuple, float]]:
+    """Run both NMS programs (the fixed count and the re-run's) of every
+    bucket pair the facade can pick for frames of ``frame_hw`` once, from
+    its current store, and wait for each: on a card with graphs that
+    captures each step (a live frame, or its re-run, then replays it; an
+    exported pipeline loads each program here); elsewhere it runs each
+    step eagerly once. The facade's state is not changed. Returns
+    ((reid bucket, face bucket, nms_iters), seconds) per step."""
+    frame = pipeline._upload("warm_up",
+                             np.zeros(tuple(frame_hw) + (3,), np.uint8))
+    first = pipeline._first_buckets(None, 0)
+    pairs = bucket_pairs(pipeline._buckets) if first[2] else [first[:2]]
+    out = []
+    for b, fb in pairs:
+        for iters in (None, pipeline.nms_cfg.pre_nms_top_k):
+            t0 = time.perf_counter()
+            _, packed = pipeline._step(pipeline.store, frame, b, fb, None,
+                                       iters)
+            packed.to_host()
+            out.append(((b, fb, iters), time.perf_counter() - t0))
+    return out
 
 
 class PendingBatch:

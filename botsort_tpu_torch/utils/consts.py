@@ -6,6 +6,11 @@ a CUDA-graph capture it is an error. The frame step therefore takes its
 few constants (image means, cost limits, infinities) from this cache: the
 first call builds the tensor, every later call returns the same one. The
 tensors are shared, so callers never write to them.
+
+Under a trace (``torch.export``, ``torch.compile``: ``tracing()``) the
+cache is neither read nor written: a tensor the trace builds is the
+trace's own (a fake tensor that must not outlive it), so ``const`` builds
+a fresh one there, which the exported program keeps as its constant.
 """
 
 from __future__ import annotations
@@ -14,6 +19,13 @@ import functools
 from typing import Any
 
 import torch
+
+
+def tracing() -> bool:
+    """Whether the caller runs under ``torch.export`` or ``torch.compile``
+    rather than eagerly: the kernels are then reached through their custom
+    ops and no per-module cache is read or written."""
+    return torch.compiler.is_compiling()
 
 
 def _freeze(value: Any):
@@ -29,5 +41,8 @@ def _build(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def const(value: Any, dtype: torch.dtype, device) -> torch.Tensor:
     """The cached read-only tensor of ``value`` (a Python scalar or a
-    nested list or tuple of scalars) in ``dtype`` on ``device``."""
+    nested list or tuple of scalars) in ``dtype`` on ``device``; under a
+    trace a fresh tensor, and the cache untouched."""
+    if tracing():
+        return torch.tensor(value, dtype=dtype, device=device)
     return _build(_freeze(value), dtype, torch.device(device))

@@ -84,6 +84,30 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               cost), and K4's time split by CUDA kernel (torch.profiler)
               with each convolution's achieved TFLOP/s, its scratch bytes
               and the least time its layer-by-layer bytes allow.
+ 14. export   both NMS programs of one bucket pair exported with
+              torch.export (runtime/exported.py), saved, loaded and
+              replayed from CUDA graphs: load_pipeline at the loaded
+              one-stream point (K1) and load_batched_pipeline at 8
+              streams, moderate-16 (K2); over 8 frames every FrameResult
+              field and the final stores equal the live facade's, the full
+              NMS program equals the live step's, the graphs call the
+              kernels as torch.ops.botsort_tpu_torch ops, and K1/K2 and
+              K6 count on replay. Prints export and load seconds, bytes
+              and live against loaded replay medians.
+ 15. serve    cli/serve.py's server on a localhost thread with a numpy
+              decoder, cold and after warm_up captured both NMS programs
+              of every bucket pair at 1080p: the JSON of 4 frames equals a
+              direct pipeline's; prints the first request's latency both
+              ways, capture seconds per step and the card's peak reserved
+              memory.
+ 16. store    save_session mid-stream, load_store, load_session into a new
+              facade: the rest of the run equals an uninterrupted run's.
+ 17. oproute  the loaded one-stream point run eagerly with the kernels
+              called directly (the dispatchers' eager route) and through
+              their custom ops (torch.ops.botsort_tpu_torch, the route a
+              trace takes), runs in the order direct, op, op, direct:
+              equal results and launches, and both routes' medians (the
+              dispatcher's host cost).
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}. Run from the repository root:
@@ -600,8 +624,8 @@ def steady_ms(rows):
 
 
 def same_results(torch, host, rows_a, rows_b, stores_a, stores_b, what):
-    """Every FrameResult field of every step and the final stores of two
-    runs, bit for bit."""
+    """Every FrameResult field of every step and the final stores (unless
+    None) of two runs, bit for bit."""
     for i, (a, b) in enumerate(zip(rows_a, rows_b)):
         ra, rb = a["result"], b["result"]
         fields = list(zip(ra._fields[:-1], ra[:-1], rb[:-1])) + [
@@ -610,6 +634,8 @@ def same_results(torch, host, rows_a, rows_b, stores_a, stores_b, what):
         for name, x, y in fields:
             if x.dtype != y.dtype or not np.array_equal(x, y):
                 raise AssertionError(f"{what}: step {i + 1} {name} differs")
+    if stores_a is None:
+        return
     for k, (x, y) in enumerate(zip(host._store_tensors(stores_a),
                                    host._store_tensors(stores_b))):
         if (x is None) != (y is None) or (
@@ -1052,6 +1078,340 @@ def phase_checkpoint(torch, assets, bundle):
         "gave the three warnings")
 
 
+def phase_export(torch, bundle, assignment_cuda, bn_act, card):
+    """Both NMS programs of one bucket pair exported (runtime/exported.py),
+    saved, loaded and replayed from CUDA graphs: load_pipeline at the
+    loaded one-stream point (K1) and load_batched_pipeline at 8 streams,
+    moderate-16 (K2). Over 8 seeded frames every FrameResult field and the
+    final stores equal the live facade's, replayed from graphs at the same
+    bucket set; the full NMS program equals the live step's; K1/K2 and K6
+    are counted on replay, K6 as often as in the live run."""
+    import shutil
+    import tempfile
+
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import host
+    from botsort_tpu_torch.runtime import exported
+
+    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    tmp = tempfile.mkdtemp(prefix="botsort_export_")
+    points = (("one stream, loaded", 0, loaded_cfg(TrackerConfig), 0),
+              (f"{STREAMS} streams, moderate-16", STREAMS,
+               loaded_cfg(TrackerConfig, max_dets=16), 1))
+    try:
+        for label, streams, tracker_cfg, seed in points:
+            cfgs = (tracker_cfg, NMSConfig(), PipelineConfig())
+            d = min(tracker_cfg.max_dets, cfgs[1].max_boxes_per_class)
+            full = cfgs[1].pre_nms_top_k
+            path = os.path.join(tmp, f"streams{streams}")
+            t0 = time.perf_counter()
+            manifest = exported.export_all(
+                bundle, *cfgs, path, [FRAME_HW], streams=streams,
+                buckets=[d], one_stream=not streams, log=lambda *_: None)
+            export_s = time.perf_counter() - t0
+            entries = manifest["batched_artifacts" if streams
+                               else "artifacts"]
+            t0 = time.perf_counter()
+            programs = exported.Programs(path, bundle, manifest)
+            for e in entries:
+                programs.program(streams, FRAME_HW, d, d, e["nms_iters"])
+            load_s = time.perf_counter() - t0
+            ops = sorted({str(n.target) for e in entries
+                          for n in programs.exported_program(
+                              streams, FRAME_HW, d, d,
+                              e["nms_iters"]).graph.nodes
+                          if "botsort_tpu_torch" in str(n.target)})
+            want_ops = ["botsort_tpu_torch.bn_act.default",
+                        "botsort_tpu_torch.cascade_solve.default"]
+            if ops != want_ops:
+                raise AssertionError(f"export: the graph calls {ops}")
+            if streams:
+                loaded = exported.load_batched_pipeline(
+                    path, bundle, streams, programs=programs)
+                live = host.BatchedBoTSORTPipeline(bundle, streams, *cfgs)
+                shape = (streams,) + FRAME_HW + (3,)
+                launches_of = lambda: cuda.batched_launches  # noqa: E731
+                other = lambda: cuda.launches  # noqa: E731
+            else:
+                loaded = exported.load_pipeline(path, bundle,
+                                                programs=programs)
+                live = host.BoTSORTPipeline(bundle, *cfgs)
+                shape = FRAME_HW + (3,)
+                launches_of = lambda: cuda.launches  # noqa: E731
+                other = lambda: cuda.batched_launches  # noqa: E731
+            live._buckets = [d]  # the exported bucket set
+            rng = np.random.default_rng(seed)
+            frames = [rng.integers(0, 255, shape, dtype=np.uint8)
+                      for _ in range(8)]
+            rows, k6_runs = {}, {}
+            for mode, pipe in (("live", live), ("loaded", loaded)):
+                cuda.launches = cuda.batched_launches = k6.launches = 0
+                rows[mode] = drive(torch, pipe, frames, launches_of)
+                k6_runs[mode] = k6.launches
+                if other():
+                    raise AssertionError(f"export {mode}: the other "
+                                         "solver kernel launched")
+            kernel_launches = sum(r["launches"] for r in rows["loaded"])
+            same_results(torch, host, rows["live"], rows["loaded"],
+                         live.stores if streams else live.store,
+                         loaded.stores if streams else loaded.store,
+                         f"export ({label}): loaded != live")
+            for i, r in enumerate(rows["loaded"]):
+                if r["launches"] != expected_launches(r) or \
+                        r["launches"] < 1:
+                    raise AssertionError(
+                        f"export ({label}): step {i + 1} launched the "
+                        f"solver {r['launches']} times over {r['runs']}")
+            if k6_runs["loaded"] != k6_runs["live"] or \
+                    k6_runs["loaded"] < len(frames):
+                raise AssertionError(f"export ({label}): K6 {k6_runs}")
+            # The full NMS program (the facades' re-run) on the last
+            # frames, from the final stores, against the live step's.
+            dev = bundle.device
+            frame_dev = torch.from_numpy(frames[-1]).to(dev)
+            before = (launches_of(), k6.launches)
+            results = [p._step(p.stores if streams else p.store, frame_dev,
+                               d, d, None, full)[1].to_host()
+                       for p in (live, loaded)]
+            same_results(torch, host, [dict(result=results[0])],
+                         [dict(result=results[1])], None, None,
+                         f"export ({label}): full NMS program")
+            if launches_of() - before[0] < 2 or k6.launches == before[1]:
+                raise AssertionError(f"export ({label}): the full NMS "
+                                     "programs did not launch the kernels")
+            nbytes = [e["bytes"] for e in entries]
+            secs = [round(e["export_seconds"], 3) for e in entries]
+            med = {m: statistics.median(steady_ms(rows[m])) for m in rows}
+            log(f"export ({label}): {len(entries)} programs (fixed and "
+                f"full NMS count, buckets ({d},{d})) in {export_s:.3f} s "
+                f"(each {secs} s), {nbytes} bytes, loaded in {load_s:.3f} s;"
+                f" the graph calls {ops}; over {len(frames)} frames "
+                f"replayed from graphs every FrameResult field and the "
+                f"final stores equal the live facade's, and the full NMS "
+                f"program's step equals the live one's; solver launches "
+                f"{kernel_launches} over runs "
+                f"{[r['runs'] for r in rows['loaded']]}, K6 launches "
+                f"{k6_runs['loaded']} (live {k6_runs['live']})")
+            log(f"timing: export ({label}): replayed median live "
+                f"{med['live']:.3f} ms, loaded {med['loaded']:.3f} ms a "
+                f"step in this call; {card}")
+            del live, loaded, programs
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_serve(torch, bundle, card):
+    """cli/serve.py's server on a localhost thread with a numpy decoder,
+    its connections sharing one graph cache: cold, and after warm_up has
+    captured both NMS programs of every bucket pair at 1080p
+    (--warmup_hw). The JSON of 4
+    frames equals a pipeline driven directly; prints the first request's
+    latency both ways, each pair's capture time and the card's reserved
+    memory afterwards."""
+    import io
+    import socket
+    import threading
+
+    from botsort_tpu_torch.cli import serve
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import host
+    from botsort_tpu_torch.pipeline.graphed import GraphCache
+
+    cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
+              for _ in range(4)]
+
+    def encode(img):
+        buf = io.BytesIO()
+        np.save(buf, img)
+        return buf.getvalue()
+
+    def decode(data):
+        return np.load(io.BytesIO(data))
+
+    direct = host.BoTSORTPipeline(bundle, *cfgs, graphs=False)
+    want = [json.loads(serve.tracks_to_json(n + 1, direct.update(f)))
+            for n, f in enumerate(frames)]
+    out = {}
+    for mode in ("cold", "warm"):
+        cache = GraphCache(bundle.device)
+
+        def factory(cache=cache):
+            return host.BoTSORTPipeline(bundle, *cfgs, graph_cache=cache)
+
+        warmed = []
+        if mode == "warm":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            warmed = host.warm_up(factory(), FRAME_HW)
+            reserved = torch.cuda.max_memory_reserved()
+        server = serve.Server(("127.0.0.1", 0),
+                              serve.make_handler(factory, decode))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        answers, ms = [], []
+        try:
+            with socket.create_connection(server.server_address) as sock:
+                for img in frames:
+                    t0 = time.perf_counter()
+                    serve.send_message(sock, encode(img))
+                    answers.append(json.loads(serve.recv_message(sock)))
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                sock.sendall(b"\0\0\0\0")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(30)
+        if answers != want:
+            raise AssertionError(f"serve ({mode}): the JSON differs from "
+                                 "the direct pipeline's")
+        out[mode] = (ms, cache.captures, warmed)
+        del cache
+        torch.cuda.empty_cache()
+    ms_cold, caps_cold, _ = out["cold"]
+    ms_warm, caps_warm, warmed = out["warm"]
+    n_tracks = [len(a["tracks"]) for a in want]
+    log(f"serve: {len(frames)} frames over one connection, cold and after "
+        f"warm_up: the JSON equals the direct pipeline's ({n_tracks} "
+        f"tracks); warm_up captured {len(warmed)} steps (both NMS programs "
+        f"of {len({k[:2] for k, _ in warmed})} bucket pairs), {caps_warm} "
+        f"graphs in all (cold server: {caps_cold})")
+    log(f"timing: serve: first request {ms_cold[0]:.3f} ms cold, "
+        f"{ms_warm[0]:.3f} ms after warm_up; later requests "
+        f"{[round(x, 3) for x in ms_warm[1:]]} ms; capture seconds per "
+        f"(reid bucket, face bucket, NMS count) "
+        f"{[(k, round(t, 3)) for k, t in warmed]}; "
+        f"torch.cuda.max_memory_reserved after all of them {reserved} B; "
+        f"{card}")
+
+
+def phase_store(torch, bundle):
+    """save_session after 4 of 8 frames (runtime/checkpoint.py's
+    save_store with the bucket hint), load_store, load_session into a new
+    facade and the last 4 frames: every FrameResult field and the final
+    store equal an uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import host
+    from botsort_tpu_torch.pipeline.graphed import GraphCache
+    from botsort_tpu_torch.runtime import checkpoint
+
+    cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
+    cache = GraphCache(bundle.device)
+
+    def make():
+        return host.BoTSORTPipeline(bundle, *cfgs, graph_cache=cache)
+
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
+              for _ in range(8)]
+    whole, first = make(), make()
+    want = []
+    for f in frames:
+        whole.update(f)
+        want.append(dict(result=whole.last_result))
+    for f in frames[:4]:
+        first.update(f)
+    tmp = tempfile.mkdtemp(prefix="botsort_store_")
+    try:
+        path = os.path.join(tmp, "session.pt")
+        t0 = time.perf_counter()
+        first.save_session(path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        store = checkpoint.load_store(path, bundle.device)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        same_results(torch, host, [], [], first.store, store,
+                     "store: load_store != the saved store")
+        resumed = make()
+        if not resumed.load_session(path):
+            raise AssertionError("store: no session at the saved path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = []
+    for f in frames[4:]:
+        resumed.update(f)
+        got.append(dict(result=resumed.last_result))
+    same_results(torch, host, want[4:], got, whole.store, resumed.store,
+                 "store: resumed != uninterrupted")
+    log(f"store: save_session after 4 of {len(frames)} frames ({size} B, "
+        f"{save_ms:.3f} ms), load_store ({load_ms:.3f} ms) equal to the "
+        f"saved store, load_session into a new facade: the last 4 frames "
+        f"and the final store equal the uninterrupted run's "
+        f"({len(resumed.last_result.tracks.valid.nonzero()[0])} live "
+        f"tracks)")
+
+
+def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
+                  card):
+    """The loaded one-stream point run eagerly over 8 frames, four times:
+    with every dispatcher in ``dispatchers`` (the modules that hold one)
+    calling its kernel's wrapper directly, as eager calls do, and with
+    each routed through its custom op, as a trace is (their ``tracing``
+    patched to say so), in the order direct, op, op, direct. Every
+    FrameResult field, the final stores and the K1 and K6 launches are
+    equal across the runs; prints each run's median and the two routes'
+    (the dispatcher's host cost on the eager step)."""
+    import contextlib
+
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import host
+
+    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
+              for _ in range(8)]
+    runs = []
+    for route in ("direct", "op", "op", "direct"):
+        pipe = host.BoTSORTPipeline(bundle, *cfgs, graphs=False)
+        with contextlib.ExitStack() as stack:
+            if route == "op":
+                for m in dispatchers:
+                    stack.enter_context(
+                        mock.patch.object(m, "tracing", lambda: True))
+            cuda.launches = cuda.batched_launches = k6.launches = 0
+            rows = drive(torch, pipe, frames, lambda: cuda.launches)
+        runs.append((route, rows, pipe.store,
+                     (cuda.launches, cuda.batched_launches, k6.launches)))
+    _, rows0, store0, launches0 = runs[0]
+    for route, rows, store, launches in runs[1:]:
+        same_results(torch, host, rows0, rows, store0, store,
+                     f"oproute: the {route} route's run differs")
+        if launches != launches0:
+            raise AssertionError(f"oproute: launches (K1, K2, K6) "
+                                 f"{launches} against {launches0}")
+    if launches0[0] < len(frames) or launches0[1] or launches0[2] < 1:
+        raise AssertionError(f"oproute: launches (K1, K2, K6) {launches0}")
+    med = {}
+    for route, rows, _, _ in runs:
+        med.setdefault(route, []).extend(steady_ms(rows))
+    each = [(route, round(statistics.median(steady_ms(rows)), 3))
+            for route, rows, _, _ in runs]
+    d, o = (statistics.median(med[r]) for r in ("direct", "op"))
+    calls = (launches0[0] + launches0[2]) / len(frames)
+    log(f"oproute: {len(frames)} eager frames at the loaded one-stream "
+        f"point, kernels called directly and through torch.ops."
+        f"botsort_tpu_torch, runs in the order direct, op, op, direct: "
+        f"every FrameResult field, the final stores and the launches equal "
+        f"(K1, K2, K6 per run: {launches0})")
+    log(f"timing: oproute: eager one-stream step median {d:.3f} ms direct, "
+        f"{o:.3f} ms through the custom ops ({o - d:+.3f} ms, "
+        f"{1e3 * (o - d) / calls:+.1f} us a kernel call over {calls:.1f} "
+        f"calls a frame); each run's median {each}, spread of the direct "
+        f"runs' steady frames {min(med['direct']):.3f}-"
+        f"{max(med['direct']):.3f} ms; {card}")
+
+
 class NormRecorder:
     """Records (shape, dtype, activation) of every BatchNorm call of a
     bundle's networks."""
@@ -1464,18 +1824,22 @@ def k4_split(torch, fastreid_fused, k4, x, folded, card):
     from torch.profiler import ProfilerActivity, profile
 
     n, h, w, _ = x.shape
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # A torch.profiler run can lose the events of its first
-        # milliseconds: the second call is the one read.
-        for _ in range(2):
-            k4(x, folded)
-            torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and "kernel" in e.name]
-    events.sort(key=lambda e: e.time_range.start)
-    events = events[-len(K4_KERNELS):]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # A torch.profiler run can lose the events of its first
+            # milliseconds: the last call is the one read, and a run that
+            # lost some of its events is made again.
+            for _ in range(3):
+                k4(x, folded)
+                torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "kernel" in e.name]
+        events.sort(key=lambda e: e.time_range.start)
+        events = events[-len(K4_KERNELS):]
+        if len(events) == len(K4_KERNELS):
+            break
     if len(events) != len(K4_KERNELS):
         raise AssertionError(
             f"K4 ran {len(events)} CUDA kernels under the profiler, expected "
@@ -1770,6 +2134,15 @@ def main() -> int:
                                       k4_model, face_inputs, card))
     times["K6"] = k6_times
     done("timings")
+    phase_export(torch, bundle, assignment_cuda, bn_act, card)
+    done("export")
+    phase_serve(torch, bundle, card)
+    done("serve")
+    phase_store(torch, bundle)
+    done("store")
+    phase_oproute(torch, bundle, assignment_cuda, bn_act,
+                  (assignment, bn_act, facereid_dw, fastreid_fused), card)
+    done("oproute")
     log(f"temporal: K2 launches on the temporal path {k2_temporal}")
     log(f"phases (s): {json.dumps(seconds)}, total "
         f"{sum(seconds.values()):.1f}")

@@ -665,3 +665,108 @@ def test_mini_step_never_synchronises(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert len(pipe._graphs.keys()) == keys  # a replay, not a capture
     assert len(handle.result()) == 2
+
+
+# --- K1-K6 as custom ops; an exported step replayed from a graph ----------
+
+
+def _op_pair(op, args, dev):
+    """The op on the card's arguments and on their CPU copies."""
+    on_card = [a.to(dev) if isinstance(a, torch.Tensor) else
+               [t.to(dev) for t in a] if isinstance(a, list) and a and
+               isinstance(a[0], torch.Tensor) else a for a in args]
+    got = op(*on_card)
+    want = op(*args)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def test_cascade_and_jv_ops_on_the_card_equal_their_cpu_implementation(dev):
+    """torch.ops.botsort_tpu_torch.cascade_solve at B = 1 (K1) and B = 3
+    (K2), and jv_solve (K3): the CUDA implementation (the kernel, counted)
+    equal to the CPU one (the plain version)."""
+    ops = torch.ops.botsort_tpu_torch
+    rng = np.random.default_rng(31)
+    for b in (1, 3):
+        insts = [_instance(rng, 40, 30) for _ in range(b)]
+        tensors = [torch.from_numpy(np.stack(x)) for x in zip(*insts)]
+        costs, masks, big = assignment.prepare_cascade(*tensors, LIMITS)
+        cuda = assignment_cuda.cascade_solve_cuda
+        before = (cuda.launches, cuda.batched_launches)
+        got, want = _op_pair(ops.cascade_solve,
+                             [costs, masks, big, list(LIMITS), 4096], dev)
+        assert (cuda.launches, cuda.batched_launches) == (
+            before[0] + (b == 1), before[1] + (b > 1))
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+    probs = [_jv_problem(rng, 60, 25) for _ in range(2)]
+    args = [torch.from_numpy(np.stack(x)) for x in zip(*probs)] + [4096]
+    before = assignment_cuda.jv_solve_cuda.launches
+    got, want = _op_pair(ops.jv_solve, args, dev)
+    assert assignment_cuda.jv_solve_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_encoder_ops_on_the_card_equal_their_cpu_implementation(dev):
+    """bn_act (K6: bitwise, SiLU within two units in the last place: the
+    CPU's SiLU and exponential against the kernel's),
+    dw_conv3x3 (K5: bitwise) and stem_stage1 (K4: K4's tolerance) through
+    torch.ops, each launch counted."""
+    ops = torch.ops.botsort_tpu_torch
+    rng = np.random.default_rng(32)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, mean, mul, bias = _bn_inputs(rng, (2, 24, 6, 10), dtype, "cpu")
+        for act in bn_act.ACTS:
+            before = bn_act.bn_act_cuda.launches
+            got, want = _op_pair(ops.bn_act, [x, mean, mul, bias, act], dev)
+            assert bn_act.bn_act_cuda.launches == before + 1
+            got = got.cpu()
+            if act == "silu":
+                assert _ulp_apart(got, want) <= 2
+            else:
+                assert torch.equal(got, want), act
+    x, taps = _dw_case(rng, (3, 40, 12, 24), torch.bfloat16, "cpu")
+    before = facereid_dw.dw_conv3x3_cuda.launches
+    got, want = _op_pair(ops.dw_conv3x3, [x, taps], dev)
+    assert facereid_dw.dw_conv3x3_cuda.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    model = _trunk("cpu", 7, **FULL_STEM)
+    tensors, plan = fastreid_fused.fold_tensors(model.folded_stem_stage1())
+    x = _k4_input("cpu", 8, 2, 64, 32)
+    before = fastreid_fused.stem_stage1_cuda.launches
+    got, want = _op_pair(ops.stem_stage1, [x, tensors, plan], dev)
+    assert fastreid_fused.stem_stage1_cuda.launches == before + 1
+    rel, worst = _rel(got.cpu(), want)
+    assert rel <= 1e-2 and worst <= 0.05, (rel, worst)
+
+
+def test_mini_exported_step_replayed_from_a_graph_equals_eager(dev,
+                                                                tmp_path):
+    """A MINI bfloat16 step exported on the card (both NMS programs of the
+    det-width bucket pair), loaded and replayed from CUDA graphs by
+    load_pipeline: every FrameResult field and the final store bit-equal to
+    the eager live facade's; K1 and K6 counted on every replay."""
+    from botsort_tpu_torch.runtime import exported
+
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    out = str(tmp_path / "exported")
+    exported.export_all(bundle, MINI_TRK, MINI_NMS, MINI_PIPE, out,
+                        [(240, 320)], buckets=[8], log=lambda *_: None)
+    loaded = exported.load_pipeline(out, bundle)
+    assert loaded._graphs is not None
+    eager = host.BoTSORTPipeline(bundle, MINI_TRK, MINI_NMS, MINI_PIPE,
+                                 graphs=False)
+    k1, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    for t, frames in enumerate(_mini_frames(4, 1, 7)):
+        eager.update(frames[0])
+        before = (k1.launches, k6.launches, loaded._graphs.replays)
+        loaded.update(frames[0])
+        torch.cuda.synchronize()
+        _same_result(eager.last_result, loaded.last_result)
+        replays = loaded._graphs.replays - before[2]
+        assert k1.launches - before[0] >= replays >= 1
+        assert k6.launches - before[1] > replays
+    for x, y in zip(host._store_tensors(eager.store),
+                    host._store_tensors(loaded.store)):
+        assert (x is None and y is None) or torch.equal(x, y)

@@ -596,10 +596,16 @@ def test_multitrack_cli_cpu_mini(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--chips", "2"], ["--artifact_dir", "x"]])
 def test_multitrack_refuses_unported_modes(tmp_path, flag):
+    """--chips names its ROADMAP item; --artifact_dir (ported) refuses a
+    directory that holds no exported programs."""
     from botsort_tpu_torch.cli import multitrack
 
     vid = tmp_path / "a.mp4"
     vid.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if flag[0] == "--chips":
+        err, match = NotImplementedError, "ROADMAP"
+    else:
+        err, match = FileNotFoundError, "manifest.json"
+    with pytest.raises(err, match=match):
         multitrack.main(["-v", str(vid), "-ep", "cpu", *flag])
     assert os.path.isfile(vid)

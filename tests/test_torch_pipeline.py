@@ -333,8 +333,8 @@ def test_demo_cli_cpu_mini(tmp_path):
 
 def test_package_never_imports_jax_and_main_path_not_cv2():
     """Neither JAX nor the JAX package, on the single- and multi-stream
-    paths and in both CLIs: the port runs where only PyTorch is
-    installed."""
+    paths and in the CLIs, and no OpenCV where a CLI is imported: the port
+    runs where only PyTorch is installed."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "orbax", "botsort_tpu"):
@@ -353,6 +353,9 @@ def test_package_never_imports_jax_and_main_path_not_cv2():
         assert "cv2" not in sys.modules, "cv2 at io.gmc's import"
         importlib.import_module("botsort_tpu_torch.cli.demo")
         importlib.import_module("botsort_tpu_torch.cli.multitrack")
+        for cli in ("serve", "warmup", "export", "eval_trace", "eval_mot"):
+            importlib.import_module("botsort_tpu_torch.cli." + cli)
+        assert "cv2" not in sys.modules, "cv2 at a CLI's import"
         importlib.import_module("botsort_tpu_torch.io.draw")
         loaded = [m for m in ("jax", "jaxlib", "flax", "botsort_tpu")
                   if sys.modules.get(m) is not None]
