@@ -9,15 +9,21 @@ find:
   config.py   tracker, NMS and pipeline configuration
   ops/        boxes, Kalman filter, assignment (plain + CUDA K1, K2, K3),
               crops, NMS, box hierarchy
-  models/     YOLOX, FastReID SBS-S50, FaceReID as ``torch.nn`` modules
+  models/     YOLOX, FastReID SBS-S50, FaceReID as ``torch.nn`` modules,
+              their kernels' wrappers and int8 quantization
   track/      tensor track store + the BoT-SORT association cascade
   pipeline/   the per-frame step (batched over streams), the host
               facades, host box objects
-  runtime/    kernel build/load, Flax weight bridge, model bundles
-  cli/        demo and multitrack entry points
+  parallel/   streams split over several devices
+  train/      the batch-hard triplet ReID trainer
+  runtime/    kernel build/load, Flax weight bridge, model bundles,
+              exported programs, the serving envelope, native LAPJV
+  cli/        demo, multitrack, trace, export, serve and warm-up entry
+              points
   io/         video I/O and frame drawing for the CLIs (OpenCV)
-  utils/      stage timers
+  utils/      stage timers, device trace, terminal colours
   csrc/       hand-written CUDA kernels (built at first use)
+  examples/   library usage
 
 Nothing here imports ``jax``, ``flax`` or the JAX package, so the port
 runs on a machine that has only PyTorch.

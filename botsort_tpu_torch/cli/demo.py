@@ -7,7 +7,10 @@ names select the input geometry and the checkpoints:
 ``{weights_dir}/{stem}.pt`` is loaded where it exists
 (tools/convert_orbax_to_torch.py writes these files); a network without
 one runs its seeded random init, with a warning. ``--gmc`` switches
-camera-motion compensation on (io/gmc.py).
+camera-motion compensation on (io/gmc.py). ``--int8`` serves the body ReID
+encoder with int8 convolutions in its mid-network scope
+(models/quantize.py), calibrated on the video's first
+``--int8_calib_frames`` frames.
 
 Run: python -m botsort_tpu_torch.cli.demo -v video.mp4 -ep cuda --headless
 """
@@ -65,8 +68,10 @@ def build_parser() -> ArgumentParser:
                              "optical-flow affine per frame, applied to "
                              "the Kalman states.")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 body ReID (not ported yet: ROADMAP "
-                             "Queue 1 item 13).")
+                        help="int8 body ReID: post-training quantization "
+                             "of the body encoder's mid-network "
+                             "convolutions, calibrated on the stream's "
+                             "first frames.")
     parser.add_argument("--int8_calib_frames", type=int, default=4,
                         help="Frames read for int8 calibration.")
     parser.add_argument("--profile", action="store_true",
@@ -75,14 +80,34 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
+def int8_bundle(args, bundle, pipe_cfg):
+    """``--int8``: the bundle with its body encoder quantized, calibrated on
+    the first ``--int8_calib_frames`` frames of ``--video`` (synthetic
+    frames if it gives none)."""
+    import cv2
+    import numpy as np
+
+    from botsort_tpu_torch.models.quantize import quantize_bundle
+
+    calib = []
+    peek = cv2.VideoCapture(
+        int(args.video) if args.video.isdigit() else args.video)
+    for _ in range(max(args.int8_calib_frames, 1)):
+        ok, f = peek.read()
+        if not ok:
+            break
+        calib.append(f)
+    peek.release()
+    print(f"int8: calibrating on {len(calib)} frames")
+    return quantize_bundle(bundle, np.stack(calib) if calib else None,
+                           pipe_cfg=pipe_cfg)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.video.isdigit() and not os.path.isfile(args.video):
         print(f"ERROR: video file not found: {args.video}")
         return 1
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 is not ported yet (ROADMAP Queue 1 item 13)")
     if args.execution_provider == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("-ep cuda: no CUDA device is available")
     device = torch.device(args.execution_provider)
@@ -117,6 +142,8 @@ def main(argv=None):
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8,
     )
+    if args.int8:
+        bundle = int8_bundle(args, bundle, pipe_cfg)
     pipeline = BoTSORTPipeline(bundle, tracker_cfg, NMSConfig(), pipe_cfg,
                                profile=args.profile)
 

@@ -4,9 +4,10 @@ The port of botsort_tpu/cli/eval_trace.py. Runs the tracker over a video
 and writes one row per (frame, track): ``frame,id,x,y,w,h,score,class,
 visibility``, the format of MOT17/MOT20 evaluation (cli/eval_mot.py reads
 it). The options are the demo's (``-ep cuda|cpu``, ``--mini``,
-``--weights_dir``, ...), plus ``-o`` and ``-tb T``: T consecutive frames a
-step through the temporal step (``TemporalBatchedBoTSORTPipeline`` at one
-stream), which tracks exactly what per-frame steps track. A last group
+``--weights_dir``, ``--int8``, ...), plus ``-o`` and ``-tb T``: T
+consecutive frames a step through the temporal step
+(``TemporalBatchedBoTSORTPipeline`` at one stream), which tracks exactly
+what per-frame steps track. A last group
 shorter than T coasts on its last frame; only real frames are written.
 
 Run: python -m botsort_tpu_torch.cli.eval_trace -v video.mp4 -o trace.csv \\
@@ -19,7 +20,7 @@ import time
 
 import torch
 
-from botsort_tpu_torch.cli.demo import build_parser
+from botsort_tpu_torch.cli.demo import build_parser, int8_bundle
 
 
 def write_tracks(f, frame_no: int, tracks) -> None:
@@ -38,9 +39,6 @@ def main(argv=None):
         help="Consecutive frames per step (the temporal step; the same "
              "tracks as per-frame steps).")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 is not ported yet (ROADMAP Queue 1 item 13)")
     if args.execution_provider == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("-ep cuda: no CUDA device is available")
     device = torch.device(args.execution_provider)
@@ -76,6 +74,8 @@ def main(argv=None):
         body_feature_dim=2048 if not args.mini else 256,
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
+    if args.int8:
+        bundle = int8_bundle(args, bundle, pipe_cfg)
     tb = max(args.temporal_batch, 1)
     if tb == 1:
         pipeline = BoTSORTPipeline(bundle, tracker_cfg, NMSConfig(),

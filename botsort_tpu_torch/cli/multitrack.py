@@ -24,20 +24,36 @@ real frames are written. ``--artifact_dir DIR`` serves the batched
 programs that cli/export.py ``--streams N`` wrote (N = the number of
 videos; configurations from their manifest, weights from
 ``--weights_dir``) instead of the live models; it steps one frame per
-stream (``--temporal`` is ignored there).
+stream (``--temporal`` is ignored there). ``--chips N|auto`` spreads the
+streams over N cards (``MeshBatchedBoTSORTPipeline``, each card a slice of
+the streams), clamped to the cards present; ``auto`` takes just enough
+cards that each slice fits the measured real-time envelope
+(runtime/envelope.py), so one card where there is one. On the CPU the
+slices share the one CPU device. ``--artifact_dir`` and ``--temporal``
+serve on one device.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
-from argparse import ArgumentParser
+from argparse import ArgumentParser, ArgumentTypeError
 
 import numpy as np
 import torch
 
 from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
 from botsort_tpu_torch.runtime import assets
+
+
+def _chips(value: str):
+    """``--chips``: "auto" or a positive count."""
+    if value.lower() == "auto":
+        return "auto"
+    if not value.isdigit() or int(value) < 1:
+        raise ArgumentTypeError(f"expected N >= 1 or auto, got {value!r}")
+    return int(value)
 
 
 def build_parser() -> ArgumentParser:
@@ -61,9 +77,11 @@ def build_parser() -> ArgumentParser:
                              "--streams N (N = the number of videos).")
     parser.add_argument("--mini", action="store_true",
                         help="Miniature architectures (smoke tests).")
-    parser.add_argument("--chips", default="1",
-                        help="Cards to spread the streams over (only 1 is "
-                             "ported: ROADMAP Queue 1 item 11).")
+    parser.add_argument("--chips", default="auto", type=_chips,
+                        help="Cards to spread the streams over (N, or "
+                             "'auto' = just enough cards that each stays "
+                             "inside the measured real-time envelope, "
+                             "runtime/envelope.py).")
     parser.add_argument("--temporal", type=int, default=1, metavar="T",
                         help="Consecutive frames per stream per step: "
                              "T - 1 frames of added latency for a higher "
@@ -74,11 +92,33 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
-def _check_ported(args) -> None:
-    if str(args.chips) != "1":
-        raise NotImplementedError(
-            "--chips other than 1 is not ported yet (ROADMAP Queue 1 "
-            "item 11)")
+def choose_chips(args, n_streams: int, device: torch.device,
+                 body_reid_input_hw) -> int:
+    """The number of devices the streams spread over: ``--chips`` clamped
+    to the cards present (on the CPU, to the stream count), or for
+    ``auto`` just enough that each slice fits the envelope; exported
+    programs serve on one device."""
+    from botsort_tpu_torch.runtime.envelope import (
+        max_realtime_streams,
+        stream_envelope_warning,
+    )
+
+    n_dev = (torch.cuda.device_count() if device.type == "cuda"
+             else n_streams)
+    if args.chips == "auto":
+        chips = 1
+        if not args.artifact_dir and stream_envelope_warning(
+                n_streams, device.type,
+                body_reid_input_hw=body_reid_input_hw):
+            cap = max_realtime_streams(30.0, body_reid_input_hw)
+            chips = min(math.ceil(n_streams / cap), n_dev, n_streams)
+        return max(chips, 1)
+    chips = min(args.chips, n_dev, n_streams)
+    if args.artifact_dir and chips > 1:
+        print("WARNING: --artifact_dir serving is single-device (the "
+              "exported programs are unsharded); ignoring --chips.")
+        chips = 1
+    return chips
 
 
 def main(argv=None):
@@ -87,7 +127,6 @@ def main(argv=None):
         if not os.path.isfile(path):
             print(f"ERROR: video file not found: {path}")
             return 1
-    _check_ported(args)
     if args.execution_provider == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("-ep cuda: no CUDA device is available")
     device = torch.device(args.execution_provider)
@@ -121,10 +160,22 @@ def main(argv=None):
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
     b = len(args.videos)
+    from botsort_tpu_torch.runtime.envelope import stream_envelope_warning
+
+    chips = choose_chips(args, b, device, pipe_cfg.body_reid_input_hw)
+    per_chip = math.ceil(b / chips)
+    env_warn = stream_envelope_warning(
+        per_chip, device.type, body_reid_input_hw=pipe_cfg.body_reid_input_hw)
+    if env_warn:
+        print(env_warn)
     t_batch = max(1, int(args.temporal))
     if t_batch > 1 and args.artifact_dir:
         print("WARNING: the exported programs step one frame per stream; "
               "ignoring --temporal.")
+        t_batch = 1
+    if t_batch > 1 and chips > 1:
+        print("WARNING: --temporal is single-device serving; ignoring it "
+              "here.")
         t_batch = 1
     if args.artifact_dir:
         from botsort_tpu_torch.runtime.exported import load_batched_pipeline
@@ -136,6 +187,18 @@ def main(argv=None):
               f"({t_batch - 1} frame(s) of added latency)")
         pipeline = TemporalBatchedBoTSORTPipeline(
             bundle, b, t_batch, tracker_cfg, NMSConfig(), pipe_cfg,
+            profile=args.profile)
+    elif chips > 1:
+        from botsort_tpu_torch.parallel.streams import make_mesh
+        from botsort_tpu_torch.pipeline.host import (
+            MeshBatchedBoTSORTPipeline,
+        )
+
+        print(f"sharding {b} streams over {chips} devices ({per_chip} "
+              "a device, data parallel)")
+        pipeline = MeshBatchedBoTSORTPipeline(
+            bundle, b, mesh=make_mesh(chips, device.type),
+            tracker_cfg=tracker_cfg, nms_cfg=NMSConfig(), pipe_cfg=pipe_cfg,
             profile=args.profile)
     else:
         pipeline = BatchedBoTSORTPipeline(bundle, b, tracker_cfg,

@@ -15,8 +15,12 @@ step captured for one connection is replayed for the next.
 ``--warmup_hw HxW`` captures every bucket pair at that resolution before
 the server accepts a connection, so no client waits for a capture.
 ``--artifact_dir`` serves the exported programs of cli/export.py instead
-of the live models. The default decoder is OpenCV's (JPEG or PNG), imported
-when the server starts; ``make_handler`` takes any other.
+of the live models. ``--int8`` serves the body ReID encoder with int8
+convolutions (models/quantize.py), calibrated on synthetic frames, since
+no stream exists when the server starts; it refuses ``--artifact_dir``,
+whose programs are already traced. The default decoder is OpenCV's (JPEG
+or PNG), imported when the server starts; ``make_handler`` takes any
+other.
 
 Run: python -m botsort_tpu_torch.cli.serve --port 8700 -ep cuda \\
          [--warmup_hw 1080x1920] [--artifact_dir exported/] [--mini]
@@ -126,9 +130,10 @@ def build_pipeline_factory(args):
     from botsort_tpu_torch.pipeline.host import BoTSORTPipeline
     from botsort_tpu_torch.runtime import assets
 
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 is not ported yet (ROADMAP Queue 1 item 13)")
+    if args.int8 and args.artifact_dir:
+        raise SystemExit(
+            "ERROR: --int8 cannot apply to --artifact_dir serving (the "
+            "programs are already traced); serve live models with --int8.")
     if args.execution_provider == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("-ep cuda: no CUDA device is available")
     device = torch.device(args.execution_provider)
@@ -158,6 +163,18 @@ def build_pipeline_factory(args):
     pipe_cfg = PipelineConfig() if not args.mini else PipelineConfig(
         detector_input_hw=(96, 128), body_reid_input_hw=(64, 32),
         face_reid_input_hw=(32, 32), max_reid_batch=4)
+    if args.int8:
+        import sys
+
+        from botsort_tpu_torch.models.quantize import quantize_bundle
+
+        print("WARNING: --int8 activation scales were calibrated on "
+              "SYNTHETIC random frames (no stream is available at serve "
+              "startup); per-tensor scales may mismatch real camera "
+              "statistics and degrade accuracy. Recalibrate offline with "
+              "quantize_bundle(frames=<real frames>) for production.",
+              file=sys.stderr)
+        bundle = quantize_bundle(bundle, pipe_cfg=pipe_cfg)
     tracker_cfg = TrackerConfig(
         body_feature_dim=2048 if not args.mini else 256,
         face_feature_dim=256,
@@ -180,8 +197,8 @@ def main(argv=None):
     parser.add_argument("--weights_dir", default="weights")
     parser.add_argument("--mini", action="store_true")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 body ReID (not ported yet: ROADMAP "
-                             "Queue 1 item 13).")
+                        help="int8 body ReID (mid-network scope), "
+                             "calibrated on synthetic frames.")
     parser.add_argument(
         "--artifact_dir", type=str, default="",
         help="Serve the exported programs of cli/export.py (configs from "

@@ -25,7 +25,8 @@ from botsort_tpu_torch.utils.consts import tracing
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over dim 1, Flax's formula:
+    """Batch norm over dim 1 with its running statistics (Flax's
+    ``use_running_average=True``, in training too), Flax's formula:
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast
     back to the input dtype, then the activation ``act`` (one of
     models/bn_act.py::ACTS) on the cast value. Parameters and statistics
@@ -53,11 +54,18 @@ class BatchNorm(nn.Module):
         """``rsqrt(var + eps) * scale`` [C] float32 of the current
         statistics, rebuilt whenever the variance or the scale was
         replaced, moved or written in place, or eps changed (an inference
-        constant: no gradient flows through it). Under a trace the cache is
-        neither read nor written: the bound value, else the formula."""
+        constant: no gradient flows through it). Where a gradient is wanted
+        (grad enabled and the variance or the scale requires one, as in
+        train/reid_trainer.py) the formula with its graph. Under a trace
+        the cache is neither read nor written: the bound value, else the
+        formula."""
         if self.bound_constant is not None:
             return self.bound_constant
-        var, weight = self.running_var, self.weight.detach()
+        var, weight = self.running_var, self.weight
+        if torch.is_grad_enabled() and (var.requires_grad
+                                        or weight.requires_grad):
+            return torch.rsqrt(var + self.eps) * weight
+        weight = weight.detach()
         if tracing():
             return torch.rsqrt(var + self.eps) * weight
         key = (var.data_ptr(), var._version, weight.data_ptr(),

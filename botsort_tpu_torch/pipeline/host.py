@@ -7,7 +7,8 @@ bucket (or whose NMS fixpoint did not converge in its fixed iteration
 count), reads the FrameResult back and assembles the host track list
 with its box hierarchy. ``BatchedBoTSORTPipeline`` does the same for B
 streams per step through ``frame_step_batched``, with one bucket sized by
-the largest count across the streams, and
+the largest count across the streams (``MeshBatchedBoTSORTPipeline``: the
+streams split over several devices), and
 ``TemporalBatchedBoTSORTPipeline`` for B streams x T consecutive frames
 per step through ``frame_step_batched_temporal``.
 
@@ -600,6 +601,120 @@ class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
         flat = super()._assemble(res)
         b = self.n_streams
         return [flat[t * b:(t + 1) * b] for t in range(self.t_batch)]
+
+
+class _MeshPacked(NamedTuple):
+    """The slices' packed FrameResults of one mesh step."""
+
+    parts: Tuple[PackedResult, ...]
+
+    def to_host(self) -> FrameResult:
+        """One FrameResult over all streams: each slice read back in one
+        copy (every slice's step was enqueued before the first read)."""
+        hosts = [p.to_host() for p in self.parts]
+        return _result_from([np.concatenate(f) for f in zip(
+            *[[*h[:-1], *h.tracks] for h in hosts])])
+
+
+class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
+    """S streams over a tuple of devices, S / devices streams on each.
+
+    The multi-card serving topology: each device runs the same batched step
+    (``frame_step_batched``) on its slice of the streams with a replica of
+    the bundle (parallel/streams.py), pure data parallelism with no
+    collective. Each slice is a ``BatchedBoTSORTPipeline`` on its device;
+    slices on one device share its graph cache. The bucket pair is shared
+    by all streams, sized by the largest live count over all of them, so
+    every slice steps at the same buckets and an overflow re-runs them all.
+    Every slice's step is enqueued before any is read back.
+
+    If n_streams does not split evenly, the streams are padded with copies
+    of stream 0 (their state evolves, their outputs are dropped); callers
+    see exactly n_streams track lists. ``mesh`` is a tuple of devices
+    (default: ``make_mesh(n_chips)`` of the bundle's device type); with one
+    device it steps exactly as ``BatchedBoTSORTPipeline``.
+    """
+
+    def __init__(self, bundle: ModelBundle, n_streams: int, mesh=None,
+                 n_chips: Optional[int] = None,
+                 tracker_cfg: TrackerConfig = TrackerConfig(),
+                 nms_cfg: NMSConfig = NMSConfig(),
+                 pipe_cfg: PipelineConfig = PipelineConfig(),
+                 graphs: bool = True, profile: bool = False):
+        from botsort_tpu_torch.parallel.streams import (
+            make_mesh,
+            replicate_bundle,
+        )
+
+        if mesh is None:
+            mesh = make_mesh(n_chips, bundle.device.type)
+        self.mesh = tuple(torch.device(d) for d in mesh)
+        self.n_chips = len(self.mesh)
+        pad = (-n_streams) % self.n_chips
+        super().__init__(bundle, n_streams + pad, tracker_cfg, nms_cfg,
+                         pipe_cfg, graphs=False, profile=profile)
+        self.real_streams = n_streams
+        per = self.n_streams // self.n_chips
+        caches = {}
+        self._slices = []
+        for rep in replicate_bundle(bundle, self.mesh):
+            dev = rep.device
+            if dev not in caches:
+                caches[dev] = GraphCache(dev) if (
+                    graphs and dev.type == "cuda") else None
+            self._slices.append(BatchedBoTSORTPipeline(
+                rep, per, tracker_cfg, nms_cfg, pipe_cfg, graphs=False,
+                graph_cache=caches[dev]))
+        self.stores = [sl.stores for sl in self._slices]
+
+    def reset(self):
+        super().reset()
+        for sl in self._slices:
+            sl.reset()
+        self.stores = [sl.stores for sl in self._slices]
+
+    def _upload(self, name: str, array: np.ndarray):
+        """Frames and affines go to the slices' devices, a part each."""
+        return [sl._upload(name, part) for sl, part in zip(
+            self._slices, np.split(np.asarray(array), self.n_chips))]
+
+    def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None,
+              nms_iters=None):
+        steps = [sl._step(st, fr, reid_bucket, face_bucket,
+                          None if gmc is None else gmc[k], nms_iters)
+                 for k, (sl, st, fr) in enumerate(zip(
+                     self._slices, stores, frames_dev))]
+        return [st for st, _ in steps], _MeshPacked(
+            tuple(p for _, p in steps))
+
+    def _session(self):
+        merged = [None if f[0] is None else torch.cat(
+            [t.to(self.mesh[0]) for t in f])
+            for f in zip(*[_store_tensors(st) for st in self.stores])]
+        return _store_from(merged), self._last_max_live, self._last_max_face
+
+    def _resume(self, stores, last_live, last_face):
+        per = self.n_streams // self.n_chips
+        self.stores = [_store_from(
+            [None if t is None else t[k * per:(k + 1) * per].to(dev)
+             for t in _store_tensors(stores)])
+            for k, dev in enumerate(self.mesh)]
+        self._last_max_live, self._last_max_face = last_live, last_face
+
+    def update_async(self, frames_bgr, gmc_affines=None) -> "PendingBatch":
+        if len(frames_bgr) != self.real_streams:
+            raise ValueError(
+                f"expected {self.real_streams} frames, got {len(frames_bgr)}")
+        pad = self.n_streams - self.real_streams
+        if pad:
+            frames_bgr = list(frames_bgr) + [frames_bgr[0]] * pad
+            if gmc_affines is not None:
+                gmc_affines = list(gmc_affines) + [gmc_affines[0]] * pad
+        return super().update_async(frames_bgr, gmc_affines)
+
+    def _resolve(self, frames_dev, gmc, step, backup, buckets):
+        out = super()._resolve(frames_dev, gmc, step, backup, buckets)
+        return out[:self.real_streams]
 
 
 def bucket_pairs(buckets: List[int]) -> List[Tuple[int, int]]:

@@ -1,14 +1,19 @@
-"""Per-stage wall-clock timers (port of botsort_tpu/utils/profiling.py).
+"""Per-stage wall-clock timers and a device trace (port of
+botsort_tpu/utils/profiling.py).
 
 PyTorch returns before the card finishes. With ``cuda_sync`` every stage
 ends with ``torch.cuda.synchronize()``, so that its time covers the device
 work it enqueued (the facades ask for that only when profiling); without
 it a stage's time is the enqueueing alone and nothing waits for the card.
+``device_trace(log_dir)`` is the counterpart of the JAX package's
+``jax.profiler`` trace: a ``torch.profiler`` run over the host and, where
+there is one, the card, written as a Chrome trace into ``log_dir``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
@@ -44,3 +49,18 @@ class StageTimers:
     def reset(self):
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the body of the ``with`` (CPU activity, and CUDA activity
+    when a card is present) and write its Chrome trace to
+    ``{log_dir}/trace.json`` at exit (chrome://tracing or Perfetto read
+    it). Yields the profiler, whose ``key_averages()`` sums by kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

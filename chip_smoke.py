@@ -5,7 +5,7 @@ Drives the port's paths on the card and fails loudly if any phase fails:
 
   1. device   a CUDA card is required (no CPU fallback); prints its name
               and power limit; TF32 is switched off.
-  2. build    builds every CUDA kernel from csrc/ (five libraries), one
+  2. build    builds every CUDA kernel from csrc/ (six libraries), one
               nvcc per source, all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
@@ -108,6 +108,32 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               trace takes), runs in the order direct, op, op, direct:
               equal results and launches, and both routes' medians (the
               dispatcher's host cost).
+ 18. train    train/reid_trainer.py's make_trainer on the full-width
+              FastReIDSBS (bfloat16 convolutions, float32 masters) at
+              256x128, 64 crops of 16 identities, a warm-up step and 6
+              timed steps on (cuda:0,): the losses, ms a step, K6 and K6b
+              launches a step (one each per norm), peak memory.
+ 19. K6b      the batch norm + activation backward kernel against its
+              plain version on every norm shape of a training step and on
+              odd shapes in float32 and bfloat16 with the four activations:
+              grad_x bit for bit (SiLU within two units in the last place),
+              the per-channel sums within 1e-5 relative, two calls
+              bit-equal; timed over one step's norms against the plain
+              version and ATen's activation backward +
+              native_batch_norm_backward, beside its bound.
+ 20. int8     the loaded one-stream point with the body encoder quantized
+              (models/quantize.py, scope mid, calibrated on 4 of the
+              frames) beside the bfloat16 point, both replayed from CUDA
+              graphs: frame medians, the body encoder at one frame's 50
+              crops int8 against bfloat16, the cosine of their embeddings
+              (> 0.97); K1 and K6 launch on the int8 path.
+ 21. mesh     MeshBatchedBoTSORTPipeline with 16 streams over (cuda:0,
+              cuda:0), moderate-16: every FrameResult field and track list
+              of slice 0 equals BatchedBoTSORTPipeline's over the first 8
+              at every step; K2 and K6 launch on the mesh path.
+ 22. envelope the 8-stream moderate-16 aggregate frames/s, replayed from
+              CUDA graphs, at body ReID 256x128 and 384x128: the numbers
+              runtime/envelope.py quotes.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}. Run from the repository root:
@@ -1413,14 +1439,14 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
 
 
 class NormRecorder:
-    """Records (shape, dtype, activation) of every BatchNorm call of a
-    bundle's networks."""
+    """Records (shape, dtype, activation) of every BatchNorm call of some
+    networks (a bundle's three by default)."""
 
-    def __init__(self, bundle, BatchNorm):
+    def __init__(self, bundle, BatchNorm, nets=None):
         self.calls = {}
-        self.handles = [m.register_forward_pre_hook(self)
-                        for net in (bundle.detector, bundle.body_encoder,
-                                    bundle.face_encoder)
+        nets = nets or (bundle.detector, bundle.body_encoder,
+                        bundle.face_encoder)
+        self.handles = [m.register_forward_pre_hook(self) for net in nets
                         for m in net.modules() if isinstance(m, BatchNorm)]
 
     def __call__(self, module, args):
@@ -2038,6 +2064,332 @@ def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
     return out
 
 
+TRAIN_BATCH, TRAIN_IDS, TRAIN_STEPS = 64, 16, 6
+K6B_SOURCE = "botsort_tpu_torch/csrc/bn_act_backward.cu"
+# K6b replaces no TPU kernel: the JAX trainer differentiates the Flax
+# BatchNorm and activation of botsort_tpu/models/common.py:62 with jax.grad.
+K6B_REPLACES = "autodiff of botsort_tpu/models/common.py:62"
+
+
+def phase_train(torch, bn_act, assets, cast_compute, dev, card):
+    """make_trainer on the full-width FastReIDSBS (bfloat16 convolutions,
+    float32 masters) at 256x128, TRAIN_BATCH crops of TRAIN_IDS identities,
+    TRAIN_STEPS steps on (cuda:0,): losses, ms a step, K6 and K6b launches a
+    step, peak memory. Returns (K6b launches, the norm calls of one step:
+    {(shape, dtype, act): count})."""
+    from botsort_tpu_torch.models.common import BatchNorm
+    from botsort_tpu_torch.models.fastreid import FastReIDSBS
+    from botsort_tpu_torch.train import reid_trainer
+
+    model = FastReIDSBS()
+    assets.seeded_init_(model, np.random.default_rng(8))
+    cast_compute(model, torch.bfloat16).to(dev)
+    init_fn, train_step = reid_trainer.make_trainer(model, (dev,))
+    state = init_fn()
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.normal(size=(
+        TRAIN_BATCH, 256, 128, 3)).astype(np.float32)).to(dev)
+    labels = torch.arange(TRAIN_BATCH, device=dev) // (
+        TRAIN_BATCH // TRAIN_IDS)
+    recorder = NormRecorder(None, BatchNorm, nets=(model,))
+    try:
+        state, _ = train_step(state, images, labels)   # warm-up, recorded
+    finally:
+        recorder.remove()
+    torch.cuda.synchronize()
+    k6, k6b = bn_act.bn_act_cuda, bn_act.bn_act_backward_cuda
+    torch.cuda.reset_peak_memory_stats()
+    k6.launches = k6b.launches = 0
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = train_step(state, images, labels)
+        losses.append(float(loss))
+        ms.append(1000.0 * (time.perf_counter() - t0))
+    launches = (k6.launches, k6b.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_norms = sum(recorder.calls.values())
+    if launches[0] != TRAIN_STEPS * n_norms or \
+            launches[1] != TRAIN_STEPS * n_norms:
+        raise AssertionError(f"train: K6 / K6b launches {launches} over "
+                             f"{TRAIN_STEPS} steps of {n_norms} norms")
+    if not all(np.isfinite(losses)) or state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"train: losses {losses}, step {state.step}")
+    log(f"train: make_trainer on FastReIDSBS (SBS-S50, bfloat16 convs, "
+        f"float32 masters, {len(state.params)} leaves) at 256x128, batch "
+        f"{TRAIN_BATCH} ({TRAIN_IDS} identities x "
+        f"{TRAIN_BATCH // TRAIN_IDS}), {TRAIN_STEPS} steps on (cuda:0,): "
+        f"losses {losses}; K6 {launches[0] // TRAIN_STEPS} and K6b "
+        f"{launches[1] // TRAIN_STEPS} launches a step")
+    log(f"timing: train step median {statistics.median(ms):.3f} ms (all "
+        f"{[round(m, 3) for m in ms]}; host clock, each step ends in the "
+        f"loss's readback), peak allocated {peak} bytes; {card}")
+    return launches[1], recorder.calls
+
+
+def aten_backward(torch, grad, x, mean, var, weight, eps, act):
+    """ATen's backward of the same norm and activation (K6b's yardstick;
+    nothing in the port calls this): the activation's backward, then
+    native_batch_norm_backward in eval mode."""
+    y = None
+    if act != "none":
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = ((x.float() - mean.view(shape)) * (torch.rsqrt(var + eps)
+             * weight).view(shape)).to(x.dtype)
+    if act == "silu":
+        grad = torch.ops.aten.silu_backward(grad, y)
+    elif act == "relu":
+        grad = torch.ops.aten.threshold_backward(grad, y, 0)
+    elif act == "relu6":
+        grad = torch.ops.aten.hardtanh_backward(grad, y, 0.0, 6.0)
+    return torch.ops.aten.native_batch_norm_backward(
+        grad, x, weight, mean, var, mean, torch.rsqrt(var + eps), False, eps,
+        [True, True, True])
+
+
+def phase_k6b(torch, bn_act, calls, dev, card):
+    """K6b against bn_act_backward_plain on the card on every norm shape of
+    one training step, and on odd shapes in float32 and bfloat16 with the
+    four activations: grad_x bit for bit (SiLU within two units in the last
+    place), the sums within 1e-5 relative, two calls bit-equal; then its
+    time over one step's norms against the plain version and ATen's
+    backward, beside its bound. Returns (max abs error, (ms, plain ms,
+    bound ms, bound by, library ms))."""
+    gen = torch.Generator(device=dev).manual_seed(67)
+
+    def draw(shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(shape, device=dev, generator=gen)
+        return lo + (hi - lo) * torch.rand(shape, device=dev, generator=gen)
+
+    cases = [(shape, dtype, act, n) for (shape, dtype, act), n in
+             sorted(calls.items(), key=str)]
+    n_path = len(cases)
+    cases += [(shape, dtype, act, 0) for shape in
+              ((3, 7, 5, 3), (2, 1280, 15, 20), (5, 33), (1, 1, 1, 1))
+              for dtype in (torch.float32, torch.bfloat16)
+              for act in bn_act.ACTS]
+    max_err, worst_ulp, worst_rel = 0.0, 0, 0.0
+    totals = dict(ms=0.0, graph=0.0, plain=0.0, lib=0.0, bytes=0, flops=0,
+                  calls=0)
+    for shape, dtype, act, count in cases:
+        c = shape[1]
+        x = (2.0 * draw(shape)).to(dtype)
+        grad = draw(shape).to(dtype)
+        mean, bias = 0.5 * draw((c,)), 0.5 * draw((c,))
+        var, weight = draw((c,), 0.3, 1.8), draw((c,), 0.3, 1.8)
+        mul = torch.rsqrt(var + 1e-5) * weight
+        got = bn_act.bn_act_backward_cuda(grad, x, mean, mul, bias, act)
+        again = bn_act.bn_act_backward_cuda(grad, x, mean, mul, bias, act)
+        want = bn_act.bn_act_backward_plain(grad, x, mean, mul, bias, act)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K6b: two calls differ on {shape} {act}")
+        ulps = ulp_apart(torch, got[0], want[0])
+        if ulps > (2 if act == "silu" else 0):
+            raise AssertionError(f"K6b != plain on {shape} {dtype} {act}: "
+                                 f"grad_x {ulps} units in the last place")
+        for g, w in zip(got[1:], want[1:]):
+            rel = float(((g - w).abs() / (w.abs() + 1e-30)).max())
+            if not torch.all((g - w).abs() <= 1e-5 * w.abs() + 1e-7):
+                raise AssertionError(f"K6b sums != plain on {shape} {dtype} "
+                                     f"{act}: relative {rel}")
+            worst_rel = max(worst_rel, rel)
+        worst_ulp = max(worst_ulp, ulps)
+        max_err = max(max_err, float((got[0].float() - want[0].float())
+                                     .abs().max()))
+        if count:
+            reps = 20 if x.numel() < 2 ** 24 else 5
+            run = lambda: bn_act.bn_act_backward_cuda(  # noqa: E731
+                grad, x, mean, mul, bias, act)
+            totals["ms"] += count * event_ms(torch, run, reps)
+            totals["graph"] += count * graph_ms(torch, run, 10, 5)
+            totals["plain"] += count * event_ms(
+                torch, lambda: bn_act.bn_act_backward_plain(
+                    grad, x, mean, mul, bias, act), reps)
+            totals["lib"] += count * event_ms(
+                torch, lambda: aten_backward(torch, grad, x, mean, var,
+                                             weight, 1e-5, act), reps)
+            slices = bn_act.bn_act_backward_plan(
+                shape[0], c, x.numel() // (shape[0] * c),
+                x.element_size())[1]
+            # grad_out and x read, grad_x written; the [C] vectors read and
+            # the two sums written; the float64 partials written and read.
+            totals["bytes"] += count * (3 * x.numel() * x.element_size()
+                                        + 5 * c * 4 + 2 * 2 * 8 * c * slices)
+            totals["flops"] += count * 12 * x.numel()
+            totals["calls"] += count
+    b_ms, b_by = bound(totals["bytes"], totals["flops"], F32_FLOPS)
+    log(f"K6b: {len(cases)} cases equal to the plain version ({n_path} norm "
+        f"shapes of a training step, odd shapes x 2 dtypes x 4 "
+        f"activations): grad_x bit for bit but SiLU within {worst_ulp} "
+        f"units in the last place, sums within {worst_rel:.3g} relative, two "
+        f"calls bit-equal")
+    log(f"timing: K6b over the {totals['calls']} norms of one training step "
+        f"({n_path} shapes): kernel {totals['ms']:.4f} ms eager, "
+        f"{totals['graph']:.4f} ms from CUDA graphs "
+        f"({totals['bytes'] / totals['graph'] / 1e9:.3f} TB/s), plain "
+        f"{totals['plain']:.4f} ms, ATen's activation backward + "
+        f"native_batch_norm_backward {totals['lib']:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by} ({totals['bytes'] / 1e6:.2f} MB); {card}")
+    return max_err, (totals["ms"], totals["plain"], b_ms, b_by,
+                     totals["lib"])
+
+
+def phase_int8(torch, bundle, assignment_cuda, bn_act, card):
+    """The loaded one-stream point with quantize_bundle(which=("body",))
+    beside the bfloat16 point, both replayed from CUDA graphs in this call:
+    frame medians, the body encoder at 50 crops int8 against bfloat16, and
+    the cosine of int8 to bfloat16 embeddings of one frame's crops (JAX's
+    bar: > 0.97). K1 and K6 must launch on the int8 path."""
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.models import quantize
+    from botsort_tpu_torch.models.fastreid import preprocess
+    from botsort_tpu_torch.ops.crop import crop_and_resize_batched
+    from botsort_tpu_torch.pipeline import host
+
+    nms_cfg, pipe_cfg = NMSConfig(), PipelineConfig()
+    cfgs = (loaded_cfg(TrackerConfig), nms_cfg, pipe_cfg)
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
+              for _ in range(8)]
+    t0 = time.perf_counter()
+    qbundle = quantize.quantize_bundle(bundle, np.stack(frames[:4]),
+                                       which=("body",), pipe_cfg=pipe_cfg)
+    torch.cuda.synchronize()
+    n_q = sum(isinstance(m, quantize.Int8Conv2d)
+              for m in qbundle.body_encoder.modules())
+    log(f"int8: quantize_bundle (body, scope mid) in "
+        f"{time.perf_counter() - t0:.2f} s: {n_q} int8 convolutions")
+    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    check = lambda res: check_finite(res, nms_cfg)  # noqa: E731
+    rows, pipes = {}, {}
+    for name, b in (("bf16", bundle), ("int8", qbundle)):
+        pipes[name] = host.BoTSORTPipeline(b, *cfgs)
+        cuda.launches = k6.launches = 0
+        rows[name] = drive(torch, pipes[name], frames, lambda: cuda.launches,
+                           check=check)
+        if name == "int8" and (cuda.launches < len(frames)
+                               or k6.launches < 1):
+            raise AssertionError(f"int8: K1 {cuda.launches}, K6 "
+                                 f"{k6.launches} launches")
+        log(f"int8: {name} path K1 launches {cuda.launches}, K6 "
+            f"{k6.launches} over {len(frames)} frames")
+    med = {k: statistics.median(steady_ms(r)) for k, r in rows.items()}
+    # One frame's body crops, both encoders.
+    res = rows["int8"][-1]["result"]
+    valid = np.flatnonzero(res.det_valid[0])[:N_FACES]
+    tlbr = torch.from_numpy(res.det_boxes[0][valid]).to(bundle.device)[None]
+    frame = torch.from_numpy(frames[-1]).to(bundle.device)[None]
+    with torch.no_grad():
+        crops = preprocess(crop_and_resize_batched(
+            frame, tlbr, pipe_cfg.body_reid_input_hw).flatten(0, 1))
+        f_bf16 = bundle.body_encoder(crops).float()
+        f_int8 = qbundle.body_encoder(crops).float()
+        cos = (f_bf16 * f_int8).sum(-1)
+        enc = {name: (event_ms(torch, lambda m=m: m(crops), 10),
+                      graph_ms(torch, lambda m=m: m(crops), 3, 5))
+               for name, m in (("bf16", bundle.body_encoder),
+                               ("int8", qbundle.body_encoder))}
+    if crops.shape[0] < 1 or float(cos.min()) <= 0.97:
+        raise AssertionError(f"int8: cosine to bf16 {cos.tolist()}")
+    log(f"int8: {crops.shape[0]} crops of the last frame: cosine of int8 to "
+        f"bfloat16 embeddings min {float(cos.min()):.6f}, median "
+        f"{float(cos.median()):.6f} (JAX's bar > 0.97)")
+    log(f"timing: int8 loaded one-stream frame median {med['int8']:.3f} ms "
+        f"against bfloat16 {med['bf16']:.3f} ms (graphed, this call); body "
+        f"encoder at {crops.shape[0]} crops: int8 {enc['int8'][0]:.4f} ms "
+        f"eager, {enc['int8'][1]:.4f} ms from a graph; bfloat16 "
+        f"{enc['bf16'][0]:.4f} / {enc['bf16'][1]:.4f} ms; {card}")
+
+
+def phase_mesh(torch, bundle, assignment_cuda, bn_act, card):
+    """MeshBatchedBoTSORTPipeline over (cuda:0, cuda:0) at 2 x STREAMS
+    streams, moderate-16, beside BatchedBoTSORTPipeline over the first
+    STREAMS: every FrameResult field of slice 0 and its track lists
+    bit-equal at every step; K2 and K6 launch on the mesh path."""
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import host
+
+    cfgs = dict(tracker_cfg=loaded_cfg(TrackerConfig, max_dets=16),
+                nms_cfg=NMSConfig(), pipe_cfg=PipelineConfig())
+    n = 2 * STREAMS
+    mesh = host.MeshBatchedBoTSORTPipeline(bundle, n, mesh=(bundle.device,)
+                                           * 2, **cfgs)
+    single = host.BatchedBoTSORTPipeline(bundle, STREAMS, **cfgs)
+    rng = np.random.default_rng(12)
+    steps = [rng.integers(0, 255, (n,) + FRAME_HW + (3,), dtype=np.uint8)
+             for _ in range(6)]
+    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    cuda.batched_launches = k6.launches = 0
+    ms = []
+    for i, frames in enumerate(steps):
+        t0 = time.perf_counter()
+        got = mesh.update(frames)
+        torch.cuda.synchronize()
+        ms.append(1000.0 * (time.perf_counter() - t0))
+        launches = (cuda.batched_launches, k6.launches)
+        want = single.update(frames[:STREAMS])
+        cuda.batched_launches, k6.launches = launches
+        a, b = mesh.last_result, single.last_result
+        for name, x, y in [(f, x[:STREAMS], y) for f, x, y in zip(
+                a._fields[:-1], a[:-1], b[:-1])] + [
+                (f"tracks.{f}", x[:STREAMS], y) for f, x, y in zip(
+                    a.tracks._fields, a.tracks, b.tracks)]:
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"mesh: step {i + 1} slice 0 {name} "
+                                     "differs from the batched step")
+        if [[t.track_id for t in s] for s in got[:STREAMS]] != \
+                [[t.track_id for t in s] for s in want]:
+            raise AssertionError(f"mesh: step {i + 1} track lists differ")
+    k2_runs, k6_runs = launches
+    if k2_runs < 2 * len(steps) or k6_runs < 1:
+        raise AssertionError(f"mesh: K2 {k2_runs}, K6 {k6_runs} launches")
+    steady = ms[2:]
+    log(f"mesh: {n} streams over (cuda:0, cuda:0), {len(steps)} steps: "
+        f"slice 0 equals BatchedBoTSORTPipeline over the first {STREAMS} "
+        f"on every FrameResult field and track list; K2 launches {k2_runs}, "
+        f"K6 {k6_runs}; live tracks per stream "
+        f"{[len(t) for t in got]}")
+    log(f"timing: mesh {n}-stream step median {statistics.median(steady):.3f}"
+        f" ms ({n * len(steady) / (sum(steady) / 1000.0):.2f} frames/s "
+        f"aggregate; all {[round(m, 3) for m in ms]}); {card}")
+
+
+def phase_envelope(torch, bundle, card):
+    """The aggregates runtime/envelope.py quotes: an 8-stream
+    BatchedBoTSORTPipeline replayed from CUDA graphs on the moderate-16
+    scene at body ReID 256x128 and 384x128; frames/s over the steady
+    steps."""
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.pipeline import host
+
+    rng = np.random.default_rng(13)
+    steps = [rng.integers(0, 255, (STREAMS,) + FRAME_HW + (3,),
+                          dtype=np.uint8) for _ in range(12)]
+    out = {}
+    for hw in ((256, 128), (384, 128)):
+        pipe = host.BatchedBoTSORTPipeline(
+            bundle, STREAMS, loaded_cfg(TrackerConfig, max_dets=16),
+            NMSConfig(), PipelineConfig(body_reid_input_hw=hw))
+        rows = drive(torch, pipe, steps, lambda: 0)
+        ms = steady_ms(rows)
+        out[hw] = STREAMS * len(ms) / (sum(ms) / 1000.0)
+        log(f"timing: envelope {STREAMS} streams moderate-16 body ReID "
+            f"{hw[0]}x{hw[1]}: {out[hw]:.2f} frames/s aggregate over "
+            f"{len(ms)} steady steps (median {statistics.median(ms):.3f} "
+            f"ms); {card}")
+        del pipe
+    if not out[(384, 128)] < out[(256, 128)]:
+        log("envelope: 384x128 did not measure below 256x128 in this call")
+    log(f"envelope: MEASURED_AGGREGATE_FPS = "
+        f"{ {k: round(v, 2) for k, v in out.items()} }")
+
+
+
 def main() -> int:
     import torch
 
@@ -2143,6 +2495,21 @@ def main() -> int:
     phase_oproute(torch, bundle, assignment_cuda, bn_act,
                   (assignment, bn_act, facereid_dw, fastreid_fused), card)
     done("oproute")
+    torch.cuda.empty_cache()
+    k6b_launches, train_norms = phase_train(torch, bn_act, assets,
+                                            cast_compute, dev, card)
+    done("train")
+    k6b_err, times["K6b"] = phase_k6b(torch, bn_act, train_norms, dev, card)
+    done("K6b")
+    torch.cuda.empty_cache()
+    phase_int8(torch, bundle, assignment_cuda, bn_act, card)
+    done("int8")
+    torch.cuda.empty_cache()
+    phase_mesh(torch, bundle, assignment_cuda, bn_act, card)
+    done("mesh")
+    torch.cuda.empty_cache()
+    phase_envelope(torch, bundle, card)
+    done("envelope")
     log(f"temporal: K2 launches on the temporal path {k2_temporal}")
     log(f"phases (s): {json.dumps(seconds)}, total "
         f"{sum(seconds.values()):.1f}")
@@ -2167,6 +2534,8 @@ def main() -> int:
         entry("dw_conv3x3", K5_SOURCE, K5_REPLACES, k5_launches, k5_err,
               "K5"),
         entry("bn_act", K6_SOURCE, K6_REPLACES, k6_launches, k6_err, "K6"),
+        entry("bn_act_backward", K6B_SOURCE, K6B_REPLACES, k6b_launches,
+              k6b_err, "K6b"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,8 +104,11 @@ def _objective(cost, cfr, rfc, limit):
 
 
 def test_plain_cascade_objective_equals_native_lapjv():
-    native = pytest.importorskip("botsort_tpu.runtime.native")
-    native.load()
+    """Objective against the port's native LAPJV (runtime/native.py), which
+    returns the JAX package's native matchings on the same matrices."""
+    from botsort_tpu.runtime import native as jnative
+    from botsort_tpu_torch.runtime import native
+
     rng = np.random.default_rng(19)
     for n, d in ((12, 9), (5, 14), (16, 16)):
         inst = random_instance(rng, n, d)
@@ -124,6 +127,10 @@ def test_plain_cascade_objective_equals_native_lapjv():
             cfr_sub = np.array([pos[c] if c >= 0 else -1 for c in cfr],
                                np.int64)
             ref_cfr, ref_rfc = native.lapjv_cost_limit(sub, LIMITS[p])
+            for mine, theirs in zip((ref_cfr, ref_rfc),
+                                    jnative.lapjv_cost_limit(sub,
+                                                             LIMITS[p])):
+                np.testing.assert_array_equal(mine, theirs)
             assert _objective(sub, cfr_sub, rfc, LIMITS[p]) == \
                 pytest.approx(_objective(sub, ref_cfr, ref_rfc, LIMITS[p]),
                               abs=1e-5)

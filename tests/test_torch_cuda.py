@@ -533,10 +533,90 @@ def test_k6_refuses_what_it_does_not_take(dev):
         bn_act.bn_act_cuda(x, mean, mul, bias, "gelu")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (64, 32, 128, 64),   # the body encoder's stem in training, batch 64
+    (64, 2048),          # the BNNeck, [N, C]: one element a thread
+    (2, 1280, 15, 20),   # inner = 300: no whole vectors
+    (3, 7, 5, 3),
+    (1, 1, 1, 1),
+])
+def test_k6b_equals_plain(dev, shape, dtype):
+    """K6b against bn_act_backward_plain on the card: grad_x bit for bit
+    (SiLU within two units in the last place), the sums within 1e-5
+    relative; two calls give the same bits."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    x, mean, mul, bias = _bn_inputs(rng, shape, dtype, dev)
+    grad = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        dev, dtype)
+    for act in bn_act.ACTS:
+        before = bn_act.bn_act_backward_cuda.launches
+        got = bn_act.bn_act_backward_cuda(grad, x, mean, mul, bias, act)
+        again = bn_act.bn_act_backward_cuda(grad, x, mean, mul, bias, act)
+        assert bn_act.bn_act_backward_cuda.launches == before + 2
+        want = bn_act.bn_act_backward_plain(grad, x, mean, mul, bias, act)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), act
+        assert got[0].dtype == dtype and got[0].shape == x.shape
+        if act == "silu":
+            assert _ulp_apart(got[0], want[0]) <= 2, act
+        else:
+            assert torch.equal(got[0], want[0]), act
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.all((g - w).abs() <= 1e-5 * w.abs() + 1e-7), act
+
+
+def test_training_route_launches_k6b(dev):
+    """A norm whose statistics and scale require grad goes through
+    BnActFunction: K6 forward, K6b backward, the plain backward's [C]
+    gradients."""
+    from botsort_tpu_torch.models.common import BatchNorm
+
+    rng = np.random.default_rng(12)
+    bn = BatchNorm(16, 1e-5).to(dev)
+    with torch.no_grad():
+        bn.running_var.uniform_(0.5, 1.5)
+        bn.running_mean.normal_()
+    bn.running_mean.requires_grad_()
+    bn.running_var.requires_grad_()
+    x = torch.from_numpy(rng.normal(size=(4, 16, 8, 8)).astype(
+        np.float32)).to(dev, torch.bfloat16).requires_grad_()
+    k6, k6b = bn_act.bn_act_cuda.launches, bn_act.bn_act_backward_cuda.launches
+    bn(x, "relu").float().sum().backward()
+    assert bn_act.bn_act_cuda.launches == k6 + 1
+    assert bn_act.bn_act_backward_cuda.launches == k6b + 1
+    with torch.no_grad():
+        g = torch.ones_like(x)
+        gx, s_gy, s_gyx = bn_act.bn_act_backward_plain(
+            g, x.detach(), bn.running_mean, bn.mul(), bn.bias, "relu")
+    assert torch.equal(x.grad, gx)
+    assert torch.allclose(bn.bias.grad, s_gy, rtol=1e-5, atol=1e-6)
+    assert bn.weight.grad is not None and bn.running_var.grad is not None
+
+
+def test_k6b_refuses_what_it_does_not_take(dev):
+    x, mean, mul, bias = _bn_inputs(np.random.default_rng(2), (2, 4, 3, 3),
+                                    torch.float32, dev)
+    g = torch.ones_like(x)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_backward_cuda(g.cpu(), x.cpu(), mean, mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_backward_cuda(g.bfloat16(), x, mean, mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_backward_cuda(g, x, mean[:3], mul, bias)
+    with pytest.raises(ValueError):
+        bn_act.bn_act_backward_cuda(g, x.permute(0, 1, 3, 2), mean, mul,
+                                    bias)
+
+
 def test_batchnorm_mul_cache_follows_the_statistics(dev):
     from botsort_tpu_torch.models.common import BatchNorm
 
-    bn = BatchNorm(8, 1e-3).to(dev).eval()
+    # An inference module, as build_bundle leaves it: no grad required, so
+    # mul() is the cached multiplier (tests/test_torch_train.py covers the
+    # training route).
+    bn = BatchNorm(8, 1e-3).to(dev).eval().requires_grad_(False)
     x = torch.randn(2, 8, 4, 4, device=dev)
     first = bn(x, "relu")
     assert bn.mul() is bn.mul()

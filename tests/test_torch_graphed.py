@@ -96,10 +96,12 @@ def test_bn_act_plain_matches_flax(shape, eps, dtype, act):
 def test_batchnorm_module_is_bn_act_of_its_statistics():
     """The module's forward is bn_act on its cached multiplier, equal to
     the chain it replaced bit for bit; the cache follows in-place writes,
-    replaced tensors and eps."""
+    replaced tensors and eps. Inference modules require no grad (as
+    build_bundle leaves them); one whose scale requires grad, with grad
+    enabled, gets the multiplier with its graph instead (training)."""
     rng = np.random.default_rng(3)
     x, st = _bn_case(rng, (2, 6, 4, 4))
-    bn = BatchNorm(6, 1e-3).eval()
+    bn = BatchNorm(6, 1e-3).eval().requires_grad_(False)
     with torch.no_grad():
         for name, key in (("weight", "scale"), ("bias", "bias"),
                           ("running_mean", "mean"), ("running_var", "var")):
@@ -130,6 +132,10 @@ def test_batchnorm_module_is_bn_act_of_its_statistics():
         assert torch.equal(bn(xt, "silu"), chain(xt))
     with pytest.raises(ValueError, match="unknown activation"):
         bn(xt, "gelu")
+    bn.weight.requires_grad_(True)
+    assert bn.mul().requires_grad and bn.mul() is not bn.mul()
+    with torch.no_grad():
+        assert bn.mul() is bn.mul()
 
 
 # --- the NMS fixpoint with a fixed iteration count -------------------------

@@ -594,16 +594,17 @@ def test_multitrack_cli_cpu_mini(tmp_path):
         cap.release()
 
 
-@pytest.mark.parametrize("flag", [["--chips", "2"], ["--artifact_dir", "x"]])
+@pytest.mark.parametrize("flag", [["--chips", "two"], ["--artifact_dir", "x"]])
 def test_multitrack_refuses_unported_modes(tmp_path, flag):
-    """--chips names its ROADMAP item; --artifact_dir (ported) refuses a
-    directory that holds no exported programs."""
+    """--chips (ported: tests/test_torch_parallel.py runs it) refuses what
+    is neither a count nor auto before any model is built; --artifact_dir
+    refuses a directory that holds no exported programs."""
     from botsort_tpu_torch.cli import multitrack
 
     vid = tmp_path / "a.mp4"
     vid.write_bytes(b"")
     if flag[0] == "--chips":
-        err, match = NotImplementedError, "ROADMAP"
+        err, match = SystemExit, "2"
     else:
         err, match = FileNotFoundError, "manifest.json"
     with pytest.raises(err, match=match):

@@ -221,24 +221,41 @@ def test_serve_main_warms_and_serves(capsys):
 
 @pytest.mark.parametrize("flag", ["--int8", "cuda"])
 def test_serve_refuses_int8_and_a_missing_card(flag, monkeypatch):
+    """--int8 with exported programs (already traced) and -ep cuda without a
+    card are refused, as the JAX server refuses the first."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     if flag == "--int8":
-        with pytest.raises(NotImplementedError, match="item 13"):
-            serve.main(["-ep", "cpu", "--mini", "--int8"])
+        with pytest.raises(SystemExit, match="--int8 cannot apply"):
+            serve.main(["-ep", "cpu", "--mini", "--int8", "--artifact_dir",
+                        "exported"])
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["-ep", "cuda", "--mini"])
 
 
 @pytest.mark.parametrize("cli", ["demo", "eval_trace"])
-def test_video_clis_refuse_int8_naming_its_item(cli, tmp_path):
+def test_video_clis_refuse_int8_naming_its_item(cli, tmp_path, capsys):
+    """--int8 is ported (ROADMAP Queue 1 item 13): the video CLIs no longer
+    refuse it but calibrate on the video's first frames and track with the
+    quantized body encoder."""
     import importlib
 
-    vid = tmp_path / "a.mp4"
-    vid.write_bytes(b"")
+    import cv2
+
+    vid = str(tmp_path / "a.mp4")
+    writer = cv2.VideoWriter(vid, cv2.VideoWriter_fourcc(*"mp4v"), 15,
+                             (160, 120))
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        writer.write(rng.integers(0, 255, (120, 160, 3), dtype=np.uint8))
+    writer.release()
     mod = importlib.import_module(f"botsort_tpu_torch.cli.{cli}")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mod.main(["-v", str(vid), "-ep", "cpu", "--mini", "--int8"])
+    out = ["--output", str(tmp_path / "o.mp4"), "--headless"] \
+        if cli == "demo" else ["-o", str(tmp_path / "t.csv")]
+    assert mod.main(["-v", vid, "-ep", "cpu", "--mini", "--int8",
+                     "--int8_calib_frames", "2", "--max_frames", "2",
+                     "--weights_dir", str(tmp_path), *out]) == 0
+    assert "int8: calibrating on 2 frames" in capsys.readouterr().out
 
 
 def test_warmup_cli_cpu_runs_every_pair(capsys):
