@@ -4,46 +4,64 @@
 // Replaces the TPU kernels botsort_tpu/ops/assignment_pallas.py::
 // _cascade_kernel (K1, entered through cascade_solve_pallas) and
 // _cascade_kernel_ls (K2, the lockstep kernel that jax.vmap over the
-// multi-stream cascade reaches). The lockstep layout exists because one
-// TensorCore runs grid steps in order; here the B streams' warps run at
-// once, so a batch takes as long as its slowest stream without it.
-// Each stream keeps its own `big` (the grid kernel's semantics; the lockstep
-// kernel's shared maximum gives the same matchings). Semantics are those of
-// botsort_tpu/ops/assignment.py::solve_cascade_masked: three lap.lapjv
-// extend_cost/cost_limit solves, each an exact Jonker-Volgenant
-// shortest-augmenting-path solve of the (N+D) x (N+D) extended problem
+// multi-stream cascade reaches), and computes what they compute, step for
+// step: the same matchings, ties included. The lockstep layout exists
+// because one TensorCore runs grid steps in order; here the B streams' warps
+// run at once, so a batch takes as long as its slowest stream without it.
+// Each stream keeps its own `big` (the grid kernel's semantics); `big` only
+// fills the parked entries of the Dijkstra rows, so the lockstep kernel's
+// shared maximum gives the same matchings.
 //
-//     [ C            L/2 ]        rows 0..N-1 real, N..N+D-1 dummy
-//     [ L/2          0   ]        cols 0..D-1 real, D..D+N-1 dummy
+// Each pass solves lap.lapjv's extend_cost/cost_limit problem, the
+// (N+D) x (N+D) extended matrix
 //
-// with invalid rows/cols pre-matched to designated dummies (row i owns
-// dummy col D+i, dummy row N+j owns col j) and the live rows augmented in
-// ascending index order. Pass 2's row mask (tracked & pass-1 unmatched) and
-// pass 3's column mask (high & pass-1 unmatched) are derived here from pass
-// 1's result. The plain PyTorch version (ops/assignment.py::
-// cascade_solve_plain) runs the same float32 operations in the same order,
-// so the two agree exactly: build with --fmad=false.
+//     [ C            L/2 ]        rows 0..N-1 real, N+j dummy of column j
+//     [ L/2          0   ]        cols 0..D-1 real, D+i escape of row i
+//
+// in the TPU kernel's order: designated parking at zero duals (parked row i
+// owns escape D+i, dummy row N+j owns parked column j); the LAPJV column
+// reduction (a live column goes to its lowest minimum live row if that
+// minimum is below L/2, else to its dummy row; a row keeps its lowest
+// column; v = min(column minimum, L/2)); the won columns' dummy rows paired
+// by rank with the escape columns; _post_reduction_resolve's three steps
+// (rows whose least reduced cost is >= L/2 take a free escape by rank at
+// u = L/2; two rounds in which a row whose least reduced cost lies on a free
+// column claims it, the lowest row winning, at u = that cost; the dummy
+// rows left paired by rank with the free escapes); then a Dijkstra
+// augmentation (lap_common.cuh, shared with K3) of each row still
+// unassigned, real rows then dummy rows, from those duals. Pass 2's row mask
+// (tracked & pass-1 unmatched) and pass 3's column mask (high & pass-1
+// unmatched) are derived here from pass 1's result. The plain PyTorch
+// version (ops/assignment.py::cascade_solve_plain) runs the same float32
+// operations in the same order, so the two agree exactly: build with
+// --fmad=false. The TPU kernel pads lanes to a multiple of 128 with pad
+// rows and columns paired diagonally at 1e9; no pad lane ever wins a
+// minimum, an argmin or a rank, so the port works at S = N + D.
 //
 // What bounds it on the card: neither bytes nor FLOPs but the latency of
-// the sequential pop chain (about 3,300 pops per three-pass solve at N=64,
-// D=50 on chip_smoke's inputs). The design shortens each pop: up to
-// N+D = 256 one warp owns a stream, with its column state in registers, a
-// warp-reduction argmin and no barrier (lap_common.cuh), and each pass's
-// N x D costs are staged in shared memory once with 16-byte loads (12.8 KB
-// at 64 x 50), so the on-the-fly extended row reads shared memory. A K2
-// batch is B blocks of one warp each; a batch takes as long as its slowest
-// stream. (Two, four or eight streams a block measured no faster: PERF.md.)
-// Above N+D = 256 one block takes a stream, reading costs that do not fit
-// through the read-only path. The TPU kernel's column reduction, leftover
-// pairing and post-reduction resolve, which cut the pop count, are not
-// ported: they change the duals and, at exact ties, the matching.
+// the sequential pop chain (one Dijkstra pop per step; how many depends on
+// the data: the reduction and the resolve leave none on coherent costs).
+// The design shortens each pop: up to N+D = 256 one warp owns a stream,
+// with its column state in registers, a warp-reduction argmin and no
+// barrier (lap_common.cuh), and each pass's N x D costs are staged in
+// shared memory once with 16-byte loads (12.8 KB at 64 x 50), so the
+// on-the-fly extended row reads shared memory. The steps before the pops
+// are simple loops of the team over columns or rows of the staged costs:
+// a thread a column for the column minima (ascending rows, so the lowest
+// row wins a tie) and the claims, a thread a row for the row minima and
+// the free-column minima (ascending columns); the rank pairings and the
+// list of rows to augment are ballot-and-popcount prefixes taken by the
+// team's first warp. No atomics. A K2 batch is B blocks of one warp each; a
+// batch takes as long as its slowest stream. Above N+D = 256 one block
+// takes a stream, reading costs that do not fit through the read-only path.
 //
 // Layout: costs [B,3,N,D] f32; masks [B, 3N+3D] i32 = pool[N], tracked[N],
 // unconf[N], high1[D], high3[D], low[D] (already feasibility pre-parked);
-// big [B] f32 -> cfr [B,3,N], rfc [B,3,D] i32 (-1 = unmatched). The solver
-// loop itself is lap_common.cuh's, shared with K3 (jv_lap.cu). Shared
+// big [B] f32 -> cfr [B,3,N], rfc [B,3,D] i32 (-1 = unmatched). Shared
 // memory per stream: the staged pass costs (if staged), the pass's row and
-// column masks, pass 1's result, then u, p, way.
+// column masks, pass 1's result, u, p and way (way doubles as the resolve's
+// scratch), q (each row's column), the column duals before the pops (then
+// the list of rows to augment) and the row minima.
 
 #include "lap_common.cuh"
 
@@ -89,7 +107,32 @@ struct CascadeExt {
 
 int problem_words(int n, int d, bool staged) {
   return lap::round4((staged ? lap::round4(n * d) + lap::kPad : 0) +
-                     2 * (n + d) + lap::kRowWords * (n + d));
+                     (4 + lap::kRowWords) * (n + d) + n);
+}
+
+// The team's first warp lists the indices i < len with pred(i) in
+// ascending order: emit(k, i) for the k-th of them, by the lane that found
+// it, once the warp has evaluated pred on the chunk of 32. Returns the count
+// to every thread of the team through *count (a slot of its own per call
+// site, so no thread can still be reading it when it is next written).
+template <bool kBlock, class Pred, class Emit>
+__device__ __forceinline__ int compact(int len, Pred pred, Emit emit,
+                                       int* count,
+                                       const lap::Team<kBlock>& tm) {
+  if (tm.t < 32) {
+    const unsigned below = (1u << tm.t) - 1u;
+    int base = 0;
+    for (int c = 0; c < len; c += 32) {
+      const int i = c + tm.t;
+      const bool f = i < len && pred(i);
+      const unsigned m = __ballot_sync(lap::kFull, f);
+      if (f) emit(base + __popc(m & below), i);
+      base += __popc(m);
+    }
+    if (tm.t == 0) *count = base;
+  }
+  tm.sync();
+  return *count;
 }
 
 template <int K, bool kBlock, bool kStaged>
@@ -102,6 +145,7 @@ __global__ void __launch_bounds__(kBlock ? 1024 : 32)
                        int max_iters) {
   extern __shared__ __align__(16) int smem[];
   __shared__ lap::ArgminScratch sc;
+  __shared__ int counts[7];  // compact's slots
   const lap::Team<kBlock> tm;
   const int b = blockIdx.x;
   const int s = n + d;
@@ -112,7 +156,11 @@ __global__ void __launch_bounds__(kBlock ? 1024 : 32)
   int* cv = rv + n; // [d] live real cols of this pass
   int* m1 = cv + d; // pass-1 result: cfr [n], rfc [d]
   lap::RowState st;
-  lap::carve_rows(m1 + s, s, st);
+  int* q = lap::carve_rows(m1 + s, s, st);  // [s] column of each row
+  float* vs = reinterpret_cast<float*>(q + s);  // [s] column duals
+  int* order = q + s;                           // [s] rows to augment
+  float* rowmin = vs + s;  // [n] least reduced cost over live columns
+  int* list = st.way;      // the resolve's scratch, [s]
 
   const float* cost_b = costs + static_cast<size_t>(b) * 3 * n * d;
   const int* mask_b = masks + static_cast<size_t>(b) * 3 * s;
@@ -134,14 +182,159 @@ __global__ void __launch_bounds__(kBlock ? 1024 : 32)
     }
     if (kStaged) lap::stage(staged, cost, n * d, tm);
     tm.sync();
-    // Designated parking at zero duals.
-    for (int j = tm.t; j < s; j += tm.nt) {
-      st.p[j] = j < d ? (cv[j] ? -1 : n + j) : (rv[j - d] ? -1 : j - d);
-      st.u[j] = 0.0f;
+    const float* c = kStaged ? staged : cost;
+    auto cost_at = [&](int i, int j) {
+      return kStaged ? c[i * d + j] : __ldg(c + i * d + j);
+    };
+
+    // Column reduction: each live column's lowest minimum live row claims
+    // it if that minimum is below half (list[j], -1 if none); v = min(colmin,
+    // half) on live columns. The dummy row of a column not claimed owns it.
+    // Parking of the other rows and columns at zero duals.
+    for (int j = tm.t; j < d; j += tm.nt) {
+      float cmin = lap::kInf;
+      int arg = 0;
+      if (cv[j]) {
+        for (int i = 0; i < n; ++i) {
+          if (!rv[i]) continue;
+          const float x = cost_at(i, j);
+          if (x < cmin) {
+            cmin = x;
+            arg = i;
+          }
+        }
+      }
+      const bool claim = cv[j] && cmin < half;
+      vs[j] = cv[j] ? fminf(cmin, half) : 0.0f;
+      list[j] = claim ? arg : -1;
+      q[n + j] = claim ? -1 : j;
     }
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = 0.0f;
+    for (int i = tm.t; i < n; i += tm.nt) {
+      q[i] = rv[i] ? -1 : d + i;
+      st.p[d + i] = rv[i] ? -1 : i;
+      vs[d + i] = 0.0f;
+    }
+    for (int r = tm.t; r < s; r += tm.nt) st.u[r] = 0.0f;
     tm.sync();
+    // A row keeps its lowest claimed column.
+    for (int i = tm.t; i < n; i += tm.nt) {
+      if (!rv[i]) continue;
+      for (int j = 0; j < d; ++j) {
+        if (list[j] == i) {
+          q[i] = j;
+          break;
+        }
+      }
+    }
+    tm.sync();
+    for (int j = tm.t; j < d; j += tm.nt) {
+      const int r = list[j];
+      st.p[j] = r < 0 ? n + j : (q[r] == j ? r : -1);
+    }
+    tm.sync();
+    // The won columns' dummy rows take the live rows' escapes, by rank.
+    const int n_won = compact(
+        d, [&](int j) { return st.p[j] >= 0 && st.p[j] < n; },
+        [&](int k, int j) { list[k] = j; }, &counts[0], tm);
+    compact(
+        n, [&](int i) { return rv[i] != 0; },
+        [&](int k, int i) {
+          if (k < n_won) {
+            q[n + list[k]] = d + i;
+            st.p[d + i] = n + list[k];
+          }
+        },
+        &counts[1], tm);
+
+    // (a) The escape fast path: an unassigned live row whose least reduced
+    // cost over the live columns is >= half takes a free escape, by rank,
+    // at u = half.
+    for (int i = tm.t; i < n; i += tm.nt) {
+      float m = lap::kInf;
+      if (rv[i]) {
+        for (int j = 0; j < d; ++j) {
+          if (cv[j]) m = fminf(m, __fsub_rn(cost_at(i, j), vs[j]));
+        }
+      }
+      rowmin[i] = m;
+    }
+    tm.sync();
+    const int n_qual = compact(
+        n, [&](int i) { return rv[i] && q[i] < 0 && rowmin[i] >= half; },
+        [&](int k, int i) { list[k] = i; }, &counts[2], tm);
+    compact(
+        n, [&](int i) { return rv[i] && st.p[d + i] < 0; },
+        [&](int k, int i) {
+          if (k < n_qual) {
+            const int r = list[k];
+            q[r] = d + i;
+            st.p[d + i] = r;
+            st.u[r] = half;
+          }
+        },
+        &counts[3], tm);
+
+    // (b) Two rounds of free-column claims: an unassigned live row whose
+    // least reduced cost (at most half) lies on a free live column claims
+    // the lowest such column; the lowest claiming row wins it, at
+    // u = rowmin.
+    for (int round = 0; round < 2; ++round) {
+      for (int i = tm.t; i < n; i += tm.nt) {
+        int claim = -1;
+        if (rv[i] && q[i] < 0) {
+          float fmin = lap::kInf;
+          int arg = -1;
+          for (int j = 0; j < d; ++j) {
+            if (!cv[j] || st.p[j] >= 0) continue;
+            const float red = __fsub_rn(cost_at(i, j), vs[j]);
+            if (red < fmin) {
+              fmin = red;
+              arg = j;
+            }
+          }
+          if (fmin <= rowmin[i] && fmin <= half) claim = arg;
+        }
+        list[i] = claim;
+      }
+      tm.sync();
+      for (int j = tm.t; j < d; j += tm.nt) {
+        for (int i = 0; i < n; ++i) {
+          if (list[i] == j) {
+            st.p[j] = i;
+            q[i] = j;
+            st.u[i] = rowmin[i];
+            break;
+          }
+        }
+      }
+      tm.sync();
+    }
+
+    // (c) The dummy rows still unassigned take the free escapes, by rank.
+    const int n_dummy = compact(
+        d, [&](int j) { return cv[j] && q[n + j] < 0; },
+        [&](int k, int j) { list[k] = j; }, &counts[4], tm);
+    compact(
+        n, [&](int i) { return rv[i] && st.p[d + i] < 0; },
+        [&](int k, int i) {
+          if (k < n_dummy) {
+            q[n + list[k]] = d + i;
+            st.p[d + i] = n + list[k];
+          }
+        },
+        &counts[5], tm);
+
+    // The column duals into registers, then the rows still unassigned,
+    // real then dummy, in ascending order (over the duals' words).
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = tm.col(k);
+      v[k] = j < s ? vs[j] : 0.0f;
+    }
+    tm.sync();
+    const int n_active = compact(
+        s, [&](int r) { return (r < n ? rv[r] : cv[r - n]) && q[r] < 0; },
+        [&](int k, int r) { order[k] = r; }, &counts[6], tm);
 
     unsigned real = 0, live = 0;
 #pragma unroll
@@ -152,11 +345,9 @@ __global__ void __launch_bounds__(kBlock ? 1024 : 32)
         if (cv[j]) live |= 1u << k;
       }
     }
-    const CascadeExt<kStaged> ext{kStaged ? staged : cost, rv, n, d,
-                                  half, big, real, live};
-    for (int r = 0; r < s; ++r) {
-      if (!(r < n ? rv[r] : cv[r - n])) continue;  // uniform: shared flags
-      lap::augment<K, kBlock>(r, s, ext, v, st, max_iters, &sc);
+    const CascadeExt<kStaged> ext{c, rv, n, d, half, big, real, live};
+    for (int k = 0; k < n_active; ++k) {
+      lap::augment<K, kBlock>(order[k], s, ext, v, st, max_iters, &sc);
     }
 
     // Extraction: rfc[j] = owning live real row; cfr is its inverse (built

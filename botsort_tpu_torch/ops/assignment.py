@@ -18,14 +18,20 @@ it launches the cascade kernel (ops/assignment_cuda.py, csrc/
 cascade_lap.cu: K1 at one stream, K2 at B); for CPU tensors it runs
 ``cascade_solve_plain``, the plain PyTorch version of the same function,
 which performs the kernel's float32 operations in the kernel's order and
-is the oracle the kernel is checked against. Both share ``prepare_cascade``
-(one ``big`` over all three passes, feasibility pre-parking per pass), so
-their matchings are equal, ties included.
+is the oracle the kernel is checked against. Both walk the TPU kernel
+``_cascade_kernel`` step for step (column reduction, leftover pairing,
+post-reduction resolve, then Dijkstra pops for the rows left) and share
+``prepare_cascade`` (one ``big`` over all three passes, feasibility
+pre-parking per pass), so their matchings equal each other's and the TPU
+kernel's, ties included. The JAX package's CPU route, three chained
+``solve_masked`` calls, reaches the same objective but may pick another
+optimum at an exact tie.
 
 ``solve_masked`` is one thresholded LAP. It dispatches the same way: CUDA
 tensors launch kernel K3 (csrc/jv_lap.cu) on the materialised square
-problem, CPU tensors take ``jv_solve_plain`` — the loop K1's plain version
-runs too, so the card has a second solver to hold K1 and K2 against.
+problem, CPU tensors take ``jv_solve_plain``, whose augmentation
+(``_augment``) K1's plain version runs too; on the card three chained K3
+solves are the second solver K1's and K2's objectives are held to.
 
 Each solver is also a custom op, ``torch.ops.botsort_tpu_torch.cascade_solve``
 (K1/K2) and ``torch.ops.botsort_tpu_torch.jv_solve`` (K3), with the kernel
@@ -110,66 +116,78 @@ def _extract(owner: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor
     return cfr[:n].to(torch.int32), rfc.to(torch.int32)
 
 
+def _augment(e: torch.Tensor, i: int, p: List[int], u: torch.Tensor,
+             v: torch.Tensor, max_iters: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Augments live row i of the square problem e [S, S] by a shortest
+    augmenting path (Dijkstra over the columns with dual updates, then the
+    unwind): p (each column's owner row, -1 free) is updated in place, the
+    new duals (u, v) are returned. The float32 operations are the kernels'
+    (csrc/lap_common.cuh::augment), in their order; argmin ties go to the
+    lowest column. Adds the pops to ``jv_solve_plain.pops``."""
+    s = e.shape[0]
+    dev = e.device
+    minv = torch.full((s,), _INF, dtype=torch.float32, device=dev)
+    way = torch.full((s,), s, dtype=torch.int64, device=dev)
+    used = torch.zeros(s, dtype=torch.bool, device=dev)
+    on_path = torch.zeros(s, dtype=torch.bool, device=dev)
+    cur, j_from, done, it = i, s, False, 0
+    while not done and it < max_iters:
+        on_path[cur] = True
+        reduced = e[cur] - u[cur] - v
+        upd = ~used & (reduced < minv)
+        minv = torch.where(upd, reduced, minv)
+        way = torch.where(upd, j_from, way)
+        masked = torch.where(used, _INF, minv)
+        j1 = int(torch.argmin(masked))
+        delta = masked[j1]
+        u = torch.where(on_path, u + delta, u)
+        v = torch.where(used, v - delta, v)
+        minv = torch.where(used, minv, minv - delta)
+        used[j1] = True
+        nxt = p[j1]
+        done = nxt < 0
+        if not done:
+            cur = nxt
+        j_from = j1
+        it += 1
+    jv_solve_plain.pops += it
+    way_l = way.tolist()
+    j0, it = j_from, 0
+    while j0 < s and it < max_iters:
+        j1 = way_l[j0]
+        p[j0] = i if j1 >= s else p[j1]
+        j0 = j1
+        it += 1
+    return u, v
+
+
 def jv_solve_plain(ext: torch.Tensor, p0: torch.Tensor,
                    live_order: torch.Tensor, n_live: torch.Tensor,
                    max_iters: int = MAX_ITERS) -> torch.Tensor:
-    """Plain PyTorch version of kernel K3 (csrc/jv_lap.cu), and the loop
-    K1's plain version runs: exact Jonker-Volgenant solves of square
-    extended problems.
+    """Plain PyTorch version of kernel K3 (csrc/jv_lap.cu): exact
+    Jonker-Volgenant solves of square extended problems.
 
     ext [B, S, S] f32; p0 [B, S] int32 (pre-matched owner of each column,
     -1 free); live_order [B, S] int32 (rows to augment, ascending, then
     the sentinel S); n_live [B] int32 -> owner [B, S] int32, the row that
-    owns each column. Each live row is augmented by a shortest augmenting
-    path with dual potentials; the float32 operations are the kernel's,
-    in its order. ``jv_solve_plain.pops`` counts the Dijkstra pops of every
-    call (the kernels' sequential steps; the count depends only on the
-    data).
+    owns each column. Each live row is augmented from zero duals by a
+    shortest augmenting path (``_augment``, the loop K1's plain version
+    runs too). ``jv_solve_plain.pops`` counts the Dijkstra pops of every
+    call of either plain solver (the kernels' sequential steps; the count
+    depends only on the data).
     """
     bsz, s, _ = ext.shape
     dev = ext.device
-    inf = torch.tensor(_INF, dtype=torch.float32, device=dev)
     owners = []
     for b in range(bsz):
-        e = ext[b]
         # p[j] = owner row of column j (-1 free); kept on the host because
         # the augmenting loop branches on it every pop.
         p: List[int] = p0[b].tolist()
         u = torch.zeros(s, dtype=torch.float32, device=dev)
         v = torch.zeros(s, dtype=torch.float32, device=dev)
         for i in live_order[b, :int(n_live[b])].tolist():
-            minv = torch.full((s,), _INF, dtype=torch.float32, device=dev)
-            way = torch.full((s,), s, dtype=torch.int64, device=dev)
-            used = torch.zeros(s, dtype=torch.bool, device=dev)
-            on_path = torch.zeros(s, dtype=torch.bool, device=dev)
-            cur, j_from, done, it = i, s, False, 0
-            while not done and it < max_iters:
-                on_path[cur] = True
-                reduced = e[cur] - u[cur] - v
-                upd = ~used & (reduced < minv)
-                minv = torch.where(upd, reduced, minv)
-                way = torch.where(upd, j_from, way)
-                masked = torch.where(used, inf, minv)
-                j1 = int(torch.argmin(masked))
-                delta = masked[j1]
-                u = torch.where(on_path, u + delta, u)
-                v = torch.where(used, v - delta, v)
-                minv = torch.where(used, minv, minv - delta)
-                used[j1] = True
-                nxt = p[j1]
-                done = nxt < 0
-                if not done:
-                    cur = nxt
-                j_from = j1
-                it += 1
-            jv_solve_plain.pops += it
-            way_l = way.tolist()
-            j0, it = j_from, 0
-            while j0 < s and it < max_iters:
-                j1 = way_l[j0]
-                p[j0] = i if j1 >= s else p[j1]
-                j0 = j1
-                it += 1
+            u, v = _augment(ext[b], i, p, u, v, max_iters)
         owners.append(p)
     return torch.tensor(owners, dtype=torch.int32,
                         device=dev).reshape(bsz, s)
@@ -198,20 +216,6 @@ def _jv_solve_op_cuda(ext, p0, live_order, n_live, max_iters):
 @jv_solve_op.register_fake
 def _jv_solve_op_fake(ext, p0, live_order, n_live, max_iters):
     return ext.new_empty(tuple(p0.shape), dtype=torch.int32)
-
-
-def _jv_extended(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,
-                 half: float, big: torch.Tensor,
-                 max_iters: int = MAX_ITERS) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """Exact solve of the extended problem for live rows rv [n] / cols
-    cv [d] (bool) with the plain solver. Returns (cfr [n], rfc [d])
-    int32."""
-    ext = _ext_matrix(cost, rv, cv, half, big)
-    p0, live_order, n_live = _parking(rv, cv)
-    owner = jv_solve_plain(ext[None], p0[None], live_order[None],
-                           n_live[None], max_iters)
-    return _extract(owner[0], rv, cv)
 
 
 def masked_problem(cost: torch.Tensor, row_valid: torch.Tensor,
@@ -300,18 +304,124 @@ def prepare_cascade(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
     return costs.contiguous(), masks, big.to(f32)
 
 
+def _rank_pair(q: torch.Tensor, p: torch.Tensor, rows: torch.Tensor,
+               cols: torch.Tensor) -> torch.Tensor:
+    """Pairs the k-th of ``rows`` with the k-th of ``cols`` (both ascending
+    extended indices) while both last: q[row] = col, p[col] = row. Returns
+    the rows paired."""
+    k = min(rows.numel(), cols.numel())
+    q[rows[:k]] = cols[:k]
+    p[cols[:k]] = rows[:k]
+    return rows[:k]
+
+
+def _reduce_and_resolve(cost: torch.Tensor, rv: torch.Tensor,
+                        cv: torch.Tensor, half: float):
+    """What the TPU kernel ``_cascade_kernel`` does to one pass before its
+    Dijkstra pops, step for step: live rows rv [n] x live columns cv [d]
+    (bool) of cost [n, d] -> (p, q, u, v), each [n + d].
+
+    Extended indices: rows 0..n-1 real, n+j the dummy row of column j;
+    columns 0..d-1 real, d+i the escape column of row i. p is each
+    column's row, q each row's column (-1: unassigned), u and v the duals.
+    The steps: designated parking; the LAPJV column reduction (each live
+    column to its lowest minimum live row if that minimum is below half,
+    one column per row, v = min(colmin, half)); the won columns' dummy rows
+    rank-paired with the escape columns; then ``_post_reduction_resolve``:
+    (a) rows whose least reduced cost is >= half take a free escape by
+    rank, u = half; (b) two free-column claim rounds (lowest row wins,
+    u = its least reduced cost); (c) the dummy rows still unassigned
+    rank-paired with the free escapes. Duals stay feasible and every pair
+    is tight, so augmenting the rows left from these u and v is exact.
+    Every minimum, argmin and rank runs over live entries only, which is
+    why the TPU kernel's pad lanes never take part in them.
+    """
+    n, d = cost.shape
+    dev = cost.device
+    f32 = torch.float32
+    rows = torch.arange(n, device=dev)
+    cols = torch.arange(d, device=dev)
+
+    # Column reduction.
+    live_cell = rv[:, None] & cv[None, :]
+    cost_live = torch.where(live_cell, cost, _INF)
+    colmin = cost_live.amin(dim=0)
+    rowarg = torch.where(cost_live == colmin, rows[:, None], n).amin(dim=0)
+    claim = cv & (colmin < half)
+    claimed = (rows[:, None] == rowarg[None, :]) & claim[None, :]
+    firstj = torch.where(claimed, cols[None, :], d).amin(dim=1)
+    won_col = claim & (firstj[rowarg] == cols)
+    p = torch.cat([torch.where(won_col, rowarg,
+                               torch.where(claim, -1, n + cols)),
+                   torch.where(rv, -1, rows)])
+    q = torch.cat([torch.where(firstj < d, firstj,
+                               torch.where(rv, -1, d + rows)),
+                   torch.where(claim, -1, cols)])
+    v = torch.cat([torch.where(cv, colmin.clamp(max=half), 0.0),
+                   torch.zeros(n, dtype=f32, device=dev)])
+    u = torch.zeros(n + d, dtype=f32, device=dev)
+    _rank_pair(q, p, n + cols[won_col], d + rows[rv])
+
+    # (a) The escape fast path.
+    reduced = cost - v[:d]
+    rowmin = torch.where(live_cell, reduced, _INF).amin(dim=1)
+    qual = rv & (q[:n] < 0) & (rowmin >= half)
+    took = _rank_pair(q, p, rows[qual], d + rows[rv & (p[d:] < 0)])
+    u[took] = half
+    # (b) Two free-column claim rounds.
+    for _ in range(2):
+        free = cv & (p[:d] < 0)
+        red_free = torch.where(live_cell & free[None, :], reduced, _INF)
+        freemin = red_free.amin(dim=1)
+        ok = rv & (q[:n] < 0) & (freemin <= rowmin) & (freemin <= half)
+        argj = torch.where(red_free == freemin[:, None], cols[None, :],
+                           d).amin(dim=1)
+        winrow = torch.where(ok[:, None] & (cols[None, :] == argj[:, None]),
+                             rows[:, None], n).amin(dim=0)
+        won = ok & (winrow[argj.clamp(max=d - 1)] == rows)
+        q[:n] = torch.where(won, argj, q[:n])
+        p[:d] = torch.where(winrow < n, winrow, p[:d])
+        u[:n] = torch.where(won, rowmin, u[:n])
+    # (c) Dummy-row completion.
+    _rank_pair(q, p, n + cols[cv & (q[n:] < 0)], d + rows[rv & (p[d:] < 0)])
+    return p, q, u, v
+
+
+def _cascade_pass(cost: torch.Tensor, rv: torch.Tensor, cv: torch.Tensor,
+                  half: float, big: torch.Tensor, max_iters: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pass of the TPU kernel ``_cascade_kernel``: the reduction and
+    resolve (``_reduce_and_resolve``), then a Dijkstra augmentation of each
+    row still unassigned, real rows then dummy rows, in ascending order,
+    from those duals. Returns (cfr [n], rfc [d]) int32."""
+    p, q, u, v = _reduce_and_resolve(cost, rv, cv, half)
+    e = _ext_matrix(cost, rv, cv, half, big)
+    p_l: List[int] = p.tolist()
+    active = torch.cat([rv, cv]) & (q < 0)
+    for i in torch.nonzero(active).flatten().tolist():
+        u, v = _augment(e, i, p_l, u, v, max_iters)
+    owner = torch.tensor(p_l, dtype=torch.int32, device=cost.device)
+    return _extract(owner, rv, cv)
+
+
 def cascade_solve_plain(costs: torch.Tensor, masks: torch.Tensor,
                         big: torch.Tensor, limits: Sequence[float],
                         max_iters: int = MAX_ITERS
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernels K1 and K2 on ``prepare_cascade``'s
-    output.
+    output: the TPU kernels ``_cascade_kernel`` / ``_cascade_kernel_ls``
+    pass by pass (``_cascade_pass``), so the matchings equal theirs, ties
+    included.
 
     costs [B, 3, N, D]; masks [B, 3N+3D]; big [B] -> (cfr [B, 3, N],
     rfc [B, 3, D]) int32. Pass 1: pool x high1; pass 2: (tracked & pass-1
     unmatched) x low over IoU; pass 3: unconf x (high3 & pass-1 unmatched).
+    Each stream keeps its own ``big``; it enters only the parked entries
+    of the Dijkstra rows, so the lockstep kernel's one ``big`` (the
+    maximum over streams) gives the same matchings.
     """
     bsz, _, n, d = costs.shape
+    halves = [half_limit(x) for x in limits]
     cfr_all, rfc_all = [], []
     for b in range(bsz):
         m = masks[b].bool()
@@ -319,12 +429,12 @@ def cascade_solve_plain(costs: torch.Tensor, masks: torch.Tensor,
         high1 = m[3 * n:3 * n + d]
         high3 = m[3 * n + d:3 * n + 2 * d]
         low = m[3 * n + 2 * d:]
-        c1, r1 = _jv_extended(costs[b, 0], pool, high1,
-                              half_limit(limits[0]), big[b], max_iters)
-        c2, r2 = _jv_extended(costs[b, 1], tracked & (c1 < 0), low,
-                              half_limit(limits[1]), big[b], max_iters)
-        c3, r3 = _jv_extended(costs[b, 2], unconf, high3 & (r1 < 0),
-                              half_limit(limits[2]), big[b], max_iters)
+        c1, r1 = _cascade_pass(costs[b, 0], pool, high1, halves[0], big[b],
+                               max_iters)
+        c2, r2 = _cascade_pass(costs[b, 1], tracked & (c1 < 0), low,
+                               halves[1], big[b], max_iters)
+        c3, r3 = _cascade_pass(costs[b, 2], unconf, high3 & (r1 < 0),
+                               halves[2], big[b], max_iters)
         cfr_all.append(torch.stack([c1, c2, c3]))
         rfc_all.append(torch.stack([r1, r2, r3]))
     return torch.stack(cfr_all), torch.stack(rfc_all)

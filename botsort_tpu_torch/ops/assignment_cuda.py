@@ -13,7 +13,9 @@ device.
 
 Each problem (each stream of a K2 batch) is one thread block: of one warp
 up to S = N + D = 256 columns (csrc/lap_common.cuh), of up to 1024
-threads above that, up to ``MAX_COLUMNS``.
+threads above that, up to ``MAX_COLUMNS`` (K1/K2: as long as a stream's
+state fits in a block's shared memory, 4 (7 S + N) bytes without the
+staged costs, so about S = 7,700 at N = D).
 """
 
 from __future__ import annotations

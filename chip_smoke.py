@@ -9,15 +9,21 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               nvcc per source, all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
-              degenerate and tie-heavy instances (k1_instances).
+              degenerate and tie-heavy instances (k1_instances), among
+              them tie_instances: 60 on a 0.1 grid and 16 with entries
+              exactly at L/2, on which the plain version equals the TPU
+              kernel (tests/test_torch_cascade_ties.py).
   4. K3       the square JV kernel against its plain version: random,
               odd-shaped, all-parked and tie-heavy problems, S up to 114
               (k3_problems).
   5. K2       eight 8-stream batches at N=64, D=50 (one stream without
-              live rows), each one launch: equal to the plain version
-              and to eight one-stream K1 launches.
+              live rows) and three tie-heavy ones (k2_batches_of), each
+              one launch: equal to the plain version and to eight
+              one-stream K1 launches.
   6. oracle   K1's and K2's matchings equal three chained solve_masked
-              calls (K3) per stream: the on-card oracle.
+              calls (K3) per stream on the random batches; on the
+              tie-heavy ones, where three solves may pick another optimum,
+              K2's objectives equal K3's on the problems K2 solved.
   7. small    the MINI networks in float32 on the card against the same
               networks on the CPU (the CPU path is the one held to the
               JAX package by the tests).
@@ -75,6 +81,12 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               step run; the last step's encoder inputs re-run with K4 and
               K5 replaced by their plain versions on the card give the same
               features (face: equal, body: relative L2 <= 1e-2).
+      coherent pops per solve of the cascade against three chained
+              solves, and K1 / K2 times (CUDA events and graph replay), in
+              two regimes at N=64, D=50: the loaded one-stream path's own
+              cascade inputs (random weights) and seeded coherent scenes
+              (coherent_instance: no pop at all); K1 / K2 equal the plain
+              version on both.
  13. timings  frame and step times, stage tables, and each kernel against
               its plain version (and a PyTorch call for the same function,
               where there is one) at the main paths' shapes, beside the
@@ -203,6 +215,17 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def draw_masks(rng, n, d):
+    """The five masks of tests/test_cascade_solve.py::random_instance:
+    pool, tracked, unconf [n] and high, low [d]."""
+    pool = rng.uniform(0, 1, n) < 0.6
+    tracked = pool & (rng.uniform(0, 1, n) < 0.7)
+    unconf = (~pool) & (rng.uniform(0, 1, n) < 0.4)
+    high = rng.uniform(0, 1, d) < 0.6
+    low = (~high) & (rng.uniform(0, 1, d) < 0.5)
+    return pool, tracked, unconf, high, low
+
+
 def cascade_instance(rng, n, d, empty_rows=False, empty_cols=False,
                      quantum=None):
     """The solver tests' generator: three cost matrices and five masks."""
@@ -210,16 +233,64 @@ def cascade_instance(rng, n, d, empty_rows=False, empty_cols=False,
     if quantum:
         costs = [(np.round(c / quantum) * quantum).astype(np.float32)
                  for c in costs]
-    pool = rng.uniform(0, 1, n) < 0.6
-    tracked = pool & (rng.uniform(0, 1, n) < 0.7)
-    unconf = (~pool) & (rng.uniform(0, 1, n) < 0.4)
-    high = rng.uniform(0, 1, d) < 0.6
-    low = (~high) & (rng.uniform(0, 1, d) < 0.5)
+    pool, tracked, unconf, high, low = draw_masks(rng, n, d)
     if empty_rows:
         pool[:] = tracked[:] = unconf[:] = False
     if empty_cols:
         high[:] = low[:] = False
     return (*costs, pool, tracked, unconf, high, low)
+
+
+def grid_instance(rng, n, d):
+    """Costs on a 0.1 grid (exact ties everywhere), rounded in float64,
+    then the five masks."""
+    costs = [(np.round(rng.uniform(0, 1, (n, d)) / 0.1) * 0.1).astype(
+        np.float32) for _ in range(3)]
+    return (*costs, *draw_masks(rng, n, d))
+
+
+def half_instance(rng, n, d):
+    """Each pass's costs are k * L / 4 in float32, k in 0..5, L the pass's
+    limit: about one entry in six lies exactly at the dummy price L / 2,
+    where the escape fast path's inclusive >= decides."""
+    costs = [np.float32(limit) / np.float32(4) * rng.integers(
+        0, 6, (n, d)).astype(np.float32) for limit in LIMITS]
+    return (*costs, *draw_masks(rng, n, d))
+
+
+def tie_instances():
+    """The tie-heavy instances K1 and K2 are held to, as (label, numpy
+    instance): 60 on a 0.1 grid at N, D in 2..11 (default_rng(0); on 5 of
+    them the TPU kernel's matching differs from three chained solves),
+    then half-exact ones, 8 at 12 x 9 and 8 at N_TRACKS x N_DETS."""
+    rng = np.random.default_rng(0)
+    out = []
+    for k in range(60):
+        n, d = rng.integers(2, 12), rng.integers(2, 12)
+        out.append((f"grid {k}", grid_instance(rng, n, d)))
+    rng = np.random.default_rng(1)
+    for n, d in [(12, 9)] * 8 + [(N_TRACKS, N_DETS)] * 8:
+        out.append((f"half {len(out) - 60}", half_instance(rng, n, d)))
+    return out
+
+
+def coherent_instance(rng, n, d):
+    """A coherent scene, the costs trained encoders give: each detection
+    within 0.2 of exactly one track, every other cost >= 0.6, in all
+    three passes (one pairing); every track in the pool, none unconfirmed,
+    70% of them tracked; 80% of the detections high. Every live column's
+    track is live, so the column reduction and the resolve leave no row
+    for the Dijkstra pops (needs n >= d)."""
+    rows, cols = rng.permutation(n)[:d], np.arange(d)
+    costs = []
+    for _ in range(3):
+        c = rng.uniform(0.6, 1.0, (n, d))
+        c[rows, cols] = rng.uniform(0.0, 0.2, d)
+        costs.append(c.astype(np.float32))
+    pool = np.ones(n, bool)
+    tracked = rng.uniform(0, 1, n) < 0.7
+    high = rng.uniform(0, 1, d) < 0.8
+    return (*costs, pool, tracked, np.zeros(n, bool), high, ~high)
 
 
 def index_err(torch, got, want, what) -> int:
@@ -291,9 +362,12 @@ def k1_instances(torch, assignment, dev):
               (10, 8, dict(empty_rows=True, empty_cols=True))]
     cases += [(n, d, dict(quantum=0.05)) for n, d in
               ((N_TRACKS, N_DETS), (12, 9), (16, 16)) for _ in range(8)]
-    for n, d, kw in cases:
-        inst = [torch.from_numpy(a).to(dev)
-                for a in cascade_instance(rng, n, d, **kw)]
+    insts = [(n, d, kw, cascade_instance(rng, n, d, **kw))
+             for n, d, kw in cases]
+    insts += [(inst[0].shape + (dict(ties=label), inst))
+              for label, inst in tie_instances()]
+    for n, d, kw, inst in insts:
+        inst = [torch.from_numpy(a).to(dev) for a in inst]
         costs, masks, big = assignment.prepare_cascade(*inst, LIMITS)
         yield n, d, kw, (costs[None], masks[None], big[None], LIMITS)
 
@@ -371,17 +445,31 @@ def phase_k3(torch, assignment, assignment_cuda, dev):
     return timing_inputs, max_err
 
 
+def k2_batches_of(rng):
+    """phase_k2's batches in order, as (numpy instances, whether they are
+    tie-heavy): eight of random costs at N_TRACKS x N_DETS (stream k % 8 of
+    batch k without live rows), then three of ties: the half-exact
+    instances of tie_instances (12 x 9 and full width) and one on a 0.1
+    grid at full width."""
+    out = [([cascade_instance(rng, N_TRACKS, N_DETS,
+                              empty_rows=(s == k % STREAMS))
+             for s in range(STREAMS)], False) for k in range(8)]
+    half = [inst for label, inst in tie_instances()
+            if label.startswith("half")]
+    out += [(half[:STREAMS], True), (half[STREAMS:2 * STREAMS], True),
+            ([grid_instance(rng, N_TRACKS, N_DETS)
+              for _ in range(STREAMS)], True)]
+    return out
+
+
 def phase_k2(torch, assignment, assignment_cuda, dev):
-    """Eight 8-stream batches, one launch each, against the plain version
-    and against one-stream K1 launches; returns the batches' raw
-    instances and prepared inputs, and the max index error."""
-    rng = np.random.default_rng(77)
+    """8-stream batches, one launch each, against the plain version and
+    against one-stream K1 launches; returns the batches' raw instances,
+    prepared inputs, K2 outputs and tie flags, and the max index error."""
     batches, max_err = [], 0
     cuda = assignment_cuda.cascade_solve_cuda
-    for k in range(8):
-        insts = [cascade_instance(rng, N_TRACKS, N_DETS,
-                                  empty_rows=(s == k % STREAMS))
-                 for s in range(STREAMS)]
+    for k, (insts, ties) in enumerate(k2_batches_of(
+            np.random.default_rng(77))):
         tensors = [torch.from_numpy(np.stack(x)).to(dev)
                    for x in zip(*insts)]
         costs, masks, big = assignment.prepare_cascade(*tensors, LIMITS)
@@ -400,23 +488,57 @@ def phase_k2(torch, assignment, assignment_cuda, dev):
                 index_err(torch, got[i],
                           torch.cat([s[i] for s in singles]),
                           f"K2 != eight K1 launches, batch {k}"))
-        batches.append((tensors, (costs, masks, big, LIMITS), got))
-    log(f"K2: {len(batches)} batches of {STREAMS} streams, one launch "
-        "each, equal to the plain version and to one-stream K1 launches")
+        batches.append((tensors, (costs, masks, big, LIMITS), got, ties))
+    log(f"K2: {len(batches)} batches of {STREAMS} streams "
+        f"({sum(b[3] for b in batches)} tie-heavy), one launch each, equal "
+        "to the plain version and to one-stream K1 launches")
     return batches, max_err
 
 
+def objective(cost, rows, cols, cfr, limit):
+    """A pass's extended cost in float64: the matched live pairs' costs
+    plus L/2 for every live row and live column left unmatched."""
+    cost, rows, cols, cfr = (t.cpu().numpy() for t in (cost, rows, cols,
+                                                       cfr))
+    matched = rows & (cfr >= 0)
+    half = np.float64(np.float32(limit)) / 2
+    n_matched = int(matched.sum())
+    return (cost[matched, cfr[matched]].astype(np.float64).sum()
+            + half * (rows.sum() - n_matched + cols.sum() - n_matched))
+
+
 def phase_oracle(torch, assignment, assignment_cuda, batches):
-    """K1's and K2's matchings against three chained solve_masked calls
-    (K3 on the card) per stream; returns K3's launch count on this path
-    and the max index error."""
+    """K1's and K2's results against three chained solve_masked calls (K3
+    on the card) per stream: equal matchings on the random batches; on the
+    tie-heavy ones, where another optimum is as good, equal objectives
+    (float64, 1e-5) on the problems K2 solved (passes 2 and 3 from K2's own
+    pass 1). Returns K3's launch count on this path and the max index
+    error."""
     jv = assignment_cuda.jv_solve_cuda
     jv.launches = 0
-    max_err = 0
-    for k, (tensors, prepared, k2_out) in enumerate(batches):
+    max_err, worst_gap, n_ties = 0, 0.0, 0
+    for k, (tensors, prepared, k2_out, ties) in enumerate(batches):
         for s in range(STREAMS):
             d1, iou, d3, pool, tracked, unconf, high, low = (
                 t[s] for t in tensors)
+            if ties:
+                cfr, rfc = k2_out[0][s], k2_out[1][s]
+                problems = ((d1, pool, high), (iou, tracked & (cfr[0] < 0),
+                                               low),
+                            (d3, unconf, high & (rfc[0] < 0)))
+                for p, (cost, rows, cols) in enumerate(problems):
+                    want = assignment.solve_masked(cost, rows, cols,
+                                                   LIMITS[p])
+                    gap = abs(objective(cost, rows, cols, cfr[p], LIMITS[p])
+                              - objective(cost, rows, cols,
+                                          want.col_for_row, LIMITS[p]))
+                    if gap > 1e-5:
+                        raise AssertionError(
+                            f"K2's objective != K3's, batch {k} stream {s} "
+                            f"pass {p + 1}: {gap}")
+                    worst_gap = max(worst_gap, gap)
+                n_ties += 1
+                continue
             res1 = assignment.solve_masked(d1, pool, high, LIMITS[0])
             res2 = assignment.solve_masked(
                 iou, tracked & (res1.col_for_row < 0), low, LIMITS[1])
@@ -439,7 +561,9 @@ def phase_oracle(torch, assignment, assignment_cuda, batches):
     if launches != 3 * STREAMS * len(batches):
         raise AssertionError(f"solve_masked launched K3 {launches} times")
     log(f"oracle: K1 and K2 equal three chained K3 solves on "
-        f"{STREAMS * len(batches)} streams ({launches} K3 launches)")
+        f"{STREAMS * len(batches) - n_ties} streams; on {n_ties} tie-heavy "
+        f"streams K2's objectives equal K3's (largest gap {worst_gap:.3g}); "
+        f"{launches} K3 launches")
     return launches, max_err
 
 
@@ -517,6 +641,20 @@ class CascadeRecorder:
             if not torch.equal(want, got):
                 raise AssertionError(f"tracks.{name}: kernel path != "
                                      "plain path")
+
+
+class SolverRecorder:
+    """Wraps assignment.solve_cascade_masked: keeps a device copy of every
+    call's eight inputs (the cascade's costs and masks), without waiting
+    for the card."""
+
+    def __init__(self, assignment):
+        self.real = assignment.solve_cascade_masked
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        self.calls.append([a.clone() for a in args[:8]])
+        return self.real(*args, **kw)
 
 
 def check_finite(res, nms_cfg, streams=None):
@@ -701,8 +839,8 @@ def report_point(torch, label, unit, pipes, rows, frames_per_step, card,
 
 def phase_main(torch, bundle, assignment, assignment_cuda, card):
     """The loaded one-stream point, eager and replayed from CUDA graphs
-    over the same frames; returns K1's launches in the replayed run and
-    the nosync / async material."""
+    over the same frames; returns K1's launches in the replayed run, the
+    nosync / async material and the eager run's cascade inputs."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
@@ -718,9 +856,12 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
               for _ in range(8)]
     cuda = assignment_cuda.cascade_solve_cuda
     recorder = CascadeRecorder(fs_mod)
+    solver_rec = SolverRecorder(assignment)
     check = lambda res: check_finite(res, nms_cfg)  # noqa: E731
     rows = {}
-    with mock.patch.object(fs_mod, "tracker_update_batched", recorder):
+    with mock.patch.object(fs_mod, "tracker_update_batched", recorder), \
+            mock.patch.object(assignment, "solve_cascade_masked",
+                              solver_rec):
         rows["eager"] = drive(torch, pipes["eager"], frames,
                               lambda: cuda.launches, force_at=4, check=check)
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
@@ -760,7 +901,7 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
         raise AssertionError("no live tracks on any frame")
     report_point(torch, "BoTSORTPipeline.update (loaded, one stream)",
                  "frame", pipes, rows, 1, card, frames[-1])
-    return main_launches, pipes["graphed"], frames[-1], cfgs
+    return main_launches, pipes["graphed"], frames[-1], cfgs, solver_rec.calls
 
 
 def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
@@ -2064,6 +2205,75 @@ def phase_timing(torch, assignment, assignment_cuda, k1_inputs, k2_batches,
     return out
 
 
+def three_solves(assignment, d1, iou, d3, pool, tracked, unconf, high, low):
+    """The cascade as three chained solve_masked calls."""
+    res1 = assignment.solve_masked(d1, pool, high, LIMITS[0])
+    assignment.solve_masked(iou, tracked & (res1.col_for_row < 0), low,
+                            LIMITS[1])
+    assignment.solve_masked(d3, unconf, high & (res1.row_for_col < 0),
+                            LIMITS[2])
+
+
+def phase_coherent(torch, assignment, assignment_cuda, main_cascades, dev,
+                   card):
+    """Pops per solve and K1 / K2 times in two regimes at N_TRACKS x
+    N_DETS: the cascade inputs of the loaded one-stream path's last eager
+    frames (random weights: near-rank-1 appearance costs) and seeded
+    coherent instances (coherent_instance). Pops of the cascade's plain
+    walk against three chained solve_masked calls (K3's plain version) on
+    the same inputs, on CPU copies; K1 and K2 (the eight instances as one
+    batch) equal the plain version; CUDA-event and graph-replay times."""
+    cuda = assignment_cuda.cascade_solve_cuda
+    rng = np.random.default_rng(5)
+    pipeline = [[a[0].cpu() for a in call] for call in main_cascades
+                if tuple(call[0].shape[-2:]) == (N_TRACKS, N_DETS)]
+    if len(pipeline) < STREAMS:
+        raise AssertionError(f"coherent: {len(pipeline)} recorded cascades")
+    regimes = {
+        "pipeline, random weights": pipeline[-STREAMS:],
+        "coherent": [[torch.from_numpy(a) for a in coherent_instance(
+            rng, N_TRACKS, N_DETS)] for _ in range(STREAMS)],
+    }
+    cascade_pops = lambda args: pops_per_solve(  # noqa: E731
+        torch, assignment, assignment.cascade_solve_plain, args)
+    for regime, insts in regimes.items():
+        k1_args = []
+        for inst in insts:
+            costs, masks, big = assignment.prepare_cascade(
+                *[a.to(dev) for a in inst], LIMITS)
+            k1_args.append((costs[None], masks[None], big[None], LIMITS))
+        k2_args = assignment.prepare_cascade(
+            *[torch.stack(x).to(dev) for x in zip(*insts)], LIMITS) + (
+            LIMITS,)
+        for args in k1_args + [k2_args]:
+            got = cuda(*args)
+            want = assignment.cascade_solve_plain(
+                *[a.cpu() if torch.is_tensor(a) else a for a in args])
+            for g, w in zip(got, want):
+                index_err(torch, g.cpu(), w, f"coherent: {regime}: kernel "
+                          "!= plain")
+        pops = [cascade_pops(a) for a in k1_args]
+        chain = [pops_per_solve(torch, assignment,
+                                lambda *a: three_solves(assignment, *a),
+                                inst) for inst in insts]
+        if regime == "coherent" and max(pops):
+            raise AssertionError(f"coherent: the cascade popped {pops}")
+        k1_ms = statistics.median(event_ms(torch, lambda a=a: cuda(*a), 50)
+                                  for a in k1_args)
+        k1_graph = statistics.median(graph_ms(torch, lambda a=a: cuda(*a))
+                                     for a in k1_args)
+        k2_ms = event_ms(torch, lambda: cuda(*k2_args), 50)
+        k2_graph = graph_ms(torch, lambda: cuda(*k2_args))
+        log(f"coherent: {regime}: pops per solve {pops} (median "
+            f"{statistics.median(pops)}), three chained solves {chain} "
+            f"(median {statistics.median(chain)}); K1 {k1_ms:.4f} ms "
+            f"(events), {k1_graph:.4f} ms (graph replay), medians over "
+            f"{len(k1_args)} inputs; K2 at B = {STREAMS} (the same "
+            f"inputs) {k2_ms:.4f} ms (events), {k2_graph:.4f} ms (graph "
+            f"replay), slowest stream {max(pops)} pops against "
+            f"{max(chain)}; {card}")
+
+
 TRAIN_BATCH, TRAIN_IDS, TRAIN_STEPS = 64, 16, 6
 K6B_SOURCE = "botsort_tpu_torch/csrc/bn_act_backward.cu"
 # K6b replaces no TPU kernel: the JAX trainer differentiates the Flax
@@ -2449,8 +2659,8 @@ def main() -> int:
                    for p in m.parameters())
     log(f"bundle: full width, bfloat16, {n_params} parameters")
     done("bundle")
-    k1_launches, main_pipe, main_frame, main_cfgs = phase_main(
-        torch, bundle, assignment, assignment_cuda, card)
+    k1_launches, main_pipe, main_frame, main_cfgs, main_cascades = \
+        phase_main(torch, bundle, assignment, assignment_cuda, card)
     done("main")
     (k2_launches, k6_launches, unlowered, multi_pipe, multi_frames,
      multi_cfgs) = phase_multi(torch, bundle, assignment, assignment_cuda,
@@ -2480,6 +2690,9 @@ def main() -> int:
         torch, bundle, assignment_cuda, fastreid_fused, facereid_dw, card,
         unlowered, assets.FULL)
     done("lowered")
+    phase_coherent(torch, assignment, assignment_cuda, main_cascades, dev,
+                   card)
+    done("coherent")
     times = phase_timing(torch, assignment, assignment_cuda, k1_inputs,
                          k2_batches, k3_inputs, card)
     times.update(phase_encoder_timing(torch, F, fastreid_fused, facereid_dw,

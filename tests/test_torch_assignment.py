@@ -1,12 +1,15 @@
 """The port's cascade solver against the JAX package's.
 
 The plain PyTorch ``solve_cascade_masked`` (the CPU route, and the
-semantics oracle of kernel K1) must be exactly equal to both JAX
-``solve_cascade_masked`` (three ``solve_masked`` calls) and the TPU
-kernel run in interpret mode, on the shapes and degenerate masks of
-tests/test_cascade_solve.py; its objective must equal the native C++
-LAPJV's. K1 itself is held to the plain version on the card by
-tests/test_torch_cuda.py.
+semantics oracle of kernels K1 and K2) walks the TPU kernel step for step,
+so it must equal the TPU kernel run in interpret mode bit for bit, ties
+included, on the shapes and degenerate masks of
+tests/test_cascade_solve.py, on tie-heavy grids and on entries exactly at
+the dummy price L/2; its objective must equal the native C++ LAPJV's.
+Where the optimum is unique it also equals JAX ``solve_cascade_masked``
+(three ``solve_masked`` calls), which at exact ties may pick another
+optimum (tests/test_torch_cascade_ties.py). K1 itself is held to the
+plain version on the card by tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from botsort_tpu.ops.assignment_pallas import cascade_solve_pallas
 from botsort_tpu_torch.ops import assignment as tassign
 from botsort_tpu_torch.ops import assignment_cuda
 from botsort_tpu_torch.runtime import kernels
+from tests.test_torch_jv import _chip_smoke
 
 LIMITS = (0.8, 0.5, 0.7)
 
@@ -103,37 +107,82 @@ def _objective(cost, cfr, rfc, limit):
             + half * ((~matched).sum() + (rfc < 0).sum()))
 
 
-def test_plain_cascade_objective_equals_native_lapjv():
-    """Objective against the port's native LAPJV (runtime/native.py), which
-    returns the JAX package's native matchings on the same matrices."""
+def _assert_objective_equals_native(inst, got):
+    """Each pass's objective against the port's native LAPJV
+    (runtime/native.py) on the live sub-problem that pass solved, whose
+    matchings equal the JAX package's native ones."""
     from botsort_tpu.runtime import native as jnative
     from botsort_tpu_torch.runtime import native
 
+    d1, iou, d3, pool, tracked, unconf, high, low = inst
+    cfrs = [np.asarray(r[0]) for r in got]
+    rfcs = [np.asarray(r[1]) for r in got]
+    rows = (pool, tracked & (cfrs[0] < 0), unconf)
+    cols = (high, low, high & (rfcs[0] < 0))
+    for p, cost in enumerate((d1, iou, d3)):
+        ri, ci = np.flatnonzero(rows[p]), np.flatnonzero(cols[p])
+        sub = cost[np.ix_(ri, ci)]
+        cfr = cfrs[p][ri]
+        rfc = rfcs[p][ci]
+        # Re-index the port's matching into the live sub-problem.
+        pos = {c: k for k, c in enumerate(ci)}
+        cfr_sub = np.array([pos[c] if c >= 0 else -1 for c in cfr],
+                           np.int64)
+        ref_cfr, ref_rfc = native.lapjv_cost_limit(sub, LIMITS[p])
+        for mine, theirs in zip((ref_cfr, ref_rfc),
+                                jnative.lapjv_cost_limit(sub, LIMITS[p])):
+            np.testing.assert_array_equal(mine, theirs)
+        assert _objective(sub, cfr_sub, rfc, LIMITS[p]) == \
+            pytest.approx(_objective(sub, ref_cfr, ref_rfc, LIMITS[p]),
+                          abs=1e-5)
+
+
+def test_plain_cascade_objective_equals_native_lapjv():
+    """Objective against the port's native LAPJV (runtime/native.py), which
+    returns the JAX package's native matchings on the same matrices."""
     rng = np.random.default_rng(19)
     for n, d in ((12, 9), (5, 14), (16, 16)):
         inst = random_instance(rng, n, d)
         got = tassign.solve_cascade_masked(
             *[torch.from_numpy(a) for a in inst], LIMITS)
-        d1, iou, d3, pool, tracked, unconf, high, low = inst
-        rows = (pool, tracked & (got[0].col_for_row.numpy() < 0), unconf)
-        cols = (high, low, high & (got[0].row_for_col.numpy() < 0))
-        for p, cost in enumerate((d1, iou, d3)):
-            ri, ci = np.flatnonzero(rows[p]), np.flatnonzero(cols[p])
-            sub = cost[np.ix_(ri, ci)]
-            cfr = got[p].col_for_row.numpy()[ri]
-            rfc = got[p].row_for_col.numpy()[ci]
-            # Re-index the port's matching into the live sub-problem.
-            pos = {c: k for k, c in enumerate(ci)}
-            cfr_sub = np.array([pos[c] if c >= 0 else -1 for c in cfr],
-                               np.int64)
-            ref_cfr, ref_rfc = native.lapjv_cost_limit(sub, LIMITS[p])
-            for mine, theirs in zip((ref_cfr, ref_rfc),
-                                    jnative.lapjv_cost_limit(sub,
-                                                             LIMITS[p])):
-                np.testing.assert_array_equal(mine, theirs)
-            assert _objective(sub, cfr_sub, rfc, LIMITS[p]) == \
-                pytest.approx(_objective(sub, ref_cfr, ref_rfc, LIMITS[p]),
-                              abs=1e-5)
+        _assert_objective_equals_native(inst, got)
+
+
+def _equals_tpu_kernel(inst):
+    """The plain cascade against the TPU kernel in interpret mode, and its
+    objective against the native LAPJV's."""
+    got = tassign.solve_cascade_masked(
+        *[torch.from_numpy(a) for a in inst], LIMITS)
+    kern = cascade_solve_pallas(*[jnp.asarray(a) for a in inst], LIMITS,
+                                interpret=True)
+    _assert_equal(got, kern, "cascade_solve_pallas(interpret=True)")
+    _assert_objective_equals_native(inst, got)
+
+
+@pytest.mark.parametrize("n,d", [(12, 9), (16, 16), (64, 50)])
+def test_plain_cascade_equals_tpu_kernel_on_fine_grid(n, d):
+    """Costs on a 0.05 grid, up to the main path's 64 x 50."""
+    rng = np.random.default_rng(n * 1000 + d)
+    for _ in range(3):
+        _equals_tpu_kernel(random_instance(rng, n, d, quantum=0.05))
+
+
+HALF = [inst for label, inst in _chip_smoke().tie_instances()
+        if label.startswith("half")]
+
+
+@pytest.mark.parametrize("k", range(len(HALF)))
+def test_plain_cascade_equals_tpu_kernel_at_half_limit(k):
+    """chip_smoke.py's half-exact instances: every pass's costs are
+    multiples of L/4, about one in six exactly L/2, where the escape fast
+    path's inclusive >= decides (8 at 12 x 9, 8 at 64 x 50)."""
+    _equals_tpu_kernel(HALF[k])
+
+
+def test_half_limit_instances_hold_entries_at_half():
+    for inst in HALF:
+        for cost, limit in zip(inst[:3], LIMITS):
+            assert (cost == np.float32(limit) / np.float32(2)).any()
 
 
 def test_solve_masked_equals_jax():

@@ -7,14 +7,19 @@ states and the id counter must be exact; boxes, means and covariances
 within atol 1e-4 (float32 sums in two libraries' orders).
 """
 
+import contextlib
 import copy
+from unittest import mock
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
 from botsort_tpu.config import TrackerConfig as JTrackerConfig
+from botsort_tpu.ops import assignment as jassign
+from botsort_tpu.ops.assignment_pallas import cascade_solve_pallas
 from botsort_tpu.track import cascade as jcascade
 from botsort_tpu.track import state as jstate
 from botsort_tpu_torch.config import TrackerConfig as TTrackerConfig
@@ -77,13 +82,15 @@ INT_FIELDS = ("state", "is_activated", "track_id", "frame_id",
 FLOAT_FIELDS = ("mean", "cov", "score", "body_smooth", "face_smooth")
 
 
-@pytest.mark.parametrize("seed,history", [(0, 0), (1, 0), (2, 3)])
-def test_tracker_update_matches_jax(seed, history):
+def _compare_over_scene(scene, history):
+    """Both cascades frame by frame over ``scene``; returns the port's
+    final store and the JAX package's per-frame det indices."""
     jcfg, tcfg = _cfgs(history)
     jst = jstate.empty_store(jcfg)
     tst = tstate.empty_store(tcfg)
     hist_fields = ("body_hist", "face_hist") if history else ()
-    for t, dets in enumerate(_scene(seed)):
+    det_index = []
+    for t, dets in enumerate(scene):
         args = _pack(dets)
         jst, jout = jcascade.tracker_update(
             jst, *[jnp.asarray(a) for a in args], jcfg)
@@ -103,7 +110,85 @@ def test_tracker_update_matches_jax(seed, history):
             np.testing.assert_allclose(
                 getattr(tst, k).numpy(), np.asarray(getattr(jst, k)),
                 rtol=0, atol=1e-4, err_msg=f"frame {t} store.{k}")
+        det_index.append(np.asarray(jst.det_index))
+    return tst, det_index
+
+
+@pytest.mark.parametrize("seed,history", [(0, 0), (1, 0), (2, 3)])
+def test_tracker_update_matches_jax(seed, history):
+    tst, _ = _compare_over_scene(_scene(seed), history)
     assert int(tst.next_id) > 5  # the scene created and kept tracks
+
+
+def _tied_scene():
+    """_scene with exact ties everywhere: boxes snapped to an 8-pixel grid,
+    two appearance features shared by all the objects (as random-init
+    encoders map every crop to nearly one direction), every detection
+    twice (identical cost columns)."""
+    rng = np.random.default_rng(101)
+    feats = [(rng.normal(0, 1, 32), rng.normal(0, 1, 16)) for _ in range(2)]
+    out = []
+    for dets in _scene(1, frames=8, n_obj=7):
+        tied = [(np.round(box / 8) * 8, score, *feats[k % 2])
+                for k, (box, score, _, _) in enumerate(dets)]
+        out.append([det for det in tied for _ in range(2)][:D])
+    return out
+
+
+def _tpu_kernel_cascade(dists1, iou_d, dists3, pool_m, tracked_m, unconf_m,
+                        high_m, low_m, limits, max_iters=20000):
+    """JAX ``solve_cascade_masked``'s TPU route, with the kernel in
+    interpret mode."""
+    f32 = jnp.float32
+    out = cascade_solve_pallas(
+        dists1.astype(f32), iou_d.astype(f32), dists3.astype(f32), pool_m,
+        tracked_m, unconf_m, high_m, low_m,
+        tuple(float(x) for x in limits), min(max_iters, 4096),
+        interpret=True)
+    return tuple(jassign.AssignmentResult(cfr, rfc) for cfr, rfc in out)
+
+
+def _jax_det_index(scene):
+    jcfg, _ = _cfgs(0)
+    st = jstate.empty_store(jcfg)
+    out = []
+    for dets in scene:
+        st, _ = jcascade.tracker_update(
+            st, *[jnp.asarray(a) for a in _pack(dets)], jcfg)
+        out.append(np.asarray(st.det_index))
+    return out
+
+
+@contextlib.contextmanager
+def jax_tpu_cascade():
+    """The JAX package's ``solve_cascade_masked`` routed to its TPU kernel in
+    interpret mode, the reference the port's cascade follows at exact ties
+    (its CPU route, three chained solves, may pick another optimum there).
+    Every JAX jit cache is cleared on entry and on exit: ``tracker_update``
+    and the frame steps are jitted, and a trace made with or without the
+    patch would otherwise serve the callers on the other side of it."""
+    jax.clear_caches()
+    try:
+        with mock.patch.object(jassign, "solve_cascade_masked",
+                               _tpu_kernel_cascade):
+            yield
+    finally:
+        jax.clear_caches()
+
+
+def test_tracker_update_matches_tpu_kernel_at_duplicated_detections():
+    """Duplicated detections on a box grid with shared features (exact
+    ties) through both trackers, the JAX side's solver patched to the TPU
+    kernel in interpret mode: the port follows the TPU kernel's
+    tie-breaks. The JAX CPU route (three chained solves) picks other
+    optima on this scene, so the tracks differ from its."""
+    scene = _tied_scene()
+    with jax_tpu_cascade():
+        tst, kernel_det_index = _compare_over_scene(scene, 0)
+    assert int(tst.next_id) > 5
+    composition = _jax_det_index(scene)
+    assert any(not np.array_equal(a, b)
+               for a, b in zip(kernel_det_index, composition))
 
 
 def test_tracker_update_leaves_its_input_store_untouched():

@@ -263,8 +263,9 @@ def test_facade_reruns_a_step_whose_nms_did_not_converge(bundles, streams):
 
 def test_second_step_builds_no_tensor_from_python_values(bundles):
     """Once the constants are cached, a step calls ``torch.tensor`` nowhere
-    but in the plain assignment solver, which runs on the CPU only (on the
-    card the cascade kernel takes its place)."""
+    but in the plain assignment solver (``jv_solve_plain``, the cascade's
+    ``_cascade_pass``), which runs on the CPU only (on the card the cascade
+    kernel takes its place)."""
     _, tb = bundles
     frames = [torch.from_numpy(f) for f in _stream_frames(2, 2, seed=9)]
     stores = tstate.empty_stores(T_TRK, 2)
@@ -282,7 +283,8 @@ def test_second_step_builds_no_tensor_from_python_values(bundles):
         stores, res = tfs.frame_step_batched(tb, stores, frames[1], T_TRK,
                                              T_NMSC, T_PIPE, gmc, 4, 4)
         packed = thost.pack_result(res)
-    assert set(callers) <= {"jv_solve_plain"}, set(callers)
+    assert set(callers) <= {"jv_solve_plain", "_cascade_pass"}, \
+        set(callers)
     assert int(stores.frame_count[0]) == 2 and packed.packed.dtype == \
         torch.uint8
 

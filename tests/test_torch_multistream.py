@@ -45,7 +45,8 @@ from botsort_tpu_torch.pipeline import host as thost
 from botsort_tpu_torch.track import cascade as tcascade
 from botsort_tpu_torch.track import state as tstate
 from tests.test_torch_cascade import (FLOAT_FIELDS, INT_FIELDS, _cfgs,
-                                      _pack, _scene)
+                                      _pack, _scene, jax_tpu_cascade)
+from tests.test_torch_jv import _chip_smoke
 from tests.test_torch_pipeline import (  # noqa: F401 (bundles: a fixture)
     NMSC,
     PIPE,
@@ -144,22 +145,9 @@ def _lockstep_inputs(insts, n, d, sp=128):
     return [jnp.stack(x) for x in zip(*[prep(i) for i in insts])]
 
 
-def test_batched_cascade_equals_jax_lockstep_kernel():
-    """The port's B-stream cascade (plain, per-stream ``big``) against the
-    TPU lockstep kernel K2 in interpret mode (one ``big``, the maximum
-    over streams), at N=10, D=7, B=4 with one stream without columns.
-    Continuous costs: at exact ties the lockstep kernel's escape fast
-    path may pick another optimum."""
-    n, d = 10, 7
-    rng = np.random.default_rng(21)
-    insts = [_cascade_instance(rng, n, d) for _ in range(3)]
-    insts.append(_cascade_instance(rng, n, d, empty_cols=True))
-    before = (assignment_cuda.cascade_solve_cuda.launches,
-              assignment_cuda.cascade_solve_cuda.batched_launches)
-    got = tassign.solve_cascade_masked(
-        *[torch.from_numpy(a) for a in _stack(insts)], LIMITS)
-    assert (assignment_cuda.cascade_solve_cuda.launches,
-            assignment_cuda.cascade_solve_cuda.batched_launches) == before
+def _assert_equals_lockstep(got, insts, n, d):
+    """The port's B-stream results against the TPU lockstep kernel's in
+    interpret mode (one ``big``, the maximum over streams)."""
     p, q, plive = jpallas._cascade_call_lockstep(
         *_lockstep_inputs(insts, n, d), n, d, LIMITS, 4096, True)
     for k in range(3):
@@ -171,7 +159,72 @@ def test_batched_cascade_equals_jax_lockstep_kernel():
                                       err_msg=f"pass {k + 1} cfr")
         np.testing.assert_array_equal(got[k].row_for_col.numpy(), rfc,
                                       err_msg=f"pass {k + 1} rfc")
+
+
+def test_batched_cascade_equals_jax_lockstep_kernel():
+    """The port's B-stream cascade (plain, per-stream ``big``) against the
+    TPU lockstep kernel K2 in interpret mode (one ``big``, the maximum
+    over streams), at N=10, D=7, B=4 with one stream without columns,
+    continuous costs (ties: the test below)."""
+    n, d = 10, 7
+    rng = np.random.default_rng(21)
+    insts = [_cascade_instance(rng, n, d) for _ in range(3)]
+    insts.append(_cascade_instance(rng, n, d, empty_cols=True))
+    before = (assignment_cuda.cascade_solve_cuda.launches,
+              assignment_cuda.cascade_solve_cuda.batched_launches)
+    got = tassign.solve_cascade_masked(
+        *[torch.from_numpy(a) for a in _stack(insts)], LIMITS)
+    assert (assignment_cuda.cascade_solve_cuda.launches,
+            assignment_cuda.cascade_solve_cuda.batched_launches) == before
+    _assert_equals_lockstep(got, insts, n, d)
     assert (got[0].row_for_col[3] == -1).all()
+
+
+def _tie_batches():
+    """B = 4 tie-heavy batches at 12 x 9: chip_smoke.py's half-exact
+    instances (entries exactly at L/2) and 0.1-grid ones."""
+    cs = _chip_smoke()
+    half = [inst for label, inst in cs.tie_instances()
+            if label.startswith("half") and inst[0].shape == (12, 9)]
+    rng = np.random.default_rng(31)
+    return [half[:4], half[4:8],
+            [cs.grid_instance(rng, 12, 9) for _ in range(4)]]
+
+
+def test_batched_cascade_equals_jax_lockstep_kernel_at_ties():
+    """At exact ties the port's B-stream cascade still equals the TPU
+    lockstep kernel bit for bit: its per-stream steps and tie-breaks are
+    the grid kernel's, and the lockstep kernel's shared ``big`` changes
+    nothing."""
+    for insts in _tie_batches():
+        got = tassign.solve_cascade_masked(
+            *[torch.from_numpy(a) for a in _stack(insts)], LIMITS)
+        _assert_equals_lockstep(got, insts, 12, 9)
+
+
+def test_per_stream_big_equals_shared_big_at_ties():
+    """``big`` only fills the parked entries of the Dijkstra rows: the
+    plain cascade with each stream's own ``big`` (K2's semantics) equals it
+    with the lockstep kernel's maximum over streams and with four times
+    that, on tie-heavy batches at 12 x 9 and at the main path's 64 x 50.
+    Half of each batch's streams have their costs halved (still on a
+    grid), so the streams' own ``big`` differ."""
+    cs = _chip_smoke()
+    half = [inst for label, inst in cs.tie_instances()
+            if label.startswith("half") and inst[0].shape == (64, 50)]
+    for insts in _tie_batches() + [half]:
+        insts = [tuple(a * np.float32(0.5) if k < 3 and s % 2 else a
+                       for k, a in enumerate(inst))
+                 for s, inst in enumerate(insts)]
+        costs, masks, big = tassign.prepare_cascade(
+            *[torch.from_numpy(a) for a in _stack(insts)], LIMITS)
+        assert big.unique().numel() == 2
+        own = tassign.cascade_solve_plain(costs, masks, big, LIMITS)
+        for shared in (big.max(), 4 * big.max()):
+            other = tassign.cascade_solve_plain(
+                costs, masks, shared.expand(big.shape), LIMITS)
+            for a, b in zip(own, other):
+                assert torch.equal(a, b)
 
 
 def _three_solves(d1, iou, d3, pool, tracked, unconf, high, low):
@@ -483,22 +536,27 @@ def _ids(tracks):
 
 
 def test_batched_pipeline_matches_jax(bundles):
+    """Against the JAX batched pipeline with its cascade on the TPU
+    lockstep kernel (interpret mode), whose tie-breaks the port follows."""
     jb, tb = bundles
     jp = JBatched(jb, 2, TRK, NMSC, PIPE)
     tp = thost.BatchedBoTSORTPipeline(tb, 2, T_TRK, T_NMSC, T_PIPE)
     live = 0
-    for t, frames in enumerate(_stream_frames(4, 2, seed=1)):
-        j_tracks, t_tracks = jp.update(frames), tp.update(frames)
-        assert _ids(t_tracks) == _ids(j_tracks), f"step {t}"
-        for ts, js in zip(t_tracks, j_tracks):
-            for a, b in zip(ts, js):
-                np.testing.assert_allclose(a.tlbr, b.tlbr, rtol=0,
-                                           atol=1e-3)
-                assert (a.body is None) == (b.body is None)
-                if a.body is not None:
-                    assert (a.body.x1, a.body.y2) == (b.body.x1, b.body.y2)
-                    assert (a.body.head is None) == (b.body.head is None)
-            live += len(ts)
+    with jax_tpu_cascade():
+        for t, frames in enumerate(_stream_frames(4, 2, seed=1)):
+            j_tracks, t_tracks = jp.update(frames), tp.update(frames)
+            assert _ids(t_tracks) == _ids(j_tracks), f"step {t}"
+            for ts, js in zip(t_tracks, j_tracks):
+                for a, b in zip(ts, js):
+                    np.testing.assert_allclose(a.tlbr, b.tlbr, rtol=0,
+                                               atol=1e-3)
+                    assert (a.body is None) == (b.body is None)
+                    if a.body is not None:
+                        assert (a.body.x1, a.body.y2) == (b.body.x1,
+                                                          b.body.y2)
+                        assert (a.body.head is None) == \
+                            (b.body.head is None)
+                live += len(ts)
     assert live > 0
     assert set(tp.timers.report()) == {"upload", "device_step", "readback",
                                        "assemble"}

@@ -43,6 +43,7 @@ from botsort_tpu_torch.runtime import assets as tassets
 from botsort_tpu_torch.runtime.from_flax import load_flax_variables
 from botsort_tpu_torch.track import cascade as tcascade
 from botsort_tpu_torch.track import state as tstate
+from tests.test_torch_cascade import jax_tpu_cascade
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -235,22 +236,27 @@ def test_frame_step_stage_by_stage(bundles):
 
 
 def test_pipeline_four_frames_matches_jax(bundles):
+    """The JAX pipeline with its cascade on the TPU kernel (interpret
+    mode), whose tie-breaks the port follows: random weights make exact
+    ties between detections."""
     jb, tb = bundles
     jp = JPipeline(jb, TRK, NMSC, PIPE)
     tp = TPipeline(tb, T_TRK, T_NMSC, T_PIPE)
     live = 0
-    for t, frame in enumerate(_frames(4, seed=1)):
-        j_tracks = jp.update(frame)
-        t_tracks = tp.update(frame)
-        assert [x.track_id for x in t_tracks] == \
-            [x.track_id for x in j_tracks], f"frame {t}"
-        for a, b in zip(t_tracks, j_tracks):
-            np.testing.assert_allclose(a.tlbr, b.tlbr, rtol=0, atol=1e-3)
-            assert (a.body is None) == (b.body is None)
-            if a.body is not None:
-                assert (a.body.x1, a.body.y2) == (b.body.x1, b.body.y2)
-                assert (a.body.head is None) == (b.body.head is None)
-        live += len(t_tracks)
+    with jax_tpu_cascade():
+        for t, frame in enumerate(_frames(4, seed=1)):
+            j_tracks = jp.update(frame)
+            t_tracks = tp.update(frame)
+            assert [x.track_id for x in t_tracks] == \
+                [x.track_id for x in j_tracks], f"frame {t}"
+            for a, b in zip(t_tracks, j_tracks):
+                np.testing.assert_allclose(a.tlbr, b.tlbr, rtol=0,
+                                           atol=1e-3)
+                assert (a.body is None) == (b.body is None)
+                if a.body is not None:
+                    assert (a.body.x1, a.body.y2) == (b.body.x1, b.body.y2)
+                    assert (a.body.head is None) == (b.body.head is None)
+            live += len(t_tracks)
     assert live > 0
 
 

@@ -32,6 +32,7 @@ from botsort_tpu_torch.pipeline import frame_step as tfs
 from botsort_tpu_torch.pipeline import host as thost
 from botsort_tpu_torch.track import cascade as tcascade
 from botsort_tpu_torch.track import state as tstate
+from tests.test_torch_cascade import jax_tpu_cascade
 from tests.test_torch_multistream import _stream_frames, _write_video
 from tests.test_torch_pipeline import (  # noqa: F401 (bundles: a fixture)
     NMSC,
@@ -131,25 +132,30 @@ def test_temporal_step_matches_jax_stage_by_stage(bundles):
 
 
 def test_temporal_step_end_to_end_matches_jax(bundles):
-    """The whole port step against the whole JAX step: ids and validity
-    exact, boxes atol 1e-3 as in the pipeline tests."""
+    """The whole port step against the whole JAX step, its cascade on the
+    TPU lockstep kernel (interpret mode), whose tie-breaks the port
+    follows: ids and validity exact, boxes atol 1e-3 as in the pipeline
+    tests."""
     jb, tb = bundles
     jst = jax.tree.map(lambda x: jnp.stack([x] * B), jstate.empty_store(TRK))
     tst = tstate.empty_stores(T_TRK, B)
-    for g, frames in enumerate(_groups(2, seed=22)):
-        jst, j_res = jfs.frame_step_batched_temporal(
-            jb, jst, jnp.asarray(frames), TRK, NMSC, PIPE)
-        tst, t_res = tfs.frame_step_batched_temporal(
-            tb, tst, torch.from_numpy(frames), T_TRK, T_NMSC, T_PIPE)
-        assert tuple(t_res.det_boxes.shape[:2]) == (B, T)
-        assert tuple(t_res.nms_converged.shape) == (B, T)
-        for name in ("det_valid", "head_for_body", "face_for_head",
-                     "hand1_for_body", "hand2_for_body", "nms_clipped"):
-            _eq(getattr(t_res, name), getattr(j_res, name), f"{g} {name}")
-        for k in ("valid", "track_id", "det_index"):
-            _eq(getattr(t_res.tracks, k), getattr(j_res.tracks, k),
-                f"group {g} {k}")
-        _close(t_res.tracks.tlbr, j_res.tracks.tlbr, 1e-3, f"group {g} tlbr")
+    with jax_tpu_cascade():
+        for g, frames in enumerate(_groups(2, seed=22)):
+            jst, j_res = jfs.frame_step_batched_temporal(
+                jb, jst, jnp.asarray(frames), TRK, NMSC, PIPE)
+            tst, t_res = tfs.frame_step_batched_temporal(
+                tb, tst, torch.from_numpy(frames), T_TRK, T_NMSC, T_PIPE)
+            assert tuple(t_res.det_boxes.shape[:2]) == (B, T)
+            assert tuple(t_res.nms_converged.shape) == (B, T)
+            for name in ("det_valid", "head_for_body", "face_for_head",
+                         "hand1_for_body", "hand2_for_body", "nms_clipped"):
+                _eq(getattr(t_res, name), getattr(j_res, name),
+                    f"{g} {name}")
+            for k in ("valid", "track_id", "det_index"):
+                _eq(getattr(t_res.tracks, k), getattr(j_res.tracks, k),
+                    f"group {g} {k}")
+            _close(t_res.tracks.tlbr, j_res.tracks.tlbr, 1e-3,
+                   f"group {g} tlbr")
     assert int(tst.next_id.min()) > 0
 
 
