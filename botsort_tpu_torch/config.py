@@ -2,9 +2,7 @@
 
 The port's own copy of botsort_tpu/config.py, so that the port runs
 where the JAX package is not installed. Fields, meanings and defaults
-are the JAX package's (tests/test_torch_pipeline.py holds them equal),
-less its two TPU lowerings: ``PipelineConfig.compute_dtype`` (here the
-bundle's dtype, runtime/assets.py::build_bundle) and ``crop_int8``.
+are the JAX package's (tests/test_torch_pipeline.py holds them equal).
 
 Every "max_*" field is a fixed slot count: per-frame detections, tracks
 and crops live in padded slots with validity masks, as in the JAX
@@ -79,6 +77,16 @@ class PipelineConfig:
     # ReID bucket step: the frame step embeds the body crops at a static
     # bucket from {0, r, 2r, max_dets} (pipeline/frame_step.py).
     max_reid_batch: int = 16
+    # Interpolation dtype of every crop and resize of a step (the detector
+    # input, the body and face crops; ops/crop.py): "bfloat16" rounds the
+    # pixels, weights and x-phase sums to bfloat16, "float32" interpolates
+    # in float32. The networks run in the bundle's dtype
+    # (runtime/assets.py::build_bundle), as in the JAX package.
+    compute_dtype: str = "bfloat16"
+    # With a bfloat16 compute_dtype and uint8 frames, the x phase in
+    # integers with the weights rounded to q / 127 (the JAX package's
+    # int8 crop).
+    crop_int8: bool = True
     # Classes emitted in outputs and drawing (0 body, 1 head, 2 hand,
     # 3 face).
     track_target_classes: Tuple[int, ...] = (0, 1, 2, 3)

@@ -1,9 +1,9 @@
 """The per-frame step (port of botsort_tpu/pipeline/frame_step.py).
 
-  uint8 frames -> cv2-exact bilinear resize -> YOLOX -> NMS -> rescale ->
-  box hierarchy -> ReID crops -> body and face encoders -> association
-  cascade (kernel K1 at one stream, K2 at B on the card) -> track store
-  update
+  uint8 frames -> cv2-style bilinear resize (kernel K7) -> YOLOX -> NMS ->
+  rescale -> box hierarchy -> ReID crops (K7) -> body and face encoders ->
+  association cascade (kernel K1 at one stream, K2 at B on the card) ->
+  track store update
 
 ``frame_step_batched`` steps B independent streams at once, every stage
 batched over the stream axis; ``frame_step`` and the single-frame stage
@@ -34,10 +34,8 @@ from botsort_tpu_torch.models.facereid import FaceReID
 from botsort_tpu_torch.models.fastreid import FastReIDSBS, preprocess
 from botsort_tpu_torch.models.yolox import YOLOX
 from botsort_tpu_torch.ops import hierarchy, nms
-from botsort_tpu_torch.ops.crop import (  # noqa: F401 (one-frame form)
-    crop_and_resize,
-    crop_and_resize_batched,
-)
+from botsort_tpu_torch.ops.crop import _crop
+from botsort_tpu_torch.ops.crop import crop_and_resize  # noqa: F401
 from botsort_tpu_torch.track.cascade import (
     TrackOutputs,
     tracker_update_batched,
@@ -245,7 +243,7 @@ def embed_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
 
     def encoded(encoder, prep, hw):
         def run(tlbr):                                            # [B, k, 4]
-            crops = crop_and_resize_batched(frames_bgr, tlbr, hw)
+            crops = _crop(frames_bgr, tlbr, hw, pipe_cfg)
             feats = encoder(prep(crops.flatten(0, 1)))
             return feats.reshape(bsz, tlbr.shape[1], -1)
         return run
@@ -315,8 +313,8 @@ def _perception_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
         face_bucket = reid_bucket
     full = const((0.0, 0.0, float(src_hw[1]), float(src_hw[0])),
                  torch.float32, frames_bgr.device).expand(g, 1, 4)
-    det_in = crop_and_resize_batched(frames_bgr, full,
-                                     pipe_cfg.detector_input_hw)[:, 0]
+    det_in = _crop(frames_bgr, full, pipe_cfg.detector_input_hw,
+                   pipe_cfg)[:, 0]
     cand_boxes, cand_scores = bundle.detector(det_in)
     dets, det_boxes, det_valid = postprocess_detections_batched(
         cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg,
@@ -375,9 +373,9 @@ def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
     reid_bucket). gmc_affines: optional [B, 2, 3] per-stream camera
     motion. nms_iters: iterations of the NMS fixpoint (None = ops/nms.py's
     FIXPOINT_ITERS; ``FrameResult.nms_converged`` says whether they were
-    enough). ``PipelineConfig.crop_int8`` and ``compute_dtype`` are TPU
-    lowerings and are not read: crops interpolate in float32 and the
-    networks run in the bundle's dtype.
+    enough). The detector input and the crops interpolate as
+    ``PipelineConfig.compute_dtype`` and ``crop_int8`` say (ops/crop.py,
+    kernel K7 on the card); the networks run in the bundle's dtype.
     """
     d = _det_width(tracker_cfg, nms_cfg)
     p = _perception_batched(bundle, frames_bgr, tracker_cfg, nms_cfg,

@@ -42,7 +42,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from botsort_tpu_torch.models import bn_act, facereid_dw, fastreid_fused
-from botsort_tpu_torch.ops import assignment_cuda
+from botsort_tpu_torch.ops import assignment_cuda, crop
 
 WARMUP_CALLS = 1
 
@@ -54,6 +54,7 @@ LAUNCH_COUNTERS = (
     (fastreid_fused.stem_stage1_cuda, "launches"),
     (facereid_dw.dw_conv3x3_cuda, "launches"),
     (bn_act.bn_act_cuda, "launches"),
+    (crop.crop_resize_cuda, "launches"),
 )
 
 

@@ -350,11 +350,18 @@ def read_manifest(artifact_dir: str) -> Dict[str, Any]:
         return json.load(f)
 
 
+# What a manifest without the crop fields was exported with: before the
+# port read PipelineConfig.compute_dtype and crop_int8, every program
+# interpolated in float32.
+_PRE_CROP_MODES = {"compute_dtype": "float32", "crop_int8": False}
+
+
 def manifest_configs(manifest: Dict[str, Any]
                      ) -> Tuple[TrackerConfig, NMSConfig, PipelineConfig]:
     return (_cfg_from_dict(TrackerConfig, manifest["tracker_cfg"]),
             _cfg_from_dict(NMSConfig, manifest["nms_cfg"]),
-            _cfg_from_dict(PipelineConfig, manifest["pipe_cfg"]))
+            _cfg_from_dict(PipelineConfig,
+                           {**_PRE_CROP_MODES, **manifest["pipe_cfg"]}))
 
 
 class Programs:

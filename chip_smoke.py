@@ -5,7 +5,7 @@ Drives the port's paths on the card and fails loudly if any phase fails:
 
   1. device   a CUDA card is required (no CPU fallback); prints its name
               and power limit; TF32 is switched off.
-  2. build    builds every CUDA kernel from csrc/ (six libraries), one
+  2. build    builds every CUDA kernel from csrc/ (seven libraries), one
               nvcc per source, all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
@@ -39,10 +39,15 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               cascade re-run with the plain solver on the card must give
               the same tracks. Prints both medians, device kernels and
               host launch calls a frame (torch.profiler) and the busy
-              share.
+              share. K7 must launch once a step run and once a non-zero
+              bucket. Then the crops' cost: the graphed point again at
+              PipelineConfig(compute_dtype="float32", crop_int8=False)
+              beside the default (int8 crops), both medians, and K7's
+              share of a graphed frame's device time (torch.profiler).
   9. multi    the same for BatchedBoTSORTPipeline at 8 streams, full width,
               over 8 steps of 8 seeded 1080p frames at the moderate-16
-              point, with K2 once per step run; counts K6's launches.
+              point, with K2 once per step run; counts K6's and K7's
+              launches; the crops' cost as in main.
       nosync  one loaded full-width frame_step, its replay from the graph
               and an 8-stream update_async under
               torch.cuda.set_sync_debug_mode("error"): nothing between the
@@ -55,6 +60,14 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               with the four activations: bit for bit, SiLU within one unit
               in the last place; timed against the plain version and the
               eager chain it replaced, beside its bound.
+      K7      the crop-resize kernel against its plain version in its
+              three modes (float32, bfloat16, int8) at the main paths'
+              shapes: 1080p to 480x640 at B = 1 and 8, 50 body crops at
+              256x128 and 50 face crops at 128x128 a frame at B = 1 and 8,
+              with edge-clamped, one-pixel and degenerate boxes: bit for
+              bit; CUDA-event and graph times in each mode, the plain
+              version's, and one PyTorch call's (F.interpolate,
+              F.grid_sample) at one frame, beside the bound.
       temporal TemporalBatchedBoTSORTPipeline at full width, B = 8, T = 2,
               moderate-16, seeded per-stream affines, replayed from CUDA
               graphs: the first groups equal T chained frame_step_batched
@@ -155,6 +168,7 @@ last line is {"ok": true, "device": {...}}. Run from the repository root:
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -184,6 +198,24 @@ K6_SOURCE = "botsort_tpu_torch/csrc/bn_act.cu"
 # the activation of botsort_tpu/models/common.py::ConvBN (and the two
 # encoders' blocks) into the convolution before them.
 K6_REPLACES = "botsort_tpu/models/common.py:62"
+K7_SOURCE = "botsort_tpu_torch/csrc/crop_resize.cu"
+# K7 replaces no TPU kernel either: on the TPU XLA lowers the crop's
+# one-hot contractions to the matrix unit, botsort_tpu/ops/crop.py:60
+# (crop_and_resize, float32 / bfloat16) and :124 (crop_and_resize_int8, the
+# default path's).
+K7_REPLACES = "botsort_tpu/ops/crop.py:124"
+# K7's checks: (label, frames, boxes a frame, output) at the main paths'
+# shapes, from 1080p frames.
+K7_CASES = (("detector input", 1, 1, (480, 640)),
+            ("detector input", STREAMS, 1, (480, 640)),
+            ("body crops", 1, 50, (256, 128)),
+            ("face crops", 1, 50, (128, 128)),
+            ("body crops", STREAMS, 50, (256, 128)),
+            ("face crops", STREAMS, 50, (128, 128)))
+K7_KERNEL = "crop_resize_kernel"
+# The crops' numerics before the port read PipelineConfig.compute_dtype and
+# crop_int8 (the main and multi phases time both in one call).
+FLOAT32_CROPS = {"compute_dtype": "float32", "crop_int8": False}
 # The face encoder's 13 stride-1 depthwise 3x3 layers at 128x128 faces,
 # (H, W, C), and the face count they are checked and timed at.
 FACE_DW_SHAPES = ([(64, 64, 32), (32, 32, 144)] + [(16, 16, 192)] * 2
@@ -682,12 +714,11 @@ HOST_LAUNCH_CALLS = frozenset((
     "cudaMemsetAsync"))
 
 
-def step_profile(torch, fn, steps=2):
-    """``steps`` calls of fn under torch.profiler: (device kernels and
-    copies per call, host launch calls per call, device ms per call). One
-    call more runs first and is not counted: a torch.profiler run can lose
-    the events of its first milliseconds. The device synchronisation after
-    that call marks where the counted events begin."""
+def profiled_events(torch, fn, steps):
+    """The torch.profiler events of ``steps`` calls of fn. One call more
+    runs first and is not counted: a torch.profiler run can lose the events
+    of its first milliseconds. The device synchronisation after that call
+    marks where the counted events begin."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -704,20 +735,81 @@ def step_profile(torch, fn, steps=2):
     if not syncs:
         raise AssertionError("torch.profiler recorded no device "
                              "synchronisation to count from")
+    return [e for e in events if e.time_range.start >= syncs[0]]
+
+
+def device_us(torch, e):
+    """An event's device microseconds, or None for a host event."""
+    if e.device_type != torch.autograd.DeviceType.CUDA:
+        return None
+    us = getattr(e, "device_time", None)
+    return e.cuda_time if us is None else us
+
+
+def step_profile(torch, fn, steps=2):
+    """``steps`` calls of fn under torch.profiler: (device kernels and
+    copies per call, host launch calls per call, device ms per call)."""
     n_dev = n_host = 0
     dev_us = 0.0
-    for e in events:
-        if e.time_range.start < syncs[0]:
-            continue
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "device_time", None)
-            dev_us += e.cuda_time if us is None else us
+    for e in profiled_events(torch, fn, steps):
+        us = device_us(torch, e)
+        if us is not None:
+            dev_us += us
             n_dev += 1
         elif e.name in HOST_LAUNCH_CALLS:
             n_host += 1
     if n_dev == 0 or dev_us <= 0.0:
         raise AssertionError("torch.profiler saw no device work in a step")
     return n_dev / steps, n_host / steps, dev_us / 1e3 / steps
+
+
+def kernel_share(torch, fn, needle, steps=2):
+    """(device ms a call of the kernels whose name holds ``needle``, their
+    count a call, device ms a call of everything) under torch.profiler."""
+    mine = total = 0.0
+    n = 0
+    for e in profiled_events(torch, fn, steps):
+        us = device_us(torch, e)
+        if us is None:
+            continue
+        total += us
+        if needle in e.name:
+            mine += us
+            n += 1
+    if total <= 0.0:
+        raise AssertionError("torch.profiler saw no device work in a step")
+    return mine / 1e3 / steps, n / steps, total / 1e3 / steps
+
+
+def crop_cost(torch, label, unit, graphed, make_float32, inputs, card,
+              gmc=None):
+    """The crops' end-to-end cost within one call: the graphed facade at
+    the default PipelineConfig (K7 in int8 mode) again and a new one with
+    ``compute_dtype="float32", crop_int8=False``, each over ``inputs``
+    after the other, their steady medians, and K7's share of a graphed
+    step's device time (torch.profiler) in each."""
+    pipes = {"default": graphed, "float32": make_float32()}
+    out = {}
+    for name in ("float32", "default", "float32"):
+        pipe = pipes[name]
+        rows = drive(torch, pipe, inputs, lambda: 0, gmc=gmc)
+        out.setdefault(name, []).extend(steady_ms(rows))
+    shares = {}
+    for name, pipe in pipes.items():
+        fn = (lambda p=pipe: p.update(inputs[-1])) if gmc is None else (
+            lambda p=pipe: p.update(inputs[-1], gmc[-1]))
+        shares[name] = kernel_share(torch, fn, K7_KERNEL)
+    med = {k: statistics.median(v) for k, v in out.items()}
+    log(f"timing: crops, {label} graphed: median {med['default']:.3f} ms a "
+        f"{unit} at the default PipelineConfig (int8 crops) against "
+        f"{med['float32']:.3f} ms with float32 crops "
+        f"({med['default'] - med['float32']:+.3f} ms) in this call "
+        f"(runs float32, default, float32); K7 under torch.profiler: "
+        + "; ".join(f"{k}: {v[0]:.4f} ms in {v[1]:.0f} launches of "
+                    f"{v[2]:.3f} ms device time a {unit} (share "
+                    f"{v[0] / v[2]:.4f})" for k, v in shares.items())
+        + f"; {card}")
+    return med, shares
 
 
 def forget_counts(pipeline):
@@ -746,6 +838,12 @@ def drive(torch, pipeline, inputs, launches_of, force_at=None, gmc=None,
                      cache is not None and len(cache.keys()) > known))
         return out
 
+    # The patch goes again by deleting it: a bound method of the pipeline
+    # left in its own __dict__ is a reference cycle, which would leave the
+    # pipeline and its CUDA graphs to the cyclic garbage collector, and a
+    # graph destroyed while another is being captured invalidates that
+    # capture.
+    own = "_step" in vars(pipeline)
     pipeline._step = step
     rows = []
     try:
@@ -764,7 +862,10 @@ def drive(torch, pipeline, inputs, launches_of, force_at=None, gmc=None,
                              launches=launches_of() - before, tracks=tracks,
                              result=pipeline.last_result))
     finally:
-        pipeline._step = real_step
+        if own:
+            pipeline._step = real_step
+        else:
+            del pipeline._step
     return rows
 
 
@@ -775,6 +876,14 @@ def expected_launches(row, per_run=1, ran=lambda run: True):
 
     return per_run * sum(1 + WARMUP_CALLS * new
                          for rb, fb, new in row["runs"] if ran((rb, fb)))
+
+
+def k7_expected(rows):
+    """K7 launches the steps of ``rows`` stand for: a step run crops the
+    detector input, and the body and face crops of a non-zero bucket."""
+    return sum(expected_launches(dict(runs=[run]), 1 + (run[0] > 0)
+                                 + (run[1] > 0))
+               for r in rows for run in r["runs"])
 
 
 def steady_ms(rows):
@@ -839,10 +948,12 @@ def report_point(torch, label, unit, pipes, rows, frames_per_step, card,
 
 def phase_main(torch, bundle, assignment, assignment_cuda, card):
     """The loaded one-stream point, eager and replayed from CUDA graphs
-    over the same frames; returns K1's launches in the replayed run, the
-    nosync / async material and the eager run's cascade inputs."""
+    over the same frames, then its crops' cost (``crop_cost``); returns
+    K1's and K7's launches in the replayed run, the nosync / async material
+    and the eager run's cascade inputs."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
+    from botsort_tpu_torch.ops import crop
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -866,10 +977,14 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
                               lambda: cuda.launches, force_at=4, check=check)
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log("main: last eager frame's tracks with the plain solver equal K1's")
-    cuda.launches = cuda.batched_launches = 0
+    k7 = crop.crop_resize_cuda
+    cuda.launches = cuda.batched_launches = k7.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], frames,
                             lambda: cuda.launches, force_at=4, check=check)
-    main_launches = cuda.launches
+    main_launches, k7_launches = cuda.launches, k7.launches
+    if k7_launches != k7_expected(rows["graphed"]):
+        raise AssertionError(f"main: K7 launched {k7_launches} times, not "
+                             "once a step run and once a non-zero bucket")
     if cuda.batched_launches:
         raise AssertionError("the one-stream path launched K2")
     same_results(torch, host, rows["eager"], rows["graphed"],
@@ -901,15 +1016,28 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
         raise AssertionError("no live tracks on any frame")
     report_point(torch, "BoTSORTPipeline.update (loaded, one stream)",
                  "frame", pipes, rows, 1, card, frames[-1])
-    return main_launches, pipes["graphed"], frames[-1], cfgs, solver_rec.calls
+    staged = pipes["graphed"]._staging["frame"][1].dtype
+    if staged != torch.uint8:
+        raise AssertionError(f"main: the staged frames are {staged}")
+    log(f"main: K7 launches in the replayed run {k7_launches} (a step run's "
+        f"detector input, body and face crops; frames staged as {staged}, "
+        f"so {crop.crop_mode(cfgs[2], staged)} mode)")
+    crop_cost(torch, "loaded one-stream", "frame", pipes["graphed"],
+              lambda: host.BoTSORTPipeline(bundle, *cfgs[:2],
+                                       PipelineConfig(**FLOAT32_CROPS)),
+              frames, card)
+    return (main_launches, k7_launches, pipes["graphed"], frames[-1], cfgs,
+            solver_rec.calls)
 
 
 def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     """BatchedBoTSORTPipeline, 8 streams, moderate-16, eager and replayed
     over the same frames; returns K2's and K6's launches in the replayed
-    run, the replayed medians and the pipeline."""
+    run, the replayed medians and the pipeline; then the crops' cost
+    (``crop_cost``)."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
+    from botsort_tpu_torch.ops import crop
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -936,11 +1064,16 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log(f"multi: last eager step's tracks with the plain solver equal K2's "
         f"on all {STREAMS} streams")
-    cuda.launches = cuda.batched_launches = k6.launches = 0
+    k7 = crop.crop_resize_cuda
+    cuda.launches = cuda.batched_launches = k6.launches = k7.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], steps,
                             lambda: cuda.batched_launches, force_at=4,
                             check=check)
     k2_launches, k6_launches = cuda.batched_launches, k6.launches
+    k7_launches = k7.launches
+    if k7_launches != k7_expected(rows["graphed"]):
+        raise AssertionError(f"multi: K7 launched {k7_launches} times, not "
+                             "once a step run and once a non-zero bucket")
     if cuda.launches:
         raise AssertionError("the 8-stream path launched one-stream K1")
     same_results(torch, host, rows["eager"], rows["graphed"],
@@ -974,8 +1107,14 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     point = report_point(
         torch, f"BatchedBoTSORTPipeline.update ({STREAMS} streams, "
         "moderate-16)", "step", pipes, rows, STREAMS, card, steps[-1])
-    return (k2_launches, k6_launches, point["graphed"], pipes["graphed"],
-            steps[-1], cfgs)
+    log(f"multi: K7 launches in the replayed run {k7_launches}")
+    crop_cost(torch, f"{STREAMS} streams moderate-16", "step",
+              pipes["graphed"],
+              lambda: host.BatchedBoTSORTPipeline(
+                  bundle, STREAMS, *cfgs[:2], PipelineConfig(**FLOAT32_CROPS)),
+              steps, card)
+    return (k2_launches, k6_launches, k7_launches, point["graphed"],
+            pipes["graphed"], steps[-1], cfgs)
 
 
 def phase_nosync(torch, bundle, main_pipe, frame, cfgs, multi_pipe, frames):
@@ -1029,7 +1168,7 @@ def fixpoint_iterations(torch, bundle, frames_dev, cfgs):
     reports convergence (its last iteration changed nothing), found by
     trying counts outside any step."""
     from botsort_tpu_torch.ops import nms
-    from botsort_tpu_torch.ops.crop import crop_and_resize_batched
+    from botsort_tpu_torch.ops.crop import _crop
 
     _, nms_cfg, pipe_cfg = cfgs
     h, w = frames_dev.shape[1:3]
@@ -1037,8 +1176,8 @@ def fixpoint_iterations(torch, bundle, frames_dev, cfgs):
                         device=frames_dev.device).expand(
                             frames_dev.shape[0], 1, 4)
     with torch.no_grad():
-        boxes, scores = bundle.detector(crop_and_resize_batched(
-            frames_dev, full, pipe_cfg.detector_input_hw)[:, 0])
+        boxes, scores = bundle.detector(_crop(
+            frames_dev, full, pipe_cfg.detector_input_hw, pipe_cfg)[:, 0])
         for k in range(1, nms_cfg.pre_nms_top_k + 1):
             dets = nms.multiclass_nms_dense_batched(
                 boxes, scores, nms_cfg.iou_threshold,
@@ -1098,6 +1237,7 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     run."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
+    from botsort_tpu_torch.ops import crop
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track.state import empty_stores
@@ -1115,8 +1255,8 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     gmc[..., :, 2] += rng.uniform(-8, 8, gmc.shape[:-2] + (2,))
     scale = 1.0 + rng.uniform(-0.02, 0.02, gmc.shape[:-2])
     gmc[..., 0, 0] = gmc[..., 1, 1] = scale
-    cuda = assignment_cuda.cascade_solve_cuda
-    cuda.launches = cuda.batched_launches = 0
+    cuda, k7 = assignment_cuda.cascade_solve_cuda, crop.crop_resize_cuda
+    cuda.launches = cuda.batched_launches = k7.launches = 0
 
     def check(res):
         if res.det_boxes.shape[:2] != (STREAMS, t_batch):
@@ -1127,7 +1267,11 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
 
     rows = drive(torch, pipe, groups, lambda: cuda.batched_launches,
                  force_at=3, gmc=gmc, check=check)
-    k2_temporal = cuda.batched_launches
+    k2_temporal, k7_temporal = cuda.batched_launches, k7.launches
+    if k7_temporal != k7_expected(rows):
+        raise AssertionError(f"temporal: K7 launched {k7_temporal} times, "
+                             "not once a step run and once a non-zero "
+                             "bucket")
     for i, r in enumerate(rows):
         if r["launches"] != expected_launches(r, per_run=t_batch):
             raise AssertionError(
@@ -1185,7 +1329,7 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
         f"{[round(r['ms'], 3) for r in rows]}), {fps:.2f} frames/s; the "
         f"{STREAMS}-stream step of this call: {batched_point[0]:.3f} ms, "
         f"{batched_point[1]:.2f} frames/s; {card}")
-    return k2_temporal
+    return k2_temporal, k7_temporal
 
 
 def phase_checkpoint(torch, assets, bundle):
@@ -1251,17 +1395,19 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
     loaded one-stream point (K1) and load_batched_pipeline at 8 streams,
     moderate-16 (K2). Over 8 seeded frames every FrameResult field and the
     final stores equal the live facade's, replayed from graphs at the same
-    bucket set; the full NMS program equals the live step's; K1/K2 and K6
-    are counted on replay, K6 as often as in the live run."""
+    bucket set; the full NMS program equals the live step's; K1/K2, K6 and
+    K7 are counted on replay, K6 and K7 as often as in the live run."""
     import shutil
     import tempfile
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
+    from botsort_tpu_torch.ops import crop
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.runtime import exported
 
     cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    k7 = crop.crop_resize_cuda
     tmp = tempfile.mkdtemp(prefix="botsort_export_")
     points = (("one stream, loaded", 0, loaded_cfg(TrackerConfig), 0),
               (f"{STREAMS} streams, moderate-16", STREAMS,
@@ -1290,7 +1436,8 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
                               e["nms_iters"]).graph.nodes
                           if "botsort_tpu_torch" in str(n.target)})
             want_ops = ["botsort_tpu_torch.bn_act.default",
-                        "botsort_tpu_torch.cascade_solve.default"]
+                        "botsort_tpu_torch.cascade_solve.default",
+                        "botsort_tpu_torch.crop_resize.default"]
             if ops != want_ops:
                 raise AssertionError(f"export: the graph calls {ops}")
             if streams:
@@ -1311,11 +1458,12 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             rng = np.random.default_rng(seed)
             frames = [rng.integers(0, 255, shape, dtype=np.uint8)
                       for _ in range(8)]
-            rows, k6_runs = {}, {}
+            rows, k6_runs, k7_runs = {}, {}, {}
             for mode, pipe in (("live", live), ("loaded", loaded)):
                 cuda.launches = cuda.batched_launches = k6.launches = 0
+                k7.launches = 0
                 rows[mode] = drive(torch, pipe, frames, launches_of)
-                k6_runs[mode] = k6.launches
+                k6_runs[mode], k7_runs[mode] = k6.launches, k7.launches
                 if other():
                     raise AssertionError(f"export {mode}: the other "
                                          "solver kernel launched")
@@ -1333,6 +1481,9 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             if k6_runs["loaded"] != k6_runs["live"] or \
                     k6_runs["loaded"] < len(frames):
                 raise AssertionError(f"export ({label}): K6 {k6_runs}")
+            if k7_runs["loaded"] != k7_runs["live"] or k7_runs["loaded"] != \
+                    k7_expected(rows["loaded"]):
+                raise AssertionError(f"export ({label}): K7 {k7_runs}")
             # The full NMS program (the facades' re-run) on the last
             # frames, from the final stores, against the live step's.
             dev = bundle.device
@@ -1359,11 +1510,13 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
                 f"program's step equals the live one's; solver launches "
                 f"{kernel_launches} over runs "
                 f"{[r['runs'] for r in rows['loaded']]}, K6 launches "
-                f"{k6_runs['loaded']} (live {k6_runs['live']})")
+                f"{k6_runs['loaded']} (live {k6_runs['live']}), K7 launches "
+                f"{k7_runs['loaded']} (live {k7_runs['live']})")
             log(f"timing: export ({label}): replayed median live "
                 f"{med['live']:.3f} ms, loaded {med['loaded']:.3f} ms a "
                 f"step in this call; {card}")
             del live, loaded, programs
+            gc.collect()  # before the next point's captures (``drive``)
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1525,15 +1678,17 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
     each routed through its custom op, as a trace is (their ``tracing``
     patched to say so), in the order direct, op, op, direct. Every
     FrameResult field, the final stores and the K1 and K6 launches are
-    equal across the runs; prints each run's median and the two routes'
-    (the dispatcher's host cost on the eager step)."""
+    equal across the runs, K7's too; prints each run's median and the two
+    routes' (the dispatcher's host cost on the eager step)."""
     import contextlib
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
+    from botsort_tpu_torch.ops import crop
     from botsort_tpu_torch.pipeline import host
 
     cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
+    k7 = crop.crop_resize_cuda
     cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
@@ -1547,30 +1702,34 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
                     stack.enter_context(
                         mock.patch.object(m, "tracing", lambda: True))
             cuda.launches = cuda.batched_launches = k6.launches = 0
+            k7.launches = 0
             rows = drive(torch, pipe, frames, lambda: cuda.launches)
         runs.append((route, rows, pipe.store,
-                     (cuda.launches, cuda.batched_launches, k6.launches)))
+                     (cuda.launches, cuda.batched_launches, k6.launches,
+                      k7.launches)))
     _, rows0, store0, launches0 = runs[0]
     for route, rows, store, launches in runs[1:]:
         same_results(torch, host, rows0, rows, store0, store,
                      f"oproute: the {route} route's run differs")
         if launches != launches0:
-            raise AssertionError(f"oproute: launches (K1, K2, K6) "
+            raise AssertionError(f"oproute: launches (K1, K2, K6, K7) "
                                  f"{launches} against {launches0}")
-    if launches0[0] < len(frames) or launches0[1] or launches0[2] < 1:
-        raise AssertionError(f"oproute: launches (K1, K2, K6) {launches0}")
+    if launches0[0] < len(frames) or launches0[1] or launches0[2] < 1 or \
+            launches0[3] < len(frames):
+        raise AssertionError(f"oproute: launches (K1, K2, K6, K7) "
+                             f"{launches0}")
     med = {}
     for route, rows, _, _ in runs:
         med.setdefault(route, []).extend(steady_ms(rows))
     each = [(route, round(statistics.median(steady_ms(rows)), 3))
             for route, rows, _, _ in runs]
     d, o = (statistics.median(med[r]) for r in ("direct", "op"))
-    calls = (launches0[0] + launches0[2]) / len(frames)
+    calls = (launches0[0] + launches0[2] + launches0[3]) / len(frames)
     log(f"oproute: {len(frames)} eager frames at the loaded one-stream "
         f"point, kernels called directly and through torch.ops."
         f"botsort_tpu_torch, runs in the order direct, op, op, direct: "
         f"every FrameResult field, the final stores and the launches equal "
-        f"(K1, K2, K6 per run: {launches0})")
+        f"(K1, K2, K6, K7 per run: {launches0})")
     log(f"timing: oproute: eager one-stream step median {d:.3f} ms direct, "
         f"{o:.3f} ms through the custom ops ({o - d:+.3f} ms, "
         f"{1e3 * (o - d) / calls:+.1f} us a kernel call over {calls:.1f} "
@@ -1723,6 +1882,118 @@ def phase_k6(torch, F, bn_act, bundle, multi_pipe, frames, cfgs, card):
         f"{card}")
     return max_err, (totals["ms"], totals["plain"], b_ms, b_by,
                      totals["lib"])
+
+
+def k7_boxes(torch, rng, b, n, hw, dev):
+    """[b, n, 4] boxes on 1080p frames: at n == 1 the full frame (the
+    detector input); else full-frame, edge-clamped, one pixel wide and
+    high, degenerate, and random ones of person-like sizes."""
+    h, w = hw
+    if n == 1:
+        return torch.tensor([0.0, 0.0, float(w), float(h)],
+                            device=dev).expand(b, 1, 4).contiguous()
+    fixed = [[0, 0, w, h], [w - 37, 5, w, 290], [3, h - 140, 70, h],
+             [w - 60, h - 90, w, h], [5, 7, 6, 160], [9, 3, 280, 4],
+             [0, 0, 0, 0], [40, 50, 40.5, 190], [w - 1, h - 1, w, h]]
+    out = []
+    for _ in range(b):
+        rows = list(fixed)
+        while len(rows) < n:
+            bw, bh = rng.integers(8, w // 4), rng.integers(16, h // 2)
+            x1, y1 = rng.integers(0, w - bw), rng.integers(0, h - bh)
+            rows.append([x1, y1, x1 + bw, y1 + bh])
+        out.append(rows[:n])
+    return torch.tensor(out, dtype=torch.float32, device=dev)
+
+
+def k7_library(torch, F, crop, frames, boxes, out_hw):
+    """One PyTorch call that computes a bilinear crop-resize of the same
+    frames and boxes (K7's yardstick; nothing in the port calls it):
+    F.interpolate for the full-frame resize, F.grid_sample over the boxes'
+    sample grids for the crops, on float32 NCHW frames."""
+    b, n = boxes.shape[:2]
+    x = frames.permute(0, 3, 1, 2).float().contiguous()
+    if n == 1:
+        return lambda: F.interpolate(x, size=out_hw, mode="bilinear",
+                                     align_corners=False, antialias=False)
+    h, w = frames.shape[1:3]
+    y0, x0, _, _, wy, wx, _ = crop._sample_grid((h, w), boxes, out_hw)
+    gy = (2.0 * (y0 + wy) + 1.0) / h - 1.0              # [b, n, oh]
+    gx = (2.0 * (x0 + wx) + 1.0) / w - 1.0              # [b, n, ow]
+    grid = torch.stack(torch.broadcast_tensors(
+        gx[..., None, :], gy[..., :, None]), -1).flatten(0, 1)
+    xs = x.repeat_interleave(n, dim=0)
+    return lambda: F.grid_sample(xs, grid, mode="bilinear",
+                                 padding_mode="border", align_corners=False)
+
+
+def phase_k7(torch, F, crop, dev, card):
+    """K7 against crop_resize_plain on the card in its three modes at the
+    main paths' shapes (K7_CASES): bit for bit, with edge-clamped, one
+    pixel and degenerate boxes; then its time (CUDA events and a CUDA
+    graph) in each mode, the plain version's and one PyTorch call's
+    (``k7_library``) in int8 mode, beside its bound. Returns (max abs
+    error, (ms, plain ms, bound ms, bound by, library ms)) of the three
+    crops of one loaded one-stream frame in int8 mode (the default's)."""
+    rng = np.random.default_rng(77)
+    gen = torch.Generator(device=dev).manual_seed(77)
+    frames8 = torch.randint(0, 256, (STREAMS,) + FRAME_HW + (3,),
+                            generator=gen, device=dev, dtype=torch.uint8)
+    max_err = 0.0
+    one = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, flops=0)
+    for label, b, n, out_hw in K7_CASES:
+        frames = frames8[:b]
+        boxes = k7_boxes(torch, rng, b, n, FRAME_HW, dev)
+        times = {}
+        for mode in crop.MODES:
+            got = crop.crop_resize_cuda(frames, boxes, out_hw, mode)
+            want = crop.crop_resize_plain(frames, boxes, out_hw, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K7 != plain, {label} B={b} N={n} {mode}: "
+                    f"{int((got != want).sum())} elements differ")
+            max_err = max(max_err, float((got - want).abs().max()))
+            del got, want
+            run = lambda m=mode: crop.crop_resize_cuda(  # noqa: E731
+                frames, boxes, out_hw, m)
+            times[mode] = (event_ms(torch, run, 10),
+                           graph_ms(torch, run, 10, 5))
+        plain = event_ms(torch, lambda: crop.crop_resize_plain(
+            frames, boxes, out_hw, "int8"), 3)
+        # The yardstick at one frame only: grid_sample needs the frame once
+        # per box (10 GB at 8 frames of 50 boxes).
+        lib = event_ms(torch, k7_library(torch, F, crop, frames, boxes,
+                                         out_hw), 10) if b == 1 else None
+        torch.cuda.empty_cache()
+        pixels = b * n * out_hw[0] * out_hw[1]
+        # One read of the frames and the boxes, one write of the float32
+        # output; about 60 operations an output pixel (its grid and three
+        # channels).
+        nbytes = frames.numel() + 16 * b * n + 12 * pixels
+        flops = 60 * pixels
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        log(f"timing: K7 {label}, B={b} N={n} -> {out_hw[0]}x{out_hw[1]}: "
+            + ", ".join(f"{m} {t[0]:.4f} ms eager, {t[1]:.4f} ms graph"
+                        for m, t in times.items())
+            + f"; plain (int8) {plain:.4f} ms; library "
+            f"{'not measured' if lib is None else f'{lib:.4f} ms'}; bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB: int8 graph "
+            f"{nbytes / times['int8'][1] / 1e9:.3f} TB/s); {card}")
+        if b == 1:
+            one["ms"] += times["int8"][0]
+            one["plain"] += plain
+            one["lib"] += lib
+            one["bytes"] += nbytes
+            one["flops"] += flops
+    log(f"K7: {len(K7_CASES)} shapes x {len(crop.MODES)} modes equal to the "
+        f"plain version bit for bit (max abs error {max_err})")
+    b_ms, b_by = bound(one["bytes"], one["flops"], F32_FLOPS)
+    log(f"timing: K7 over the three crops of one loaded one-stream frame "
+        f"(int8): kernel {one['ms']:.4f} ms, plain {one['plain']:.4f} ms, "
+        f"library {one['lib']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+        f"{card}")
+    return max_err, (one["ms"], one["plain"], b_ms, b_by, one["lib"])
 
 
 def phase_k5(torch, facereid_dw, dev):
@@ -2456,7 +2727,7 @@ def phase_int8(torch, bundle, assignment_cuda, bn_act, card):
                                           TrackerConfig)
     from botsort_tpu_torch.models import quantize
     from botsort_tpu_torch.models.fastreid import preprocess
-    from botsort_tpu_torch.ops.crop import crop_and_resize_batched
+    from botsort_tpu_torch.ops.crop import _crop
     from botsort_tpu_torch.pipeline import host
 
     nms_cfg, pipe_cfg = NMSConfig(), PipelineConfig()
@@ -2493,8 +2764,8 @@ def phase_int8(torch, bundle, assignment_cuda, bn_act, card):
     tlbr = torch.from_numpy(res.det_boxes[0][valid]).to(bundle.device)[None]
     frame = torch.from_numpy(frames[-1]).to(bundle.device)[None]
     with torch.no_grad():
-        crops = preprocess(crop_and_resize_batched(
-            frame, tlbr, pipe_cfg.body_reid_input_hw).flatten(0, 1))
+        crops = preprocess(_crop(
+            frame, tlbr, pipe_cfg.body_reid_input_hw, pipe_cfg).flatten(0, 1))
         f_bf16 = bundle.body_encoder(crops).float()
         f_int8 = qbundle.body_encoder(crops).float()
         cos = (f_bf16 * f_int8).sum(-1)
@@ -2613,7 +2884,7 @@ def main() -> int:
     from botsort_tpu_torch.models import (bn_act, facereid_dw, fastreid,
                                           fastreid_fused)
     from botsort_tpu_torch.models.common import cast_compute
-    from botsort_tpu_torch.ops import assignment, assignment_cuda
+    from botsort_tpu_torch.ops import assignment, assignment_cuda, crop
     from botsort_tpu_torch.runtime import assets, kernels
 
     dev = torch.device("cuda", 0)
@@ -2631,6 +2902,9 @@ def main() -> int:
     def done(phase):
         nonlocal t0
         seconds[phase] = round(time.perf_counter() - t0, 1)
+        # Collect cyclic garbage between phases, where no graph is being
+        # captured (see ``drive``).
+        gc.collect()
         t0 = time.perf_counter()
 
     kernels.load_all()
@@ -2659,10 +2933,11 @@ def main() -> int:
                    for p in m.parameters())
     log(f"bundle: full width, bfloat16, {n_params} parameters")
     done("bundle")
-    k1_launches, main_pipe, main_frame, main_cfgs, main_cascades = \
-        phase_main(torch, bundle, assignment, assignment_cuda, card)
+    (k1_launches, k7_launches, main_pipe, main_frame, main_cfgs,
+     main_cascades) = phase_main(torch, bundle, assignment, assignment_cuda,
+                                 card)
     done("main")
-    (k2_launches, k6_launches, unlowered, multi_pipe, multi_frames,
+    (k2_launches, k6_launches, k7_multi, unlowered, multi_pipe, multi_frames,
      multi_cfgs) = phase_multi(torch, bundle, assignment, assignment_cuda,
                                bn_act, card)
     done("multi")
@@ -2676,8 +2951,10 @@ def main() -> int:
     done("K6")
     del main_pipe, multi_pipe  # their graphs and the graphs' memory pools
     torch.cuda.empty_cache()
-    k2_temporal = phase_temporal(torch, bundle, assignment_cuda, card,
-                                 unlowered)
+    k7_err, k7_times = phase_k7(torch, F, crop, dev, card)
+    done("K7")
+    k2_temporal, k7_temporal = phase_temporal(torch, bundle, assignment_cuda,
+                                              card, unlowered)
     done("temporal")
     phase_checkpoint(torch, assets, bundle)
     done("checkpoint")
@@ -2698,6 +2975,7 @@ def main() -> int:
     times.update(phase_encoder_timing(torch, F, fastreid_fused, facereid_dw,
                                       k4_model, face_inputs, card))
     times["K6"] = k6_times
+    times["K7"] = k7_times
     done("timings")
     phase_export(torch, bundle, assignment_cuda, bn_act, card)
     done("export")
@@ -2706,7 +2984,8 @@ def main() -> int:
     phase_store(torch, bundle)
     done("store")
     phase_oproute(torch, bundle, assignment_cuda, bn_act,
-                  (assignment, bn_act, facereid_dw, fastreid_fused), card)
+                  (assignment, bn_act, crop, facereid_dw, fastreid_fused),
+                  card)
     done("oproute")
     torch.cuda.empty_cache()
     k6b_launches, train_norms = phase_train(torch, bn_act, assets,
@@ -2724,6 +3003,8 @@ def main() -> int:
     phase_envelope(torch, bundle, card)
     done("envelope")
     log(f"temporal: K2 launches on the temporal path {k2_temporal}")
+    log(f"K7: launches on the main path {k7_launches}, the {STREAMS}-stream "
+        f"path {k7_multi}, the temporal path {k7_temporal}")
     log(f"phases (s): {json.dumps(seconds)}, total "
         f"{sum(seconds.values()):.1f}")
     log(card)
@@ -2749,6 +3030,8 @@ def main() -> int:
         entry("bn_act", K6_SOURCE, K6_REPLACES, k6_launches, k6_err, "K6"),
         entry("bn_act_backward", K6B_SOURCE, K6B_REPLACES, k6b_launches,
               k6b_err, "K6b"),
+        entry("crop_resize", K7_SOURCE, K7_REPLACES, k7_launches, k7_err,
+              "K7"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Kernels K1-K6 on the card, against their plain PyTorch versions, and
+"""Kernels K1-K7 on the card, against their plain PyTorch versions, and
 the frame step replayed from a CUDA graph against the eager step.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card
@@ -10,6 +10,9 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 """
 
+import dataclasses
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -18,10 +21,11 @@ from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
 from botsort_tpu_torch.models import bn_act, facereid, facereid_dw, fastreid
 from botsort_tpu_torch.models import fastreid_fused
 from botsort_tpu_torch.models.common import cast_compute
-from botsort_tpu_torch.ops import assignment, assignment_cuda
+from botsort_tpu_torch.ops import assignment, assignment_cuda, crop
 from botsort_tpu_torch.pipeline import frame_step as fs
 from botsort_tpu_torch.pipeline import host
 from botsort_tpu_torch.runtime import assets, kernels
+from botsort_tpu_torch.track.state import empty_stores
 
 pytestmark = pytest.mark.cuda
 
@@ -610,6 +614,91 @@ def test_k6b_refuses_what_it_does_not_take(dev):
                                     bias)
 
 
+def _crop_case(rng, b, hw, n, dtype, dev):
+    """Seeded frames [b, H, W, 3] and boxes [b, n, 4]: full-frame,
+    edge-clamped, one pixel wide, degenerate and random."""
+    h, w = hw
+    frames = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    if dtype == torch.float32:
+        frames = (frames + rng.uniform(0, 1, frames.shape)).astype(np.float32)
+    fixed = [[0, 0, w, h], [w - 37, 5, w, 90], [3, h - 40, 70, h],
+             [5, 7, 6, 60], [0, 0, 0, 0], [10, 10, 10.5, 40],
+             [w - 1, h - 1, w, h]]
+    boxes = []
+    for _ in range(b):
+        rows = list(fixed)
+        while len(rows) < n:
+            x1, y1 = rng.integers(0, w - 2), rng.integers(0, h - 2)
+            rows.append([x1, y1, rng.integers(x1 + 1, w + 1),
+                         rng.integers(y1 + 1, h + 1)])
+        boxes.append(rows[:n])
+    return (torch.from_numpy(frames).to(dev),
+            torch.tensor(boxes, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("mode", crop.MODES)
+@pytest.mark.parametrize("b,hw,n,out_hw", [
+    (1, (1080, 1920), 1, (480, 640)),   # the detector input
+    (2, (1080, 1920), 50, (256, 128)),  # body crops
+    (2, (1080, 1920), 50, (128, 128)),  # face crops
+    (3, (37, 53), 9, (20, 30)),         # odd sizes, a partial last tile
+], ids=["det", "body", "face", "odd"])
+def test_k7_equals_plain(dev, mode, b, hw, n, out_hw):
+    """K7 bit for bit against its plain version on the card and on the
+    CPU (which the CPU tests hold to the JAX package)."""
+    rng = np.random.default_rng(b + n)
+    frames, boxes = _crop_case(rng, b, hw, max(n, 7), torch.uint8, dev)
+    before = crop.crop_resize_cuda.launches
+    got = crop.crop_resize(frames, boxes, out_hw, mode)
+    assert crop.crop_resize_cuda.launches == before + 1
+    want = crop.crop_resize_plain(frames, boxes, out_hw, mode)
+    torch.cuda.synchronize()
+    assert got.shape == (b, max(n, 7)) + out_hw + (3,)
+    assert torch.equal(got, want)
+    if b * max(n, 7) * out_hw[0] * out_hw[1] <= 2 ** 22:
+        assert torch.equal(got.cpu(), crop.crop_resize_plain(
+            frames.cpu(), boxes.cpu(), out_hw, mode))
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_k7_takes_float_frames(dev, mode):
+    rng = np.random.default_rng(4)
+    frames, boxes = _crop_case(rng, 2, (60, 80), 9, torch.float32, dev)
+    got = crop.crop_resize_cuda(frames, boxes, (32, 24), mode)
+    assert torch.equal(got, crop.crop_resize_plain(frames, boxes, (32, 24),
+                                                   mode))
+
+
+def test_k7_refuses_what_it_does_not_take(dev):
+    frames, boxes = _crop_case(np.random.default_rng(2), 1, (40, 50), 7,
+                               torch.uint8, dev)
+    with pytest.raises(ValueError):
+        crop.crop_resize_cuda(frames.cpu(), boxes.cpu(), (8, 8))
+    with pytest.raises(ValueError):
+        crop.crop_resize_cuda(frames.float(), boxes, (8, 8), "int8")
+    with pytest.raises(ValueError):
+        crop.crop_resize_cuda(frames.half(), boxes, (8, 8))
+    with pytest.raises(ValueError):
+        crop.crop_resize_cuda(frames.transpose(1, 2), boxes, (8, 8))
+    with pytest.raises(ValueError):
+        crop.crop_resize_cuda(frames, boxes[:, :, :3], (8, 8))
+    with pytest.raises(ValueError):
+        crop.crop_resize_cuda(frames, boxes, (8, 8), "float16")
+
+
+def test_k7_op_on_the_card_equals_its_cpu_implementation(dev):
+    """torch.ops.botsort_tpu_torch.crop_resize in each mode: the CUDA
+    implementation (the kernel, counted) equal to the CPU one."""
+    frames, boxes = _crop_case(np.random.default_rng(6), 2, (90, 120), 9,
+                               torch.uint8, "cpu")
+    for mode in crop.MODES:
+        before = crop.crop_resize_cuda.launches
+        got, want = _op_pair(torch.ops.botsort_tpu_torch.crop_resize,
+                             [frames, boxes, 48, 64, mode], dev)
+        assert crop.crop_resize_cuda.launches == before + 1
+        assert torch.equal(got.cpu(), want), mode
+
+
 def test_batchnorm_mul_cache_follows_the_statistics(dev):
     from botsort_tpu_torch.models.common import BatchNorm
 
@@ -660,6 +749,37 @@ def _same_result(a, b):
         assert np.array_equal(x, y), name
     for name, x, y in zip(a.tracks._fields, a.tracks, b.tracks):
         assert np.array_equal(x, y), f"tracks.{name}"
+
+
+@pytest.mark.parametrize("pipe_cfg", [
+    MINI_PIPE, dataclasses.replace(MINI_PIPE, compute_dtype="float32",
+                                   crop_int8=False)],
+    ids=["default", "float32"])
+def test_mini_step_crops_with_k7(dev, pipe_cfg):
+    """A step launches K7 three times (the detector input, the body and
+    the face crops), in the mode the configuration gives, and its crops
+    equal the plain version's on the same frames and boxes."""
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    frames = torch.from_numpy(_mini_frames(1, 2, 3)[0]).to(dev)
+    modes = []
+    real = crop.crop_resize
+
+    def checked(images, boxes, out_hw, mode="float32"):
+        out = real(images, boxes, out_hw, mode)
+        want = crop.crop_resize_plain(images, boxes, out_hw, mode)
+        assert torch.equal(out, want), (out_hw, mode)
+        modes.append(mode)
+        return out
+
+    before = crop.crop_resize_cuda.launches
+    with mock.patch.object(crop, "crop_resize", checked):
+        fs.frame_step_batched(bundle, empty_stores(MINI_TRK, 2, dev),
+                              frames, MINI_TRK, MINI_NMS, pipe_cfg, None, 8,
+                              8)
+    torch.cuda.synchronize()
+    assert crop.crop_resize_cuda.launches - before == 3
+    assert modes == [crop.crop_mode(pipe_cfg, torch.uint8)] * 3
 
 
 @pytest.mark.parametrize("streams", [1, 3])

@@ -5,9 +5,10 @@ the checked-in fixture traces and on seeded random traces: equal metrics,
 exactly (the same numpy/scipy arithmetic). ``cli/eval_trace.py -ep cpu
 --mini`` against the JAX ``eval_trace`` on one synthetic video with the
 same weights (the JAX package's orbax checkpoints, converted by
-tools/convert_orbax_to_torch.py), both in float32 and with the low
+tools/convert_orbax_to_torch.py), float32 networks with the low
 thresholds of tests/test_torch_pipeline.py so that the random weights make
-tracks: the same rows (frame, id, class, visibility) and boxes within
+tracks, the crops in float32 and at both packages' default (bfloat16, the
+int8 crop): the same rows (frame, id, class, visibility) and boxes within
 0.05 px, scores within 1e-3 (two libraries' float32 sums, printed to two
 and four decimals). ``-tb 2`` writes the same file as per-frame steps.
 """
@@ -109,22 +110,22 @@ def _rows(path):
 
 @pytest.fixture(scope="module")
 def traces(converted, tmp_path_factory):  # noqa: F811 (the fixture)
-    """(JAX trace, port trace, port trace with -tb 2) of one video."""
+    """(JAX trace, port trace, port trace with -tb 2) of one video, the
+    crops interpolated in float32; and the JAX and port traces at both
+    packages' default PipelineConfig (bfloat16, the int8 crop)."""
     _, weights = converted
     orbax = os.path.join(os.path.dirname(weights), "orbax")
     root = tmp_path_factory.mktemp("traces")
     video = _video(str(root / "in.mp4"))
-    out = {k: str(root / f"{k}.csv") for k in ("jax", "port", "port_tb2")}
+    out = {k: str(root / f"{k}.csv") for k in (
+        "jax", "port", "port_tb2", "jax_default", "port_default")}
     patches = pytest.MonkeyPatch()
     try:
-        # Both sides in float32 with low thresholds.
+        # Both sides with float32 networks and low thresholds.
         patches.setattr(jconfig, "TrackerConfig",
                         functools.partial(jconfig.TrackerConfig, **LOW))
         patches.setattr(jconfig, "NMSConfig",
                         functools.partial(jconfig.NMSConfig, **NMS_LOW))
-        patches.setattr(jconfig, "PipelineConfig", functools.partial(
-            jconfig.PipelineConfig, compute_dtype="float32",
-            crop_int8=False))
         patches.setattr(jassets, "build_bundle", functools.partial(
             jassets.build_bundle, dtype=jnp.float32))
         patches.setattr(tconfig, "TrackerConfig",
@@ -132,6 +133,16 @@ def traces(converted, tmp_path_factory):  # noqa: F811 (the fixture)
         patches.setattr(tconfig, "NMSConfig",
                         functools.partial(tconfig.NMSConfig, **NMS_LOW))
         common = ["-v", video, "--mini", "-dvw"]
+        assert j_eval_trace.main(common + ["--weights_dir", orbax, "-o",
+                                           out["jax_default"]]) == 0
+        assert t_eval_trace.main(common + ["--weights_dir", weights, "-ep",
+                                           "cpu", "-o",
+                                           out["port_default"]]) == 0
+        # And both sides' crops in float32.
+        for cfg in (jconfig, tconfig):
+            patches.setattr(cfg, "PipelineConfig", functools.partial(
+                cfg.PipelineConfig, compute_dtype="float32",
+                crop_int8=False))
         assert j_eval_trace.main(common + ["--weights_dir", orbax, "-o",
                                            out["jax"]]) == 0
         assert t_eval_trace.main(common + ["--weights_dir", weights, "-ep",
@@ -145,7 +156,17 @@ def traces(converted, tmp_path_factory):  # noqa: F811 (the fixture)
 
 
 def test_eval_trace_matches_the_jax_trace(traces):
-    want, got = _rows(traces["jax"]), _rows(traces["port"])
+    _same_trace(traces["jax"], traces["port"])
+
+
+def test_eval_trace_at_both_defaults_matches_the_jax_trace(traces):
+    _same_trace(traces["jax_default"], traces["port_default"])
+    # The default crops are not the float32 ones.
+    assert _rows(traces["port_default"]) != _rows(traces["port"])
+
+
+def _same_trace(want_path, got_path):
+    want, got = _rows(want_path), _rows(got_path)
     assert len(got) == len(want) and len(want) > 0
     for g, w in zip(got, want):
         assert g[:2] == w[:2] and g[7:] == w[7:], (g, w)

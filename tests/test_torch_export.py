@@ -149,16 +149,39 @@ def test_manifest_lists_both_nms_programs_and_the_field_layout(export_dir):
     assert len(io["constants"]) == n_norms
     assert manifest["outputs"]["result"] == list(
         tfs.FrameResult._fields[:-1])
+    # The crops' numerics (PipelineConfig's JAX defaults).
+    assert (manifest["pipe_cfg"]["compute_dtype"],
+            manifest["pipe_cfg"]["crop_int8"]) == ("bfloat16", True)
+    assert exported.manifest_configs(manifest)[2] == PIPE
     with open(os.path.join(out, exported.MANIFEST)) as f:
         assert json.load(f) == manifest
+
+
+def test_a_manifest_without_the_crop_fields_reads_as_float32(export_dir,
+                                                             tmp_path):
+    """Programs exported before the port read compute_dtype and crop_int8
+    interpolated in float32: such a manifest gives that configuration, and
+    the loaded facade carries it."""
+    out, bundle, manifest, _ = export_dir
+    old = json.loads(json.dumps(manifest))
+    for key in ("compute_dtype", "crop_int8"):
+        del old["pipe_cfg"][key]
+    pipe_cfg = exported.manifest_configs(old)[2]
+    assert (pipe_cfg.compute_dtype, pipe_cfg.crop_int8) == ("float32", False)
+    assert pipe_cfg == dataclasses.replace(PIPE, compute_dtype="float32",
+                                           crop_int8=False)
+    d = _edited_copy(out, str(tmp_path / "old"), lambda m: [
+        m["pipe_cfg"].pop(k) for k in ("compute_dtype", "crop_int8")])
+    assert exported.load_pipeline(d, bundle).pipe_cfg == pipe_cfg
 
 
 @pytest.mark.parametrize("nms_iters", [None, FULL], ids=["fixed", "full"])
 @pytest.mark.parametrize("streams", [0, 2])
 def test_programs_call_the_kernels_as_custom_ops(export_dir, programs,
                                                  streams, nms_iters):
-    """The loaded graph calls K1/K2 and K6 as torch.ops.botsort_tpu_torch
-    ops (one cascade solve, one norm per BatchNorm module), derives no
+    """The loaded graph calls K1/K2, K6 and K7 as torch.ops.botsort_tpu_torch
+    ops (one cascade solve, one norm per BatchNorm module, three crops:
+    the detector input, body and face, in int8 mode), derives no
     batch-norm constant and holds no weight."""
     _, bundle, _, _ = export_dir
     ep = programs.exported_program(streams, SRC_HW, BUCKET, BUCKET,
@@ -170,6 +193,9 @@ def test_programs_call_the_kernels_as_custom_ops(export_dir, programs,
                   for m in getattr(bundle, net).modules())
     assert targets.count("botsort_tpu_torch.bn_act.default") == n_norms
     assert not any("rsqrt" in t for t in targets)
+    crops = [n for n in ep.graph.nodes if str(n.target) ==
+             "botsort_tpu_torch.crop_resize.default"]
+    assert [n.args[-1] for n in crops] == ["int8"] * 3
     assert not ep.state_dict and ep.example_inputs is None
     # The constants are the step's few literals (means, limits, boxes).
     assert sum(v.numel() * v.element_size()

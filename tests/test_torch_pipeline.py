@@ -378,14 +378,11 @@ def test_package_never_imports_jax_and_main_path_not_cv2():
 @pytest.mark.parametrize("name", ["NMSConfig", "TrackerConfig",
                                   "PipelineConfig"])
 def test_port_config_matches_jax(name):
-    """The port's configuration carries the JAX package's fields and
-    defaults, less the TPU lowerings it does not read."""
+    """The port's configuration carries every field of the JAX package's,
+    with its default."""
     jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
     want = dataclasses.asdict(jcls())
     got = dataclasses.asdict(tcls())
-    tpu_only = {"compute_dtype", "crop_int8"} if name == "PipelineConfig" \
-        else set()
-    assert set(want) - set(got) == tpu_only
-    assert got == {k: v for k, v in want.items() if k not in tpu_only}
+    assert got == want
     if name == "TrackerConfig":
         assert tcls().max_time_lost == jcls().max_time_lost
