@@ -1,7 +1,7 @@
 """Export the frame step's programs (port of botsort_tpu/cli/export.py).
 
 Writes one ``torch.export`` program per (source resolution, host-dispatch
-bucket pair, NMS count) and a manifest (runtime/exported.py); with
+bucket pair) and a manifest (runtime/exported.py); with
 ``--streams S`` also the batched programs of S streams. A serving host
 loads them with ``runtime.exported.load_pipeline`` /
 ``load_batched_pipeline`` (cli/serve.py and cli/multitrack.py

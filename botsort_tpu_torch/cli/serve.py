@@ -209,7 +209,7 @@ def main(argv=None):
     parser.add_argument(
         "--warmup_hw", type=str, default="",
         help="HxW (e.g. 1080x1920) whose every bucket pair is captured "
-             "(both NMS programs) before the server accepts connections.")
+             "before the server accepts connections.")
     args = parser.parse_args(argv)
 
     factory, cache = build_pipeline_factory(args)
@@ -218,9 +218,8 @@ def main(argv=None):
 
         h, w = (int(v) for v in args.warmup_hw.split("x"))
         t0 = time.perf_counter()
-        for (b, fb, iters), dt in warm_up(factory(), (h, w)):
-            print(f"warmed {h}x{w} buckets ({b},{fb}) NMS "
-                  f"{iters or 'fixed'} in {dt:.3f} s")
+        for (b, fb), dt in warm_up(factory(), (h, w)):
+            print(f"warmed {h}x{w} buckets ({b},{fb}) in {dt:.3f} s")
         pool = (f", {torch.cuda.memory_reserved()} bytes reserved"
                 if cache is not None else "")
         print(f"warmed {h}x{w} in {time.perf_counter() - t0:.3f} s{pool}")

@@ -7,9 +7,9 @@ libraries, built once per source into build/ and kept across processes
 captures for itself (pipeline/graphed.py; cli/serve.py ``--warmup_hw``
 captures them before it serves). This command builds every kernel
 (``kernels.load_all``), then runs and captures the step of every
-(resolution, bucket pair) a facade can pick, with both NMS programs,
-printing the time of each and the memory the card holds reserved
-afterwards. With ``-ep cpu`` it runs each step eagerly once.
+(resolution, bucket pair) a facade can pick, printing the time of each
+and the memory the card holds reserved afterwards. With ``-ep cpu`` it
+runs each step eagerly once.
 
 Run: python -m botsort_tpu_torch.cli.warmup --resolutions 1080x1920 \\
          [-ep cuda] [--mini]
@@ -72,9 +72,8 @@ def main(argv=None):
     verb = "captured" if pipeline._graphs is not None else "ran"
     for res in args.resolutions:
         h, w = (int(v) for v in res.split("x"))
-        for (b, fb, iters), dt in warm_up(pipeline, (h, w)):
-            print(f"{verb} {h}x{w} buckets ({b},{fb}) NMS "
-                  f"{iters or 'fixed'} in {dt:.3f} s")
+        for (b, fb), dt in warm_up(pipeline, (h, w)):
+            print(f"{verb} {h}x{w} buckets ({b},{fb}) in {dt:.3f} s")
     if device.type == "cuda":
         print(f"graph pool: {torch.cuda.memory_reserved(device)} bytes "
               f"reserved, {torch.cuda.max_memory_reserved(device)} at most")

@@ -101,7 +101,7 @@ def make_multi_stream_step(mesh: Sequence[torch.device],
     """Build the multi-device step.
 
     Returned fn: (replicas, stores, frames [S, H, W, 3], reid_bucket=None,
-    face_bucket=None, nms_iters=None) -> (stores, FrameResult with the
+    face_bucket=None) -> (stores, FrameResult with the
     leading stream dim on ``mesh[0]``). ``replicas`` is
     ``replicate_bundle(bundle, mesh)`` (JAX passes the bundle, which jit
     replicates; here the copies are made once by the caller), ``stores``
@@ -110,14 +110,13 @@ def make_multi_stream_step(mesh: Sequence[torch.device],
     before any result is gathered."""
     mesh = tuple(torch.device(d) for d in mesh)
 
-    def step(replicas, stores, frames, reid_bucket=None, face_bucket=None,
-             nms_iters=None):
+    def step(replicas, stores, frames, reid_bucket=None, face_bucket=None):
         per = split_streams(frames.shape[0], mesh)
         out = [frame_step_batched(
             replicas[k], stores[k],
             frames[k * per:(k + 1) * per].to(dev, non_blocking=True),
             tracker_cfg, nms_cfg, pipe_cfg, None, reid_bucket=reid_bucket,
-            face_bucket=face_bucket, nms_iters=nms_iters)
+            face_bucket=face_bucket)
             for k, dev in enumerate(mesh)]
         return ([s for s, _ in out],
                 gather_results([r for _, r in out], mesh[0]))

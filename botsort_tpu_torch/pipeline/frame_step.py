@@ -14,11 +14,14 @@ All per-frame shapes are fixed (padded slots + masks), as in the JAX
 package. Between the frames coming in and the FrameResult going out a
 step only enqueues work on the device: no stage reads a value back (the
 JAX package's step is one jitted program), so a step can be captured in a
-CUDA graph and replayed (pipeline/graphed.py). The ReID encoders run at a static
-bucket: the first ``bucket`` body slots of every stream are embedded and
-the rest are zeros, which is exact whenever the bucket covers each
-stream's live detections (the host facades guarantee that by re-running a
-step that overflows its bucket).
+CUDA graph and replayed (pipeline/graphed.py). The ReID encoders run at a
+static bucket: the first ``bucket`` body slots of every stream are
+embedded and the rest are zeros, which is exact whenever the bucket covers
+each stream's live detections (the host facades guarantee that by
+re-running a step that overflows its bucket); or, with None buckets
+(``PipelineConfig.host_bucket_dispatch=False``), at the bucket the live
+count picks on the device, as the JAX package's ``lax.switch`` does
+(pipeline/switch.py: conditional graph nodes on the card).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +40,7 @@ from botsort_tpu_torch.models.yolox import YOLOX
 from botsort_tpu_torch.ops import hierarchy, nms
 from botsort_tpu_torch.ops.crop import _crop
 from botsort_tpu_torch.ops.crop import crop_and_resize  # noqa: F401
+from botsort_tpu_torch.pipeline import switch
 from botsort_tpu_torch.track.cascade import (
     TrackOutputs,
     tracker_update_batched,
@@ -59,8 +64,8 @@ class FrameResult(NamedTuple):
     hand1_for_body: torch.Tensor  # [K] int32
     hand2_for_body: torch.Tensor  # [K] int32
     nms_clipped: torch.Tensor    # [C] bool — NMS pre-top-k saturated
-    # [] bool — the NMS fixpoint was reached within its fixed iteration
-    # count (ops/nms.py); the host re-runs a frame where it was not.
+    # [] bool — the NMS fixpoint was reached: always, since it runs to its
+    # end (ops/nms.py); kept for the packed layout.
     nms_converged: torch.Tensor
     tracks: TrackOutputs
 
@@ -116,22 +121,48 @@ def _encode_bucket(encode: Callable[[torch.Tensor], torch.Tensor],
     return F.pad(encode(tlbr[:, :b]).float(), (0, 0, 0, dp - b))
 
 
+def _encode_switch(encode, tlbr: torch.Tensor, n_live: torch.Tensor,
+                   chunk: int, out_dim: int) -> torch.Tensor:
+    """The JAX ``_encode_chunked_axis1`` without a static bucket: tlbr
+    [B, Dp, 4]; the live count n_live (int32 [], on the device) picks no
+    crop, the first ``chunk`` slots of every frame or all Dp
+    (pipeline/switch.py); the slots beyond the taken branch are zeros."""
+    bsz, dp = tlbr.shape[0], tlbr.shape[1]
+    out = torch.zeros((bsz, dp, out_dim), dtype=torch.float32,
+                      device=tlbr.device)
+    switch.bucket_switch(n_live, switch.bucket_branches(encode, dp, chunk),
+                         (tlbr,), out)
+    return out
+
+
 def _encode_faces(encode, face_tlbr: torch.Tensor, has_face: torch.Tensor,
-                  bucket: int, out_dim: int) -> torch.Tensor:
+                  bucket: Optional[int], out_dim: int,
+                  n_live: Optional[torch.Tensor] = None,
+                  chunk: int = 0) -> torch.Tensor:
     """Face embeddings with real-face compaction, per frame of [B, Dp]:
     real faces sort to a prefix so the bucket tracks the face count (one
     bucket for all frames, sized by the largest face count); every
     faceless body gets encoder(zero crop), read from its frame's first
     zero-crop slot in the bucket (exact iff bucket >= faces + 1 when a
-    faceless live body exists)."""
+    faceless live body exists). ``bucket`` None: the in-program switch on
+    the largest face count + 1 (0 where ``n_live``, the live body count,
+    is 0), as the JAX ``_encode_faces_axis1``."""
     dp = face_tlbr.shape[1]
     order = torch.argsort((~has_face).to(torch.int32), dim=1, stable=True)
     inv = torch.argsort(order, dim=1)
     n_face = has_face.sum(dim=1)                                  # [B]
     sorted_tlbr = torch.gather(face_tlbr, 1,
                                order[..., None].expand(-1, -1, 4))
-    feats = _encode_bucket(encode, sorted_tlbr, bucket, out_dim)
-    zcap = max(min(bucket, dp) - 1, 0)
+    if bucket is None:
+        # +1 keeps one zero-crop slot (the encoder(0) source) inside the
+        # taken branch; no live body, no crop.
+        n_eff = torch.where(n_live > 0, n_face.max() + 1,
+                            torch.zeros_like(n_face[0])).to(torch.int32)
+        feats = _encode_switch(encode, sorted_tlbr, n_eff, chunk, out_dim)
+        zcap = dp - 1
+    else:
+        feats = _encode_bucket(encode, sorted_tlbr, bucket, out_dim)
+        zcap = max(min(bucket, dp) - 1, 0)
     frame = torch.arange(feats.shape[0], device=feats.device)
     zero_feat = feats[frame, torch.clamp(n_face, max=zcap)]       # [B, out]
     live = torch.arange(dp, device=feats.device) < n_face[:, None]
@@ -166,20 +197,18 @@ def postprocess_detections_batched(cand_boxes: torch.Tensor,
                                    cand_scores: torch.Tensor, src_hw,
                                    tracker_cfg: TrackerConfig,
                                    nms_cfg: NMSConfig,
-                                   pipe_cfg: PipelineConfig,
-                                   nms_iters: Optional[int] = None):
+                                   pipe_cfg: PipelineConfig):
     """Candidates [B, A, 4] / [B, A, C] in detector-input pixels ->
     (Detections [B, ...], det_boxes [B, C, K, 4] in source pixels,
     det_valid [B, C, K]): class-aware NMS over all frames and classes at
-    once, the truncating rescale and the detector's score filter.
-    nms_iters: iterations of the suppression fixpoint (None = ops/nms.py's
-    FIXPOINT_ITERS)."""
+    once (the suppression fixpoint: kernel K8 on the card), the truncating
+    rescale and the detector's score filter."""
     dets = nms.multiclass_nms_dense_batched(
         cand_boxes, cand_scores,
         iou_threshold=nms_cfg.iou_threshold,
         score_threshold=nms_cfg.score_threshold,
         max_per_class=nms_cfg.max_boxes_per_class,
-        pre_nms_top_k=nms_cfg.pre_nms_top_k, iters=nms_iters)
+        pre_nms_top_k=nms_cfg.pre_nms_top_k)
     det_boxes = _rescale_to_source(dets.boxes, pipe_cfg.detector_input_hw,
                                    src_hw)
     det_valid = dets.valid & (dets.scores > tracker_cfg.det_score_threshold)
@@ -189,13 +218,12 @@ def postprocess_detections_batched(cand_boxes: torch.Tensor,
 def postprocess_detections(cand_boxes: torch.Tensor,
                            cand_scores: torch.Tensor, src_hw,
                            tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
-                           pipe_cfg: PipelineConfig,
-                           nms_iters: Optional[int] = None):
+                           pipe_cfg: PipelineConfig):
     """One frame: candidates [A, 4] / [A, C] -> (Detections, det_boxes
     [C, K, 4], det_valid [C, K])."""
     dets, det_boxes, det_valid = postprocess_detections_batched(
         cand_boxes[None], cand_scores[None], src_hw, tracker_cfg, nms_cfg,
-        pipe_cfg, nms_iters)
+        pipe_cfg)
     return _first(dets), det_boxes[0], det_valid[0]
 
 
@@ -230,12 +258,16 @@ def embed_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
                   det_boxes: torch.Tensor, face_for_head: torch.Tensor,
                   head_for_body: torch.Tensor, tracker_cfg: TrackerConfig,
                   nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
-                  reid_bucket: int, face_bucket: int
+                  reid_bucket: Optional[int], face_bucket: Optional[int],
+                  det_valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(body_feats [B, D, Db], face_feats [B, D, Df]) for the D tracker
     body slots of B frames: body crops through FastReID, and per body its
     head's face crop (an all-zero crop when it has none) through the face
-    encoder. Each encoder runs once, on the crops of all B frames."""
+    encoder. Each encoder runs once, on the crops of all B frames. A None
+    bucket switches on the device between no crop, ``max_reid_batch``
+    slots and the padded width (pipeline/switch.py), by the largest live
+    body count over the frames, which needs ``det_valid`` [B, C, K]."""
     d = _det_width(tracker_cfg, nms_cfg)
     r = pipe_cfg.max_reid_batch
     dp = -(-d // r) * r
@@ -248,10 +280,19 @@ def embed_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
             return feats.reshape(bsz, tlbr.shape[1], -1)
         return run
 
-    body_feats = _encode_bucket(
-        encoded(bundle.body_encoder, preprocess, pipe_cfg.body_reid_input_hw),
-        _pad_slots(det_boxes[:, BODIES], dp), reid_bucket,
-        tracker_cfg.body_feature_dim)[:, :d]
+    n_live = None
+    if reid_bucket is None or face_bucket is None:
+        n_live = det_valid[:, BODIES, :d].sum(dim=1).max().to(torch.int32)
+    encode_body = encoded(bundle.body_encoder, preprocess,
+                          pipe_cfg.body_reid_input_hw)
+    body_tlbr = _pad_slots(det_boxes[:, BODIES], dp)
+    if reid_bucket is None:
+        body_feats = _encode_switch(encode_body, body_tlbr, n_live, r,
+                                    tracker_cfg.body_feature_dim)
+    else:
+        body_feats = _encode_bucket(encode_body, body_tlbr, reid_bucket,
+                                    tracker_cfg.body_feature_dim)
+    body_feats = body_feats[:, :d]
 
     hb = _pad_slots(head_for_body, dp, fill=-1).long()
     fb = torch.where(hb >= 0,
@@ -264,21 +305,23 @@ def embed_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
     face_feats = _encode_faces(
         encoded(bundle.face_encoder, lambda x: x,
                 pipe_cfg.face_reid_input_hw),
-        face_tlbr, has_face, face_bucket,
-        tracker_cfg.face_feature_dim)[:, :d]
+        face_tlbr, has_face, face_bucket, tracker_cfg.face_feature_dim,
+        n_live, r)[:, :d]
     return body_feats, face_feats
 
 
 def embed(bundle: ModelBundle, frame_bgr: torch.Tensor,
           det_boxes: torch.Tensor, face_for_head: torch.Tensor,
           head_for_body: torch.Tensor, tracker_cfg: TrackerConfig,
-          nms_cfg: NMSConfig, pipe_cfg: PipelineConfig, reid_bucket: int,
-          face_bucket: int) -> Tuple[torch.Tensor, torch.Tensor]:
+          nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
+          reid_bucket: Optional[int], face_bucket: Optional[int],
+          det_valid: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame's (body_feats [D, Db], face_feats [D, Df])."""
     body, face = embed_batched(
         bundle, frame_bgr[None], det_boxes[None], face_for_head[None],
         head_for_body[None], tracker_cfg, nms_cfg, pipe_cfg, reid_bucket,
-        face_bucket)
+        face_bucket, None if det_valid is None else det_valid[None])
     return body[0], face[0]
 
 
@@ -299,16 +342,14 @@ class Perception(NamedTuple):
 def _perception_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
                         tracker_cfg: TrackerConfig, nms_cfg: NMSConfig,
                         pipe_cfg: PipelineConfig, reid_bucket: Optional[int],
-                        face_bucket: Optional[int],
-                        nms_iters: Optional[int]) -> Perception:
+                        face_bucket: Optional[int]) -> Perception:
     """The stages before the cascade, batched over the G frames of
     frames_bgr [G, H, W, 3]: resize, detector, NMS, hierarchy and both
-    encoders (the JAX package's ``_perception_batched``)."""
+    encoders (the JAX package's ``_perception_batched``). A None bucket is
+    the in-program switch on the largest live count over the G frames; a
+    None face bucket takes the body bucket, as in JAX."""
     g = frames_bgr.shape[0]
     src_hw = (frames_bgr.shape[1], frames_bgr.shape[2])
-    d = _det_width(tracker_cfg, nms_cfg)
-    if reid_bucket is None:
-        reid_bucket = d
     if face_bucket is None:
         face_bucket = reid_bucket
     full = const((0.0, 0.0, float(src_hw[1]), float(src_hw[0])),
@@ -317,13 +358,12 @@ def _perception_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
                    pipe_cfg)[:, 0]
     cand_boxes, cand_scores = bundle.detector(det_in)
     dets, det_boxes, det_valid = postprocess_detections_batched(
-        cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg,
-        nms_iters)
+        cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg)
     face_for_head, head_for_body, hand1_for_body, hand2_for_body = \
         attach_hierarchy_batched(det_boxes, det_valid)
     body_feats, face_feats = embed_batched(
         bundle, frames_bgr, det_boxes, face_for_head, head_for_body,
-        tracker_cfg, nms_cfg, pipe_cfg, reid_bucket, face_bucket)
+        tracker_cfg, nms_cfg, pipe_cfg, reid_bucket, face_bucket, det_valid)
     return Perception(dets, det_boxes, det_valid, face_for_head,
                       head_for_body, hand1_for_body, hand2_for_body,
                       body_feats, face_feats)
@@ -349,14 +389,37 @@ def _frame_result(p: Perception, tracks: TrackOutputs, shape=None
     )
 
 
+def switch_values(res: FrameResult, tracker_cfg: TrackerConfig,
+                  nms_cfg: NMSConfig, pipe_cfg: PipelineConfig
+                  ) -> Tuple[int, int]:
+    """The values of a None-bucket step's two switches, the body's then the
+    face's, recomputed on the host from its FrameResult (numpy arrays, any
+    leading frame dimensions) exactly as the step computed them on the
+    device: the largest live body count n_live, and the largest face count
+    over the padded slots plus one (0 where n_live is 0)."""
+    d = _det_width(tracker_cfg, nms_cfg)
+    r = pipe_cfg.max_reid_batch
+    dp = -(-d // r) * r
+    valid = np.asarray(res.det_valid)[..., BODIES, :d]
+    n_live = int(valid.sum(axis=-1).max())
+    hb = np.asarray(res.head_for_body)[..., :dp]
+    if hb.shape[-1] < dp:
+        hb = np.concatenate([hb, np.full(hb.shape[:-1] + (
+            dp - hb.shape[-1],), -1, hb.dtype)], axis=-1)
+    ffh = np.asarray(res.face_for_head)
+    fb = np.where(hb >= 0, np.take_along_axis(ffh, np.clip(hb, 0, None),
+                                              axis=-1), -1)
+    n_face = int((fb >= 0).sum(axis=-1).max())
+    return n_live, (n_face + 1 if n_live > 0 else 0)
+
+
 @torch.no_grad()
 def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
                        frames_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
                        nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                        gmc_affines: Optional[torch.Tensor] = None,
                        reid_bucket: Optional[int] = None,
-                       face_bucket: Optional[int] = None,
-                       nms_iters: Optional[int] = None
+                       face_bucket: Optional[int] = None
                        ) -> Tuple[TrackStore, FrameResult]:
     """B independent streams through one step: frames_bgr [B, H, W, 3]
     uint8 on the bundle's device, one frame per stream; stores carries a
@@ -368,18 +431,19 @@ def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
     NMS over B x C problems, the hierarchy as 3B lockstep problems, each
     encoder once on the crops of all frames), then the B cascades run as
     one ``tracker_update_batched`` (one launch of kernel K2 on the card).
-    reid_bucket: body crops embedded per stream (None = the full det
-    width, always exact); face_bucket: face crops per stream (defaults to
-    reid_bucket). gmc_affines: optional [B, 2, 3] per-stream camera
-    motion. nms_iters: iterations of the NMS fixpoint (None = ops/nms.py's
-    FIXPOINT_ITERS; ``FrameResult.nms_converged`` says whether they were
-    enough). The detector input and the crops interpolate as
-    ``PipelineConfig.compute_dtype`` and ``crop_int8`` say (ops/crop.py,
-    kernel K7 on the card); the networks run in the bundle's dtype.
+    reid_bucket: body crops embedded per stream (None = the bucket the
+    largest live count picks on the device, as the JAX package's in-program
+    switch; exact either way while the bucket covers the live bodies);
+    face_bucket: face crops per stream (defaults to reid_bucket).
+    gmc_affines: optional [B, 2, 3] per-stream camera motion. The NMS
+    fixpoint runs to its end (kernel K8 on the card). The detector input
+    and the crops interpolate as ``PipelineConfig.compute_dtype`` and
+    ``crop_int8`` say (ops/crop.py, kernel K7 on the card); the networks
+    run in the bundle's dtype.
     """
     d = _det_width(tracker_cfg, nms_cfg)
     p = _perception_batched(bundle, frames_bgr, tracker_cfg, nms_cfg,
-                            pipe_cfg, reid_bucket, face_bucket, nms_iters)
+                            pipe_cfg, reid_bucket, face_bucket)
     stores, tracks = tracker_update_batched(
         stores, p.det_boxes[:, BODIES, :d], p.dets.scores[:, BODIES, :d],
         p.det_valid[:, BODIES, :d], p.body_feats, p.face_feats, tracker_cfg,
@@ -392,8 +456,7 @@ def frame_step(bundle: ModelBundle, store: TrackStore,
                nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                gmc_affine: Optional[torch.Tensor] = None,
                reid_bucket: Optional[int] = None,
-               face_bucket: Optional[int] = None,
-               nms_iters: Optional[int] = None
+               face_bucket: Optional[int] = None
                ) -> Tuple[TrackStore, FrameResult]:
     """One stream's step: frame_bgr [H, W, 3] uint8 on the bundle's
     device, a store without the stream dimension, gmc_affine [2, 3] or
@@ -401,7 +464,7 @@ def frame_step(bundle: ModelBundle, store: TrackStore,
     stores, result = frame_step_batched(
         bundle, store.map(lambda x: x[None]), frame_bgr[None], tracker_cfg,
         nms_cfg, pipe_cfg, None if gmc_affine is None else gmc_affine[None],
-        reid_bucket, face_bucket, nms_iters)
+        reid_bucket, face_bucket)
     return stores.map(lambda x: x[0]), stream_result(result, 0)
 
 
@@ -412,8 +475,7 @@ def frame_step_batched_temporal(bundle: ModelBundle, stores: TrackStore,
                                 nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                                 gmc_affines: Optional[torch.Tensor] = None,
                                 reid_bucket: Optional[int] = None,
-                                face_bucket: Optional[int] = None,
-                                nms_iters: Optional[int] = None
+                                face_bucket: Optional[int] = None
                                 ) -> Tuple[TrackStore, FrameResult]:
     """B streams x T consecutive frames each in one step: frames_bgr
     [B, T, H, W, 3] uint8, stores with a leading [B], gmc_affines
@@ -428,8 +490,7 @@ def frame_step_batched_temporal(bundle: ModelBundle, stores: TrackStore,
     b, t = frames_bgr.shape[0], frames_bgr.shape[1]
     d = _det_width(tracker_cfg, nms_cfg)
     p = _perception_batched(bundle, frames_bgr.flatten(0, 1), tracker_cfg,
-                            nms_cfg, pipe_cfg, reid_bucket, face_bucket,
-                            nms_iters)
+                            nms_cfg, pipe_cfg, reid_bucket, face_bucket)
 
     def at(x, tt):  # [B*T, ...] -> frame tt of every stream, [B, ...]
         return x.reshape((b, t) + tuple(x.shape[1:]))[:, tt]
@@ -451,13 +512,12 @@ def frame_step_temporal(bundle: ModelBundle, store: TrackStore,
                         frames_bgr: torch.Tensor, tracker_cfg: TrackerConfig,
                         nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                         reid_bucket: Optional[int] = None,
-                        face_bucket: Optional[int] = None,
-                        nms_iters: Optional[int] = None
+                        face_bucket: Optional[int] = None
                         ) -> Tuple[TrackStore, FrameResult]:
     """T consecutive frames [T, H, W, 3] of one stream in one step: the
     FrameResult's fields carry a leading [T].
     ``frame_step_batched_temporal`` at B = 1."""
     stores, result = frame_step_batched_temporal(
         bundle, store.map(lambda x: x[None]), frames_bgr[None], tracker_cfg,
-        nms_cfg, pipe_cfg, None, reid_bucket, face_bucket, nms_iters)
+        nms_cfg, pipe_cfg, None, reid_bucket, face_bucket)
     return stores.map(lambda x: x[0]), stream_result(result, 0)

@@ -3,9 +3,10 @@
 ``BoTSORTPipeline.update(frame) -> List[STrackView]`` uploads one frame,
 runs the frame step at a static ReID bucket picked from the previous
 frame's live counts, re-runs the rare frame whose counts overflow that
-bucket (or whose NMS fixpoint did not converge in its fixed iteration
-count), reads the FrameResult back and assembles the host track list
-with its box hierarchy. ``BatchedBoTSORTPipeline`` does the same for B
+bucket, reads the FrameResult back and assembles the host track list with
+its box hierarchy. With ``PipelineConfig.host_bucket_dispatch=False`` the
+step picks its buckets on the device instead (one program for every load,
+no re-run). ``BatchedBoTSORTPipeline`` does the same for B
 streams per step through ``frame_step_batched``, with one bucket sized by
 the largest count across the streams (``MeshBatchedBoTSORTPipeline``: the
 streams split over several devices), and
@@ -42,6 +43,7 @@ from botsort_tpu_torch.pipeline.frame_step import (
     frame_step_batched_temporal,
     reid_bucket_set,
     stream_result,
+    switch_values,
 )
 from botsort_tpu_torch.pipeline.graphed import GraphCache, step_key
 from botsort_tpu_torch.track.cascade import TrackOutputs
@@ -89,10 +91,13 @@ def _result_from(fields) -> FrameResult:
 class PackedResult(NamedTuple):
     """A FrameResult on the device as one buffer: ``packed`` [bytes] uint8
     holds the fields back to back (each starting on an 8-byte boundary),
-    ``layout`` their (shape, dtype) in field order."""
+    ``layout`` their (shape, dtype) in field order; ``on_host``, where
+    given, is called with the host FrameResult (the graph cache counts a
+    switch's branch launches from it)."""
 
     packed: torch.Tensor
     layout: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
+    on_host: Optional[Any] = None
 
     def to_host(self) -> FrameResult:
         """The FrameResult as numpy arrays: one device-to-host copy, which
@@ -104,7 +109,10 @@ class PackedResult(NamedTuple):
             fields.append(raw[off:off + nbytes].view(_NUMPY_DTYPES[dtype])
                           .reshape(shape))
             off += -(-nbytes // 8) * 8
-        return _result_from(fields)
+        res = _result_from(fields)
+        if self.on_host is not None:
+            self.on_host(res)
+        return res
 
 
 def pack_result(result: FrameResult) -> PackedResult:
@@ -171,9 +179,9 @@ class STrackView:
 
 class _Facade:
     """What the three facades share: the configuration, the upload, one
-    step at a static bucket pair (eager or replayed from a CUDA graph),
-    and the loop that re-runs a step whose buckets overflowed or whose NMS
-    did not converge."""
+    step at a static bucket pair or the in-program switch (eager or
+    replayed from a CUDA graph), and the loop that re-runs a step whose
+    buckets overflowed."""
 
     # The step kind, part of a captured step's key.
     kind = "step"
@@ -231,7 +239,7 @@ class _Facade:
         next step, from the previous step's counts."""
         cfg = self.pipe_cfg
         if not cfg.host_bucket_dispatch:
-            return None, None, False  # every det slot embedded: exact
+            return None, None, False  # the step's own switch: exact
         if cfg.disable_reid:
             return 0, 0, False  # IoU-only: zero features
         if last_live is None:
@@ -240,15 +248,16 @@ class _Facade:
                 self._pick_bucket(face_bucket_need(last_face, last_live)),
                 True)
 
-    def _dispatch(self, stores, frames_dev, gmc, reid_bucket, face_bucket,
-                  nms_iters) -> Tuple[TrackStore, FrameResult]:
-        """One device step at a static bucket pair, eagerly: the override
-        point for other ways of running a step. Must not write ``stores``
-        and must not wait for the device."""
+    def _dispatch(self, stores, frames_dev, gmc, reid_bucket, face_bucket
+                  ) -> Tuple[TrackStore, FrameResult]:
+        """One device step at a static bucket pair (None: the in-program
+        switch), eagerly: the override point for other ways of running a
+        step. Must not write ``stores`` and must not wait for the
+        device."""
         raise NotImplementedError
 
-    def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None,
-              nms_iters=None) -> Tuple[TrackStore, PackedResult]:
+    def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None
+              ) -> Tuple[TrackStore, PackedResult]:
         """One step, with its FrameResult packed on the device: through
         the graph cache where there is one, else eagerly."""
         layout = []
@@ -256,25 +265,32 @@ class _Facade:
         def run(frames, gmc_t, *store_fields):
             new, result = self._dispatch(
                 _store_from(store_fields), frames, gmc_t, reid_bucket,
-                face_bucket, nms_iters)
+                face_bucket)
             packed = pack_result(result)
             layout[:] = [packed.layout]
             return [packed.packed, *_store_tensors(new)]
 
         inputs = [frames_dev, gmc, *_store_tensors(stores)]
+        on_host = None
         if self._graphs is None:
             out = run(*inputs)
         else:
+            cache = self._graphs
             key = step_key(self.kind, frames_dev.shape, reid_bucket,
-                           face_bucket, gmc is not None, nms_iters)
-            out = self._graphs.run(key, run, inputs)
+                           face_bucket, gmc is not None)
+            out = cache.run(key, run, inputs)
             # A replay does not run the function: the key's first use
             # did, and left its layout.
             if layout:
-                self._graphs.meta[key] = layout[0]
+                cache.meta[key] = layout[0]
             else:
-                layout.append(self._graphs.meta[key])
-        return _store_from(out[1:]), PackedResult(out[0], layout[0])
+                layout.append(cache.meta[key])
+            if cache.has_switches(key):
+                cfgs = (self.tracker_cfg, self.nms_cfg, self.pipe_cfg)
+                on_host = lambda res: cache.count_branches(  # noqa: E731
+                    key, switch_values(res, *cfgs))
+        return _store_from(out[1:]), PackedResult(out[0], layout[0],
+                                                  on_host)
 
     def save_session(self, path: str) -> None:
         """Write the tracking session: the stores (runtime/checkpoint.py),
@@ -316,30 +332,23 @@ class _Facade:
 
     def _settle(self, backup, frames_dev, gmc, step, buckets):
         """Read a step back and re-run it from ``backup``, the pre-step
-        stores, until it is exact: with the full NMS iteration count if the
-        fixed one did not converge, at larger buckets if the counts
-        overflowed the picked ones. Returns (stores, host FrameResult,
-        (live, face) counts or None)."""
+        stores, at larger buckets while its counts overflow the picked
+        ones. Returns (stores, host FrameResult, (live, face) counts or
+        None)."""
         stores, packed = step
         bucket, fbucket, check = buckets
-        nms_iters = None
         while True:
             res = packed.to_host()
-            counts = None
-            if not bool(np.all(res.nms_converged)) and nms_iters is None:
-                nms_iters = self.nms_cfg.pre_nms_top_k
-            else:
-                if not check:
-                    break
-                counts = self._counts(res)
-                need = face_bucket_need(counts[1], counts[0])
-                if counts[0] <= bucket and need <= fbucket:
-                    break
-                bucket = self._pick_bucket(counts[0])
-                fbucket = self._pick_bucket(need)
+            if not check:
+                return stores, res, None
+            counts = self._counts(res)
+            need = face_bucket_need(counts[1], counts[0])
+            if counts[0] <= bucket and need <= fbucket:
+                return stores, res, counts
+            bucket = self._pick_bucket(counts[0])
+            fbucket = self._pick_bucket(need)
             stores, packed = self._step(backup, frames_dev, bucket, fbucket,
-                                        gmc, nms_iters)
-        return stores, res, counts
+                                        gmc)
 
 
 class BoTSORTPipeline(_Facade):
@@ -381,11 +390,11 @@ class BoTSORTPipeline(_Facade):
             self.gmc.reset()
 
     def _dispatch(self, store, frame_dev, gmc_affine, reid_bucket,
-                  face_bucket, nms_iters=None):
+                  face_bucket):
         return frame_step(
             self.bundle, store, frame_dev, self.tracker_cfg, self.nms_cfg,
             self.pipe_cfg, gmc_affine, reid_bucket=reid_bucket,
-            face_bucket=face_bucket, nms_iters=nms_iters)
+            face_bucket=face_bucket)
 
     def _counts(self, res: FrameResult):
         return _live_and_face_counts(res, self._det_width)
@@ -479,11 +488,11 @@ class BatchedBoTSORTPipeline(_Facade):
         self.timers.reset()
 
     def _dispatch(self, stores, frames_dev, gmc_affines, reid_bucket,
-                  face_bucket, nms_iters=None):
+                  face_bucket):
         return frame_step_batched(
             self.bundle, stores, frames_dev, self.tracker_cfg, self.nms_cfg,
             self.pipe_cfg, gmc_affines, reid_bucket=reid_bucket,
-            face_bucket=face_bucket, nms_iters=nms_iters)
+            face_bucket=face_bucket)
 
     def _frame_results(self, res: FrameResult):
         """(stream, host FrameResult of one frame) over a step's frames."""
@@ -581,11 +590,11 @@ class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
         self.t_batch = t_batch
 
     def _dispatch(self, stores, frames_dev, gmc_affines, reid_bucket,
-                  face_bucket, nms_iters=None):
+                  face_bucket):
         return frame_step_batched_temporal(
             self.bundle, stores, frames_dev, self.tracker_cfg, self.nms_cfg,
             self.pipe_cfg, gmc_affines, reid_bucket=reid_bucket,
-            face_bucket=face_bucket, nms_iters=nms_iters)
+            face_bucket=face_bucket)
 
     def _check_frames(self, frames: np.ndarray):
         if frames.shape[:2] != (self.n_streams, self.t_batch):
@@ -678,10 +687,9 @@ class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
         return [sl._upload(name, part) for sl, part in zip(
             self._slices, np.split(np.asarray(array), self.n_chips))]
 
-    def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None,
-              nms_iters=None):
+    def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None):
         steps = [sl._step(st, fr, reid_bucket, face_bucket,
-                          None if gmc is None else gmc[k], nms_iters)
+                          None if gmc is None else gmc[k])
                  for k, (sl, st, fr) in enumerate(zip(
                      self._slices, stores, frames_dev))]
         return [st for st, _ in steps], _MeshPacked(
@@ -725,25 +733,24 @@ def bucket_pairs(buckets: List[int]) -> List[Tuple[int, int]]:
 
 def warm_up(pipeline: BoTSORTPipeline, frame_hw: Tuple[int, int]
             ) -> List[Tuple[Tuple, float]]:
-    """Run both NMS programs (the fixed count and the re-run's) of every
-    bucket pair the facade can pick for frames of ``frame_hw`` once, from
-    its current store, and wait for each: on a card with graphs that
-    captures each step (a live frame, or its re-run, then replays it; an
-    exported pipeline loads each program here); elsewhere it runs each
-    step eagerly once. The facade's state is not changed. Returns
-    ((reid bucket, face bucket, nms_iters), seconds) per step."""
+    """Run the program of every bucket pair the facade can pick for frames
+    of ``frame_hw`` (the one in-program-switch program with
+    ``host_bucket_dispatch=False``) once, from its current store, and wait
+    for each: on a card with graphs that captures each step (a live frame,
+    or its re-run, then replays it; an exported pipeline loads each
+    program here); elsewhere it runs each step eagerly once. The facade's
+    state is not changed. Returns ((reid bucket, face bucket), seconds)
+    per step."""
     frame = pipeline._upload("warm_up",
                              np.zeros(tuple(frame_hw) + (3,), np.uint8))
     first = pipeline._first_buckets(None, 0)
     pairs = bucket_pairs(pipeline._buckets) if first[2] else [first[:2]]
     out = []
     for b, fb in pairs:
-        for iters in (None, pipeline.nms_cfg.pre_nms_top_k):
-            t0 = time.perf_counter()
-            _, packed = pipeline._step(pipeline.store, frame, b, fb, None,
-                                       iters)
-            packed.to_host()
-            out.append(((b, fb, iters), time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        _, packed = pipeline._step(pipeline.store, frame, b, fb, None)
+        packed.to_host()
+        out.append(((b, fb), time.perf_counter() - t0))
     return out
 
 

@@ -5,18 +5,20 @@ A live tracking session is its TrackStore: track ids, Kalman states,
 appearance features and the frame counter. ``save_store`` writes it with
 ``torch.save`` as a dict of CPU tensors, one per present field (the absent
 feature-history fields are skipped); ``load_store`` reads it back onto a
-device, so that a stream can move to another process or card and go on
-exactly where it stopped. The JAX package writes orbax checkpoints; the
-port uses torch's own format. ``host`` integers saved beside the store
-(the facades' frame count and bucket hint: pipeline/host.py
-``save_session``) come back from ``load_checkpoint``.
+device (the card unless the caller asks for another, as the JAX package's
+``load_store`` returns arrays on the default device), so that a stream can
+move to another process or card and go on exactly where it stopped. The
+JAX package writes orbax checkpoints; the port uses torch's own format.
+``host`` integers saved beside the store (the facades' frame count and
+bucket hint: pipeline/host.py ``save_session``) come back from
+``load_checkpoint``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -41,10 +43,23 @@ def save_store(path: str, store: TrackStore, **host: Optional[int]) -> None:
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, device="cpu"
+def _device(device: Any) -> torch.device:
+    """``device``, refusing a CUDA device where there is no card (as
+    runtime/assets.py::build_bundle does)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_store: no CUDA device; pass device='cpu' "
+                           "to load the store onto the CPU")
+    return device
+
+
+def load_checkpoint(path: str, device: Any = "cuda"
                     ) -> Optional[Tuple[TrackStore, Dict[str, int]]]:
-    """(the TrackStore saved at ``path`` on ``device``, the ``host``
-    integers saved with it), or None where no checkpoint exists."""
+    """(the TrackStore saved at ``path`` on ``device``, the card by
+    default, the ``host`` integers saved with it), or None where no
+    checkpoint exists. Raises where ``device`` is a card and there is
+    none."""
+    device = _device(device)
     if not os.path.isfile(path):
         return None
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -56,8 +71,8 @@ def load_checkpoint(path: str, device="cpu"
     return store, host
 
 
-def load_store(path: str, device="cpu") -> Optional[TrackStore]:
-    """The TrackStore saved at ``path`` on ``device``, or None where no
-    checkpoint exists."""
+def load_store(path: str, device: Any = "cuda") -> Optional[TrackStore]:
+    """The TrackStore saved at ``path`` on ``device`` (the card by
+    default), or None where no checkpoint exists."""
     saved = load_checkpoint(path, device)
     return None if saved is None else saved[0]

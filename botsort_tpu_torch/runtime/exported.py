@@ -28,19 +28,22 @@ A program is a function of flat tuples of tensors::
 
 The kernels appear in the program as the custom ops
 ``torch.ops.botsort_tpu_torch.*`` (K1/K2 ``cascade_solve``, K6 ``bn_act``,
-with lowered encoders K4 ``stem_stage1`` and K5 ``dw_conv3x3``): their CUDA
-implementation is the kernel, their CPU implementation the plain version,
-so a program exported on one platform runs only there.
+K7 ``crop_resize``, K8 ``nms_fixpoint``, with lowered encoders K4
+``stem_stage1`` and K5 ``dw_conv3x3``): their CUDA implementation is the
+kernel, their CPU implementation the plain version, so a program exported
+on one platform runs only there.
 
-The fixed NMS iteration count of a step can fall short, and the facades
-then re-run the step with ``nms_iters = pre_nms_top_k``
-(pipeline/host.py): every (resolution, bucket pair) has both programs.
+The NMS fixpoint runs to its end inside the program, so one program serves
+each (resolution, bucket pair). Directories exported while the fixpoint
+ran a fixed iteration count (a ``nms{fixed|full}`` pair of programs per
+pair, ``nms_iters`` in the manifest) are refused at load: export them
+again with cli/export.py.
 
 Artifact directory (written by cli/export.py)::
 
     manifest.json
-    step_{H}x{W}_b{B}_f{F}_nms{fixed|full}.pt2
-    step_s{S}_{H}x{W}_b{B}_f{F}_nms{fixed|full}.pt2   (--streams S)
+    step_{H}x{W}_b{B}_f{F}.pt2
+    step_s{S}_{H}x{W}_b{B}_f{F}.pt2   (--streams S)
 """
 
 from __future__ import annotations
@@ -198,9 +201,9 @@ def _check_exportable(pipe_cfg: PipelineConfig) -> None:
 def export_frame_step(bundle: ModelBundle, tracker_cfg: TrackerConfig,
                       nms_cfg: NMSConfig, pipe_cfg: PipelineConfig,
                       frame_hw: Tuple[int, int], reid_bucket: int,
-                      face_bucket: int, nms_iters: Optional[int] = None,
-                      streams: int = 0) -> torch.export.ExportedProgram:
-    """Trace one (resolution, bucket pair, NMS count) step on the bundle's
+                      face_bucket: int, streams: int = 0
+                      ) -> torch.export.ExportedProgram:
+    """Trace one (resolution, bucket pair) step on the bundle's
     device into an ExportedProgram: ``frame_step`` (``streams`` = 0) or
     ``frame_step_batched`` over ``streams`` streams."""
     _check_exportable(pipe_cfg)
@@ -218,8 +221,7 @@ def export_frame_step(bundle: ModelBundle, tracker_cfg: TrackerConfig,
 
     def step(b, store, frames):
         return fn(b, store, frames, tracker_cfg, nms_cfg, pipe_cfg, None,
-                  reid_bucket=reid_bucket, face_bucket=face_bucket,
-                  nms_iters=nms_iters)
+                  reid_bucket=reid_bucket, face_bucket=face_bucket)
 
     constants, spec = inference_constants(bundle)
     program = _Program(bundle, weight_names(bundle), spec,
@@ -240,12 +242,10 @@ def save_program(ep: torch.export.ExportedProgram, path: str) -> int:
 
 
 def artifact_name(frame_hw: Tuple[int, int], reid_bucket: int,
-                  face_bucket: int, nms_iters: Optional[int],
-                  streams: int = 0) -> str:
+                  face_bucket: int, streams: int = 0) -> str:
     h, w = frame_hw
     s = f"s{streams}_" if streams else ""
-    nms = "fixed" if nms_iters is None else "full"
-    return f"step_{s}{h}x{w}_b{reid_bucket}_f{face_bucket}_nms{nms}.pt2"
+    return f"step_{s}{h}x{w}_b{reid_bucket}_f{face_bucket}.pt2"
 
 
 def platform_of(device: torch.device) -> Dict[str, Any]:
@@ -288,7 +288,7 @@ def export_all(bundle: ModelBundle, tracker_cfg: TrackerConfig,
                resolutions: Sequence[Tuple[int, int]], streams: int = 0,
                buckets: Optional[Sequence[int]] = None, mini: bool = False,
                one_stream: bool = True, log=print) -> Dict[str, Any]:
-    """Export both NMS programs of every (resolution, bucket pair): at one
+    """Export the program of every (resolution, bucket pair): at one
     stream (unless ``one_stream`` is False) and, with ``streams``, at that
     many streams; write the manifest. ``buckets``: the bucket set (default
     ``reid_bucket_set``'s). Returns the manifest."""
@@ -300,22 +300,20 @@ def export_all(bundle: ModelBundle, tracker_cfg: TrackerConfig,
     entries = {0: [], streams: []}
     for hw in resolutions:
         for b, fb in bucket_pairs(buckets):
-            for iters in (None, nms_cfg.pre_nms_top_k):
-                for s in kinds:
-                    t0 = time.perf_counter()
-                    ep = export_frame_step(bundle, tracker_cfg, nms_cfg,
-                                           pipe_cfg, hw, b, fb, iters, s)
-                    name = artifact_name(hw, b, fb, iters, s)
-                    size = save_program(ep, os.path.join(out_dir, name))
-                    dt = time.perf_counter() - t0
-                    entry = {"file": name, "frame_hw": list(hw),
-                             "reid_bucket": b, "face_bucket": fb,
-                             "nms_iters": iters, "bytes": size,
-                             "export_seconds": dt}
-                    if s:
-                        entry["streams"] = s
-                    entries[s].append(entry)
-                    log(f"exported {name} ({size} bytes, {dt:.3f} s)")
+            for s in kinds:
+                t0 = time.perf_counter()
+                ep = export_frame_step(bundle, tracker_cfg, nms_cfg,
+                                       pipe_cfg, hw, b, fb, s)
+                name = artifact_name(hw, b, fb, s)
+                size = save_program(ep, os.path.join(out_dir, name))
+                dt = time.perf_counter() - t0
+                entry = {"file": name, "frame_hw": list(hw),
+                         "reid_bucket": b, "face_bucket": fb, "bytes": size,
+                         "export_seconds": dt}
+                if s:
+                    entry["streams"] = s
+                entries[s].append(entry)
+                log(f"exported {name} ({size} bytes, {dt:.3f} s)")
     manifest = {
         "format": FORMAT,
         "call": "program(weights, constants, store, frames) -> "
@@ -396,8 +394,15 @@ class Programs:
         self._files = {}
         for e in self.manifest["artifacts"] + \
                 self.manifest["batched_artifacts"]:
+            if "nms_iters" in e:
+                raise ValueError(
+                    f"the artifacts in {artifact_dir} were exported while "
+                    "the NMS fixpoint ran a fixed iteration count (a fixed "
+                    "and a full-count program per bucket pair); the "
+                    "fixpoint now runs to its end in one program: export "
+                    "them again with cli/export.py")
             key = (e.get("streams", 0), tuple(e["frame_hw"]),
-                   e["reid_bucket"], e["face_bucket"], e["nms_iters"])
+                   e["reid_bucket"], e["face_bucket"])
             self._files[key] = e["file"]
         self._loaded: Dict[Tuple, Any] = {}
         self.load_seconds = 0.0
@@ -408,24 +413,22 @@ class Programs:
     def resolutions(self, streams: int = 0) -> List[Tuple[int, int]]:
         return sorted({k[1] for k in self._files if k[0] == streams})
 
-    def check_complete(self, streams: int, nms_full: int) -> None:
-        """Every bucket pair of every exported resolution has both NMS
-        programs at ``streams``: a facade's re-run always finds one."""
+    def check_complete(self, streams: int) -> None:
+        """Every bucket pair of every exported resolution has its program
+        at ``streams``: a facade's re-run always finds one."""
         if not self.resolutions(streams):
             raise ValueError(
                 f"no programs for {streams or 1} stream(s) in "
                 f"{self.artifact_dir} (cli/export.py --streams)")
         for hw in self.resolutions(streams):
             for b, fb in bucket_pairs(self.buckets):
-                for iters in (None, nms_full):
-                    if (streams, hw, b, fb, iters) not in self._files:
-                        raise ValueError(
-                            f"{self.artifact_dir} lacks the program for "
-                            f"{hw}, buckets ({b}, {fb}), nms_iters "
-                            f"{iters}: export again")
+                if (streams, hw, b, fb) not in self._files:
+                    raise ValueError(
+                        f"{self.artifact_dir} lacks the program for {hw}, "
+                        f"buckets ({b}, {fb}): export again")
 
-    def _load(self, streams, hw, reid_bucket, face_bucket, nms_iters):
-        key = (streams, tuple(hw), reid_bucket, face_bucket, nms_iters)
+    def _load(self, streams, hw, reid_bucket, face_bucket):
+        key = (streams, tuple(hw), reid_bucket, face_bucket)
         hit = self._loaded.get(key)
         if hit is None:
             name = self._files.get(key)
@@ -442,24 +445,21 @@ class Programs:
         return hit
 
     def exported_program(self, streams: int, hw: Tuple[int, int],
-                         reid_bucket, face_bucket, nms_iters
+                         reid_bucket, face_bucket
                          ) -> torch.export.ExportedProgram:
         """The loaded ExportedProgram of one key (``streams`` 0: the
         one-stream program)."""
-        return self._load(streams, hw, reid_bucket, face_bucket,
-                          nms_iters)[0]
+        return self._load(streams, hw, reid_bucket, face_bucket)[0]
 
     def program(self, streams: int, hw: Tuple[int, int], reid_bucket,
-                face_bucket, nms_iters):
+                face_bucket):
         """The callable of one key, loaded at its first use."""
-        return self._load(streams, hw, reid_bucket, face_bucket,
-                          nms_iters)[1]
+        return self._load(streams, hw, reid_bucket, face_bucket)[1]
 
     def run(self, streams: int, store: TrackStore, frames: torch.Tensor,
-            reid_bucket, face_bucket, nms_iters
-            ) -> Tuple[TrackStore, FrameResult]:
+            reid_bucket, face_bucket) -> Tuple[TrackStore, FrameResult]:
         hw = tuple(frames.shape[-3:-1])
-        mod = self.program(streams, hw, reid_bucket, face_bucket, nms_iters)
+        mod = self.program(streams, hw, reid_bucket, face_bucket)
         out = mod(self.weights, self.constants, _present(store), frames)
         k = len(self.store_names)
         return _store_of(out[:k], self.store_names), \
@@ -471,28 +471,29 @@ def load_pipeline(artifact_dir: str, bundle: ModelBundle,
                   programs: Optional[Programs] = None,
                   graph_cache=None) -> host.BoTSORTPipeline:
     """A ``BoTSORTPipeline`` whose step is the exported program of each
-    (resolution, bucket pair, NMS count), called with ``bundle``'s weights.
+    (resolution, bucket pair), called with ``bundle``'s weights.
     The bucket dispatch, the re-runs and the track assembly are the live
     facade's; the configurations and the bucket set come from the
     manifest. On a card the programs are captured and replayed from CUDA
     graphs like the live step (``graphs``). ``programs`` / ``graph_cache``:
     shared with other pipelines of one server. Refuses GMC,
-    ``host_bucket_dispatch=False``, an incomplete export and a bundle on
-    another platform; a frame of a resolution that was not exported raises
+    ``host_bucket_dispatch=False``, an incomplete export, one made while
+    the NMS fixpoint ran a fixed count, and a bundle on another platform;
+    a frame of a resolution that was not exported raises
     KeyError listing those that were."""
     programs = programs or Programs(artifact_dir, bundle)
     tracker_cfg, nms_cfg, pipe_cfg = manifest_configs(programs.manifest)
-    programs.check_complete(0, nms_cfg.pre_nms_top_k)
+    programs.check_complete(0)
 
     class ExportedPipeline(host.BoTSORTPipeline):
         kind = "exported_frame"
 
         def _dispatch(self, store, frame_dev, gmc_affine, reid_bucket,
-                      face_bucket, nms_iters=None):
+                      face_bucket):
             if gmc_affine is not None:
                 raise ValueError("exported programs take no camera motion")
             return programs.run(0, store, frame_dev, reid_bucket,
-                                face_bucket, nms_iters)
+                                face_bucket)
 
     pipe = ExportedPipeline(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
                             profile, graph_cache=graph_cache)
@@ -511,17 +512,17 @@ def load_batched_pipeline(artifact_dir: str, bundle: ModelBundle,
     analogue of ``load_pipeline``, with the same refusals."""
     programs = programs or Programs(artifact_dir, bundle)
     tracker_cfg, nms_cfg, pipe_cfg = manifest_configs(programs.manifest)
-    programs.check_complete(n_streams, nms_cfg.pre_nms_top_k)
+    programs.check_complete(n_streams)
 
     class ExportedBatchedPipeline(host.BatchedBoTSORTPipeline):
         kind = "exported_batched"
 
         def _dispatch(self, stores, frames_dev, gmc_affines, reid_bucket,
-                      face_bucket, nms_iters=None):
+                      face_bucket):
             if gmc_affines is not None:
                 raise ValueError("exported programs take no camera motion")
             return programs.run(n_streams, stores, frames_dev, reid_bucket,
-                                face_bucket, nms_iters)
+                                face_bucket)
 
     pipe = ExportedBatchedPipeline(bundle, n_streams, tracker_cfg, nms_cfg,
                                    pipe_cfg, graphs, profile)

@@ -13,8 +13,9 @@ assignment kernels must reproduce their plain PyTorch versions' float32
 operations bit for bit (ops/assignment.py). The depthwise stencil (K5)
 does too, with its products and sums written as __fmul_rn/__fadd_rn,
 which no flag contracts, and so do the batch norm pass (K6), its
-backward (K6b) and the crop-resize (K7); K4 (stem_stage1) is held to a
-tolerance. All seven libraries share these flags.
+backward (K6b), the crop-resize (K7) and the NMS fixpoint (K8); K4
+(stem_stage1) is held to a tolerance. All nine libraries share these
+flags.
 
 Every entry point takes the raw handle of the CUDA stream to launch on;
 ``current_stream`` gives it to every wrapper.
@@ -46,9 +47,10 @@ NVCC_FLAGS = (
 
 # Every kernel of the port: K1/K2 (cascade_lap), K3 (jv_lap), K4
 # (stem_stage1), K5 (dw_conv3x3), K6 (bn_act), its backward K6b
-# (bn_act_backward) and K7 (crop_resize).
+# (bn_act_backward), K7 (crop_resize), K8 (nms_fixpoint) and K9 with the
+# conditional-graph assembly (graph_cond).
 KERNELS = ("cascade_lap", "jv_lap", "stem_stage1", "dw_conv3x3", "bn_act",
-           "bn_act_backward", "crop_resize")
+           "bn_act_backward", "crop_resize", "nms_fixpoint", "graph_cond")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building in this process, nvcc's output).

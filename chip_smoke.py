@@ -5,7 +5,7 @@ Drives the port's paths on the card and fails loudly if any phase fails:
 
   1. device   a CUDA card is required (no CPU fallback); prints its name
               and power limit; TF32 is switched off.
-  2. build    builds every CUDA kernel from csrc/ (seven libraries), one
+  2. build    builds every CUDA kernel from csrc/ (nine libraries), one
               nvcc per source, all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
@@ -40,7 +40,10 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               the same tracks. Prints both medians, device kernels and
               host launch calls a frame (torch.profiler) and the busy
               share. K7 must launch once a step run and once a non-zero
-              bucket. Then the crops' cost: the graphed point again at
+              bucket, K8 once a step run (the NMS fixpoint runs to its end:
+              one NMS program, no re-run; every step of every phase that
+              drives a facade must report it converged). Then the crops'
+              cost: the graphed point again at
               PipelineConfig(compute_dtype="float32", crop_int8=False)
               beside the default (int8 crops), both medians, and K7's
               share of a graphed frame's device time (torch.profiler).
@@ -60,6 +63,13 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               with the four activations: bit for bit, SiLU within one unit
               in the last place; timed against the plain version and the
               eager chain it replaced, beside its bound.
+      K8      the NMS fixpoint kernel against its plain version, bit for
+              bit, on the candidates the loaded one-stream and the
+              8-stream steps give it (recorded from their frames) and on a
+              suppression chain of length P = 512; the iterations each
+              needs; CUDA-event, graph and plain times beside the bound
+              and the 16-iteration PyTorch chain it replaced (its time and
+              device kernels a call), in this call.
       K7      the crop-resize kernel against its plain version in its
               three modes (float32, bfloat16, int8) at the main paths'
               shapes: 1080p to 480x640 at B = 1 and 8, 50 body crops at
@@ -68,6 +78,21 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               bit; CUDA-event and graph times in each mode, the plain
               version's, and one PyTorch call's (F.interpolate,
               F.grid_sample) at one frame, beside the bound.
+      K9      the graph-conditional kernel against its plain version
+              (branch_flags_plain) on a program of tiny branches, at the
+              values around each bound of the two steps' switches.
+      switch  host_bucket_dispatch=False replayed from one CUDA graph a
+              shape whose encoder batches are conditional nodes behind K9,
+              at the loaded one-stream point (det_score_threshold giving
+              0, at most 16 and more than 16 live bodies; where random
+              weights' scores, many saturated at 1.0, leave no threshold
+              for at most 16, pre_nms_top_k = 16 instead: few_bodies)
+              and the 8-stream point (0 and up to 16): each step bit-equal
+              to the static-bucket graph at the buckets its branches
+              encode, one capture a facade, K9 twice a replay, K7 once a
+              step and once a branch taken; graphed medians and device ms
+              a step per regime; a replay and an 8-stream update_async
+              under the sync debug mode.
       temporal TemporalBatchedBoTSORTPipeline at full width, B = 8, T = 2,
               moderate-16, seeded per-stream affines, replayed from CUDA
               graphs: the first groups equal T chained frame_step_batched
@@ -109,19 +134,18 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               cost), and K4's time split by CUDA kernel (torch.profiler)
               with each convolution's achieved TFLOP/s, its scratch bytes
               and the least time its layer-by-layer bytes allow.
- 14. export   both NMS programs of one bucket pair exported with
-              torch.export (runtime/exported.py), saved, loaded and
-              replayed from CUDA graphs: load_pipeline at the loaded
-              one-stream point (K1) and load_batched_pipeline at 8
-              streams, moderate-16 (K2); over 8 frames every FrameResult
-              field and the final stores equal the live facade's, the full
-              NMS program equals the live step's, the graphs call the
-              kernels as torch.ops.botsort_tpu_torch ops, and K1/K2 and
-              K6 count on replay. Prints export and load seconds, bytes
-              and live against loaded replay medians.
+ 14. export   the program of one bucket pair exported with torch.export
+              (runtime/exported.py), saved, loaded and replayed from CUDA
+              graphs: load_pipeline at the loaded one-stream point (K1)
+              and load_batched_pipeline at 8 streams, moderate-16 (K2);
+              over 8 frames every FrameResult field and the final stores
+              equal the live facade's, the graphs call the kernels as
+              torch.ops.botsort_tpu_torch ops (K8's among them), and
+              K1/K2, K6, K7 and K8 count on replay. Prints export and load
+              seconds, bytes and live against loaded replay medians.
  15. serve    cli/serve.py's server on a localhost thread with a numpy
-              decoder, cold and after warm_up captured both NMS programs
-              of every bucket pair at 1080p: the JSON of 4 frames equals a
+              decoder, cold and after warm_up captured the program of
+              every bucket pair at 1080p: the JSON of 4 frames equals a
               direct pipeline's; prints the first request's latency both
               ways, capture seconds per step and the card's peak reserved
               memory.
@@ -213,6 +237,15 @@ K7_CASES = (("detector input", 1, 1, (480, 640)),
             ("body crops", STREAMS, 50, (256, 128)),
             ("face crops", STREAMS, 50, (128, 128)))
 K7_KERNEL = "crop_resize_kernel"
+K8_SOURCE = "botsort_tpu_torch/csrc/nms_fixpoint.cu"
+# K8 replaces no TPU kernel: the JAX package's suppression fixpoint is a
+# lax.while_loop inside the jitted step (botsort_tpu/ops/nms.py:88-103).
+K8_REPLACES = "botsort_tpu/ops/nms.py:101"
+K9_SOURCE = "botsort_tpu_torch/csrc/graph_cond.cu"
+# K9 replaces no TPU kernel: it is the predicate of the encoders'
+# lax.switch (botsort_tpu/pipeline/frame_step.py:165, and :723 batched).
+K9_REPLACES = "botsort_tpu/pipeline/frame_step.py:165"
+K9_KERNEL = "set_conditionals_kernel"
 # The crops' numerics before the port read PipelineConfig.compute_dtype and
 # crop_int8 (the main and multi phases time both in one call).
 FLOAT32_CROPS = {"compute_dtype": "float32", "crop_int8": False}
@@ -856,6 +889,9 @@ def drive(torch, pipeline, inputs, launches_of, force_at=None, gmc=None,
                 pipeline.update(x, gmc[i])
             torch.cuda.synchronize()
             ms = 1000.0 * (time.perf_counter() - t0)
+            if not np.all(pipeline.last_result.nms_converged):
+                raise AssertionError(f"step {i + 1}: the NMS fixpoint did "
+                                     "not converge")
             if check is not None:
                 check(pipeline.last_result)
             rows.append(dict(ms=ms, runs=runs[n_runs:],
@@ -949,11 +985,11 @@ def report_point(torch, label, unit, pipes, rows, frames_per_step, card,
 def phase_main(torch, bundle, assignment, assignment_cuda, card):
     """The loaded one-stream point, eager and replayed from CUDA graphs
     over the same frames, then its crops' cost (``crop_cost``); returns
-    K1's and K7's launches in the replayed run, the nosync / async material
-    and the eager run's cascade inputs."""
+    K1's, K7's and K8's launches in the replayed run, the nosync / async
+    material and the eager run's cascade inputs."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop
+    from botsort_tpu_torch.ops import crop, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -977,14 +1013,18 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
                               lambda: cuda.launches, force_at=4, check=check)
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log("main: last eager frame's tracks with the plain solver equal K1's")
-    k7 = crop.crop_resize_cuda
-    cuda.launches = cuda.batched_launches = k7.launches = 0
+    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    cuda.launches = cuda.batched_launches = k7.launches = k8.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], frames,
                             lambda: cuda.launches, force_at=4, check=check)
     main_launches, k7_launches = cuda.launches, k7.launches
+    k8_launches = k8.launches
     if k7_launches != k7_expected(rows["graphed"]):
         raise AssertionError(f"main: K7 launched {k7_launches} times, not "
                              "once a step run and once a non-zero bucket")
+    if k8_launches != sum(expected_launches(r) for r in rows["graphed"]):
+        raise AssertionError(f"main: K8 launched {k8_launches} times, not "
+                             "once a step run")
     if cuda.batched_launches:
         raise AssertionError("the one-stream path launched K2")
     same_results(torch, host, rows["eager"], rows["graphed"],
@@ -1021,13 +1061,15 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
         raise AssertionError(f"main: the staged frames are {staged}")
     log(f"main: K7 launches in the replayed run {k7_launches} (a step run's "
         f"detector input, body and face crops; frames staged as {staged}, "
-        f"so {crop.crop_mode(cfgs[2], staged)} mode)")
+        f"so {crop.crop_mode(cfgs[2], staged)} mode); K8 launches "
+        f"{k8_launches} (one NMS program a bucket pair, "
+        f"{len(cache.keys())} captured, no NMS re-run)")
     crop_cost(torch, "loaded one-stream", "frame", pipes["graphed"],
               lambda: host.BoTSORTPipeline(bundle, *cfgs[:2],
                                        PipelineConfig(**FLOAT32_CROPS)),
               frames, card)
-    return (main_launches, k7_launches, pipes["graphed"], frames[-1], cfgs,
-            solver_rec.calls)
+    return (main_launches, k7_launches, k8_launches, pipes["graphed"],
+            frames[-1], cfgs, solver_rec.calls)
 
 
 def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
@@ -1037,7 +1079,7 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     (``crop_cost``)."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop
+    from botsort_tpu_torch.ops import crop, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -1064,13 +1106,17 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log(f"multi: last eager step's tracks with the plain solver equal K2's "
         f"on all {STREAMS} streams")
-    k7 = crop.crop_resize_cuda
+    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
     cuda.launches = cuda.batched_launches = k6.launches = k7.launches = 0
+    k8.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], steps,
                             lambda: cuda.batched_launches, force_at=4,
                             check=check)
     k2_launches, k6_launches = cuda.batched_launches, k6.launches
-    k7_launches = k7.launches
+    k7_launches, k8_launches = k7.launches, k8.launches
+    if k8_launches != sum(expected_launches(r) for r in rows["graphed"]):
+        raise AssertionError(f"multi: K8 launched {k8_launches} times, not "
+                             "once a step run")
     if k7_launches != k7_expected(rows["graphed"]):
         raise AssertionError(f"multi: K7 launched {k7_launches} times, not "
                              "once a step run and once a non-zero bucket")
@@ -1107,14 +1153,16 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     point = report_point(
         torch, f"BatchedBoTSORTPipeline.update ({STREAMS} streams, "
         "moderate-16)", "step", pipes, rows, STREAMS, card, steps[-1])
-    log(f"multi: K7 launches in the replayed run {k7_launches}")
+    log(f"multi: K7 launches in the replayed run {k7_launches}, K8 "
+        f"{k8_launches} (one launch for the {STREAMS} x 4 NMS problems of a "
+        f"step run)")
     crop_cost(torch, f"{STREAMS} streams moderate-16", "step",
               pipes["graphed"],
               lambda: host.BatchedBoTSORTPipeline(
                   bundle, STREAMS, *cfgs[:2], PipelineConfig(**FLOAT32_CROPS)),
               steps, card)
-    return (k2_launches, k6_launches, k7_launches, point["graphed"],
-            pipes["graphed"], steps[-1], cfgs)
+    return (k2_launches, k6_launches, k7_launches, k8_launches,
+            point["graphed"], pipes["graphed"], steps[-1], cfgs)
 
 
 def phase_nosync(torch, bundle, main_pipe, frame, cfgs, multi_pipe, frames):
@@ -1146,28 +1194,16 @@ def phase_nosync(torch, bundle, main_pipe, frame, cfgs, multi_pipe, frames):
         raise AssertionError("nosync: the NMS fixpoint did not converge")
     if len(handle.result()) != STREAMS:
         raise AssertionError("nosync: the batched step lost a stream")
-    from botsort_tpu_torch.ops.nms import FIXPOINT_ITERS
-
-    needed = (fixpoint_iterations(torch, bundle, frame_dev[None], cfgs),
-              fixpoint_iterations(torch, bundle, torch.from_numpy(frames).to(
-                  bundle.device), cfgs))
-    log(f"nosync: NMS fixpoint iterations until nothing changes: {needed[0]} "
-        f"on the loaded frame, {needed[1]} on the {STREAMS}-stream step's "
-        f"frames (the step runs {FIXPOINT_ITERS})")
-    if max(needed) > FIXPOINT_ITERS:
-        raise AssertionError("the smoke scenes need more NMS iterations "
-                             "than the step runs")
     log(f"nosync: a loaded full-width frame_step at buckets {buckets} "
         f"({int(a.det_valid[0].sum())} bodies), its replay from the graph "
         f"and an {STREAMS}-stream update_async ran under "
         "set_sync_debug_mode('error'): no wait between upload and readback")
 
 
-def fixpoint_iterations(torch, bundle, frames_dev, cfgs):
-    """The least iteration count at which the NMS fixpoint of these frames
-    reports convergence (its last iteration changed nothing), found by
-    trying counts outside any step."""
-    from botsort_tpu_torch.ops import nms
+def k8_inputs(torch, nms, bundle, frames_dev, cfgs):
+    """(top_boxes [G, 4, P, 4], top_valid [G, 4, P]): what K8 gets in a
+    step on ``frames_dev`` [G, H, W, 3], from the detector and
+    ops/nms.py's candidate selection."""
     from botsort_tpu_torch.ops.crop import _crop
 
     _, nms_cfg, pipe_cfg = cfgs
@@ -1178,14 +1214,362 @@ def fixpoint_iterations(torch, bundle, frames_dev, cfgs):
     with torch.no_grad():
         boxes, scores = bundle.detector(_crop(
             frames_dev, full, pipe_cfg.detector_input_hw, pipe_cfg)[:, 0])
-        for k in range(1, nms_cfg.pre_nms_top_k + 1):
-            dets = nms.multiclass_nms_dense_batched(
-                boxes, scores, nms_cfg.iou_threshold,
-                nms_cfg.score_threshold, nms_cfg.max_boxes_per_class,
-                nms_cfg.pre_nms_top_k, iters=k)
-            if bool(dets.converged.all()):
-                return k
-    raise AssertionError("the NMS fixpoint never converged")
+        scores = scores.transpose(-1, -2)
+        top_boxes, _, top_valid, _ = nms.top_candidates(
+            boxes, scores, torch.ones_like(scores, dtype=torch.bool),
+            nms_cfg.score_threshold, nms_cfg.pre_nms_top_k)
+    return top_boxes.contiguous(), top_valid.contiguous()
+
+
+def fixpoint_iterations(torch, iou_matrix, top_boxes, top_valid, thr):
+    """Iterations of the suppression fixpoint until nothing changes (the
+    last one confirms it), over all problems at once, as the JAX loop
+    counts them."""
+    p = top_valid.shape[-1]
+    iou = iou_matrix(top_boxes, top_boxes)
+    rank = torch.arange(p, device=top_valid.device)
+    dom = ((iou > thr) & (rank[:, None] < rank[None, :])
+           & top_valid[..., :, None] & top_valid[..., None, :])
+    keep, n = top_valid, 0
+    while n < p:
+        new = top_valid & ~(dom & keep[..., :, None]).any(dim=-2)
+        n += 1
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return n
+
+
+def old_nms_chain(torch, iou_matrix, top_boxes, top_valid, thr, iters=16):
+    """The fixed 16-iteration PyTorch chain K8 replaced (the port's
+    ops/nms.py before K8): the [..., P, P] IoU and dominance matrices,
+    then ``iters`` masked reductions, each about four kernels."""
+    p = top_valid.shape[-1]
+    iou = iou_matrix(top_boxes, top_boxes)
+    rank = torch.arange(p, device=top_valid.device)
+    dom = ((iou > thr) & (rank[:, None] < rank[None, :])
+           & top_valid[..., :, None] & top_valid[..., None, :])
+    keep = top_valid
+    for _ in range(iters):
+        keep = top_valid & ~(dom & keep[..., :, None]).any(dim=-2)
+    return keep
+
+
+def k8_chain(torch, p, dev):
+    """A suppression chain of length p in each of 4 classes of one frame:
+    box i overlaps box i + 1 above 0.8 IoU and box i + 2 below it, ranks
+    descending, so the fixpoint settles one box an iteration."""
+    x = torch.arange(p, dtype=torch.float32, device=dev) * 2.2
+    one = torch.stack([x, torch.full_like(x, 20.0), x + 36.0,
+                       torch.full_like(x, 76.0)], dim=-1)
+    return (one.expand(1, 4, p, 4).contiguous(),
+            torch.ones((1, 4, p), dtype=torch.bool, device=dev))
+
+
+def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
+             cfgs, card):
+    """K8 against nms_fixpoint_plain on the card, bit for bit, at the
+    loaded one-stream and the 8-stream steps' candidates and on a chain of
+    length P; iterations; CUDA-event, graph and plain times, the old
+    16-iteration chain's time and device kernels in this call, the bound.
+    Returns (max element difference, (ms, plain ms, bound ms, bound by,
+    library ms)) at the loaded one-stream step's candidates."""
+    _, nms_cfg, _ = cfgs
+    thr = nms_cfg.iou_threshold
+    dev = bundle.device
+    cases = (("loaded one stream",) + k8_inputs(
+                 torch, nms, bundle, torch.from_numpy(main_frame)[None].to(
+                     dev), cfgs),
+             (f"{STREAMS} streams",) + k8_inputs(
+                 torch, nms, bundle, torch.from_numpy(multi_frames).to(dev),
+                 cfgs),
+             (f"chain of {nms_cfg.pre_nms_top_k}",) + k8_chain(
+                 torch, nms_cfg.pre_nms_top_k, dev))
+    max_err, first = 0, None
+    for label, boxes, valid in cases:
+        got = nms.nms_fixpoint_cuda(boxes, valid, thr)
+        want = nms.nms_fixpoint_plain(boxes, valid, thr)
+        torch.cuda.synchronize()
+        err = int((got != want).sum())
+        if err:
+            raise AssertionError(f"K8 != plain on {label}: {err} of "
+                                 f"{got.numel()} differ")
+        iters = fixpoint_iterations(torch, iou_matrix, boxes, valid, thr)
+        run = lambda b=boxes, v=valid: nms.nms_fixpoint_cuda(  # noqa: E731
+            b, v, thr)
+        old = lambda b=boxes, v=valid: old_nms_chain(  # noqa: E731
+            torch, iou_matrix, b, v, thr)
+        ms, ms_graph = event_ms(torch, run, 50), graph_ms(torch, run)
+        plain = event_ms(torch, lambda b=boxes, v=valid:
+                         nms.nms_fixpoint_plain(b, v, thr), 3)
+        old_ms, old_graph = event_ms(torch, old, 10), graph_ms(torch, old)
+        old_kernels = step_profile(torch, old)[0]
+        problems, p = valid.shape[0] * valid.shape[1], valid.shape[-1]
+        n_valid = valid.reshape(problems, p).sum(-1).double()
+        pairs = float((n_valid * (n_valid - 1) / 2).sum())
+        # Each box's 16 B and valid byte read once, each keep byte written
+        # once; about 12 float32 operations an IoU of two valid boxes.
+        nbytes = problems * p * 18
+        b_ms, b_by = bound(nbytes, 12 * pairs, F32_FLOPS)
+        log(f"timing: K8 {label}: [{valid.shape[0]}, {valid.shape[1]}, "
+            f"{p}], {int(n_valid.sum())} valid candidates, {iters} "
+            f"iterations to the fixpoint; kernel {ms:.4f} ms eager, "
+            f"{ms_graph:.4f} ms graph; plain {plain:.4f} ms; the "
+            f"16-iteration chain it replaced {old_ms:.4f} ms eager, "
+            f"{old_graph:.4f} ms graph, {old_kernels:.0f} device kernels a "
+            f"call; bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {pairs:.0f} "
+            f"IoU pairs); library: none (no PyTorch call suppresses); "
+            f"{card}")
+        if first is None:
+            first = (ms, plain, b_ms, b_by, None)
+        max_err = max(max_err, err)
+    log(f"K8: equal to the plain version bit for bit on all "
+        f"{len(cases)} inputs")
+    return max_err, first
+
+
+def phase_k9(torch, switch, dev):
+    """K9 against branch_flags_plain on the card: a ConditionalProgram of
+    tiny segments (the value copied in, one flag raised by each branch's
+    body) with the one-stream step's branches ((0, 16], (16, max]) and the
+    8-stream step's ((0, max]); for values around each bound, the flags
+    the taken bodies raise equal the plain version's. Returns the number
+    of differing flags (0) and the plain version's ms."""
+    pool = torch.cuda.graph_pool_handle()
+    stream = torch.cuda.Stream(dev)
+
+    def segment(fn):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            fn()
+        return graph
+
+    src = torch.zeros((), dtype=torch.int32, device=dev)
+    value = torch.zeros((), dtype=torch.int32, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    Branch, top = switch.Branch, switch.INT32_MAX
+    sets = ([Branch(0, 16, 16, None), Branch(16, top, 64, None)],
+            [Branch(0, top, 16, None)])
+    values = (0, 1, 15, 16, 17, 50, 64, top)
+    err, checked = 0, 0
+    for branches in sets:
+        pre = segment(lambda: (value.copy_(src), flags.zero_()))
+        bodies = [segment(lambda k=k: flags[k].fill_(1))
+                  for k in range(len(branches))]
+        post = segment(lambda: flags.add_(0))
+        program = switch.ConditionalProgram(
+            [("segment", pre), ("switch", value, branches, bodies),
+             ("segment", post)], dev)
+        for v in values:
+            src.fill_(v)
+            switch.launch_conditional(program)
+            want = switch.branch_flags_plain(src, branches).to(torch.int32)
+            torch.cuda.synchronize()
+            err += int((flags[:len(branches)] != want).sum())
+            checked += 1
+        del program
+    if err:
+        raise AssertionError(f"K9 != plain: {err} flags differ")
+    plain = event_ms(torch, lambda: switch.branch_flags_plain(
+        src, sets[0]), 100)
+    rt, drv = switch.cuda_versions()
+    log(f"K9: the flags of {checked} launches (values {list(values)}) "
+        f"equal branch_flags_plain's; IF conditional nodes, CUDA runtime "
+        f"{rt}, driver {drv}; plain {plain:.4f} ms")
+    return err, plain
+
+
+def switch_widths(values, d, r):
+    """The slots each switch's taken branch encodes (0, r or the padded
+    width), from the switches' values."""
+    dp = -(-d // r) * r
+    return [0 if v == 0 else (r if (v <= r and dp > r) else dp)
+            for v in values]
+
+
+def few_bodies(torch, bundle, frames, base, nms_cfg, pipe_cfg, d, r):
+    """(NMS configuration, det_score_threshold) at which every frame has
+    at most ``r`` live bodies and one has some: a score threshold where the
+    body scores allow one (more than r / 2 live), else the loaded
+    threshold with ``pre_nms_top_k = r``, which leaves at most r
+    candidates a class (random weights saturate many scores at exactly
+    1.0, which no score threshold separates). The det width, and so the
+    switch's branches, stay those of ``base``."""
+    import dataclasses
+
+    from botsort_tpu_torch.ops import crop
+    from botsort_tpu_torch.pipeline import frame_step as fs_mod
+
+    dev = bundle.device
+    dets_in = []
+    for f in frames:
+        batch = torch.from_numpy(f.reshape((-1,) + f.shape[-3:])).to(dev)
+        full = torch.tensor([0.0, 0.0, FRAME_HW[1], FRAME_HW[0]],
+                            device=dev).expand(batch.shape[0], 1, 4)
+        with torch.no_grad():
+            dets_in.append(bundle.detector(crop._crop(
+                batch, full, pipe_cfg.detector_input_hw, pipe_cfg)[:, 0]))
+
+    def scores_of(ncfg):
+        out = []
+        for cand in dets_in:
+            dets, _, valid = fs_mod.postprocess_detections_batched(
+                *cand, FRAME_HW, base, ncfg, pipe_cfg)
+            out += [row[v].tolist() for row, v in zip(
+                dets.scores[:, 0, :d].cpu(), valid[:, 0, :d].cpu())]
+        return out
+
+    scores = scores_of(nms_cfg)
+    # Score thresholds from the highest down: the first that leaves at
+    # most r live bodies in every frame and more than r / 2 in one.
+    for t in sorted({x for sc in scores for x in sc}, reverse=True):
+        live = [sum(x > t for x in sc) for sc in scores]
+        if max(live) > r:
+            break
+        if max(live) > r // 2:
+            return nms_cfg, float(t)
+    few = dataclasses.replace(nms_cfg, pre_nms_top_k=r)
+    if 0 < max(len(sc) for sc in scores_of(few)) <= r:
+        return few, base.det_score_threshold
+    raise AssertionError(f"switch: no setting gives 1 to {r} live bodies")
+
+
+def phase_switch(torch, bundle, card, k9_plain_ms):
+    """host_bucket_dispatch=False, replayed from CUDA graphs with the
+    encoder batches as conditional nodes: at the loaded one-stream point
+    with 0, at most 16 (``few_bodies``) and more than 16 live bodies, and
+    at the 8-stream moderate-16 point with 0 and up to 16.
+    Each step bit-equal (FrameResult and stores) to the static-bucket
+    graph at the buckets its branches encode; one capture a facade; K9
+    twice a replay, K7 once a step and once a branch taken, K8 once a
+    step. Prints the live counts, graphed medians and device ms a step per
+    regime, K9's device time, and a replay (8 streams: update_async) under
+    the sync debug mode. Returns (K9 launches, K9's (ms, plain ms, bound
+    ms, bound by, library ms))."""
+    import dataclasses
+
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.pipeline import frame_step as fs_mod
+    from botsort_tpu_torch.pipeline import host, switch
+
+    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    k9 = switch.launch_conditional
+    nms_cfg = NMSConfig()
+    sw_pipe = PipelineConfig(host_bucket_dispatch=False)
+    st_pipe = PipelineConfig()
+    r = sw_pipe.max_reid_batch
+    dev = bundle.device
+    k9.launches = 0
+    k9_runs = []
+    points = (("loaded one stream", 0, loaded_cfg(TrackerConfig), 10),
+              (f"{STREAMS} streams moderate-16", STREAMS,
+               loaded_cfg(TrackerConfig, max_dets=16), 11))
+    for label, streams, base, seed in points:
+        rng = np.random.default_rng(seed)
+        shape = ((streams,) if streams else ()) + FRAME_HW + (3,)
+        frames = [rng.integers(0, 255, shape, dtype=np.uint8)
+                  for _ in range(4)]
+        d = min(base.max_dets, nms_cfg.max_boxes_per_class)
+        dp = -(-d // r) * r
+        regimes = [("none", nms_cfg, 1.0)]
+        if dp > r:
+            regimes.append(("at most 16",) + few_bodies(
+                torch, bundle, frames, base, nms_cfg, st_pipe, d, r))
+        regimes.append(("loaded", nms_cfg, base.det_score_threshold))
+        for name, ncfg, thr in regimes:
+            trk = dataclasses.replace(base, det_score_threshold=thr)
+            if streams:
+                sw = host.BatchedBoTSORTPipeline(bundle, streams, trk,
+                                                 ncfg, sw_pipe)
+                st = host.BatchedBoTSORTPipeline(bundle, streams, trk,
+                                                 ncfg, st_pipe)
+            else:
+                sw = host.BoTSORTPipeline(bundle, trk, ncfg, sw_pipe)
+                st = host.BoTSORTPipeline(bundle, trk, ncfg, st_pipe)
+            n_switch = len(switch.bucket_branches(None, dp, r))
+            rows = []
+            for i, f in enumerate(frames):
+                pre = sw.stores if streams else sw.store
+                before = (k9.launches, k7.launches, k8.launches)
+                t0 = time.perf_counter()
+                sw.update(f)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                ran = (k9.launches - before[0], k7.launches - before[1],
+                       k8.launches - before[2])
+                res = sw.last_result
+                if not np.all(res.nms_converged):
+                    raise AssertionError("switch: NMS did not converge")
+                values = fs_mod.switch_values(res, trk, ncfg, sw_pipe)
+                widths = switch_widths(values, d, r)
+                # K7: a step's detector crop and a crop a branch taken;
+                # the first step's warm-up ran every branch once more.
+                k7_want = 1 + sum(w > 0 for w in widths) + (
+                    (1 + 2 * n_switch) if i == 0 else 0)
+                if ran != (2, k7_want, 1 + (i == 0)):
+                    raise AssertionError(f"switch ({label}, {name}): step "
+                                         f"{i + 1} launched (K9, K7, K8) "
+                                         f"{ran}, widths {widths}")
+                new, packed = st._step(pre, st._upload("frame", f), *widths)
+                want = packed.to_host()
+                same_results(torch, host, [dict(result=want)],
+                             [dict(result=res)], new,
+                             sw.stores if streams else sw.store,
+                             f"switch ({label}, {name}): step {i + 1} != "
+                             f"the static graph at buckets {widths}")
+                live = np.asarray(res.det_valid)[..., 0, :d].sum(-1)
+                rows.append((ms, values, widths, live.tolist()))
+            cache = sw._graphs
+            if cache.captures != 1 or cache.keys()[0][5:7] != (None, None):
+                raise AssertionError(f"switch ({label}, {name}): "
+                                     f"{cache.captures} captures")
+            k9_runs.append(k9.launches)
+            step = (lambda p=sw, x=frames[-1]: p.update(x))
+            n_dev, _, dev_ms = step_profile(torch, step)
+            k9_ms, k9_n, _ = kernel_share(torch, step, K9_KERNEL)
+            med = statistics.median(r_[0] for r_ in rows[1:])
+            log(f"switch ({label}, {name}): det_score_threshold {thr!r}, "
+                f"pre_nms_top_k {ncfg.pre_nms_top_k}, "
+                f"live bodies {[r_[3] for r_ in rows]}, switch values "
+                f"(bodies, faces + 1) {[r_[1] for r_ in rows]}, branch "
+                f"widths {[r_[2] for r_ in rows]}; every step bit-equal "
+                f"to the static-bucket graph at those buckets; 1 capture")
+            log(f"timing: switch ({label}, {name}): graphed median "
+                f"{med:.3f} ms a step over steps 2-{len(frames)} "
+                f"({[round(r_[0], 3) for r_ in rows]}), {dev_ms:.3f} ms of "
+                f"device time and {n_dev:.0f} device kernels a step under "
+                f"torch.profiler, K9 {k9_ms * 1e3:.2f} us in {k9_n:.0f} "
+                f"launches a step; {card}")
+            if name == "loaded":
+                if not streams:
+                    k9_point = (k9_ms / max(k9_n, 1), k9_n)
+                frame_dev = torch.from_numpy(frames[-1]).to(dev)
+                store = sw.stores if streams else sw.store
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    if streams:
+                        handle = sw.update_async(frames[-1])
+                    else:
+                        packed = sw._step(store, frame_dev, None, None)[1]
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if streams:
+                    handle.result()
+                else:
+                    packed.to_host()
+                log(f"switch ({label}): a replay"
+                    f"{' (update_async)' if streams else ''} ran under "
+                    "set_sync_debug_mode('error')")
+            del sw, st, cache
+            gc.collect()  # before the next facade's captures (``drive``)
+            torch.cuda.empty_cache()
+    launches = k9.launches
+    # K9 reads one int32 and sets one handle a branch.
+    b_ms, b_by = bound(4 + 8 * 2, 2 * 2, F32_FLOPS)
+    return launches, (k9_point[0], k9_plain_ms, b_ms, b_by, None)
 
 
 def phase_async(torch, multi_pipe, frames):
@@ -1289,7 +1673,7 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
         rb, fb = rows[g]["runs"][-1][:2]
         with torch.no_grad():
             whole = fs_mod._perception_batched(
-                bundle, frames.flatten(0, 1), *cfgs, rb, fb, None)
+                bundle, frames.flatten(0, 1), *cfgs, rb, fb)
         res = rows[g]["result"]
         for tt in range(t_batch):
             def sliced(*_, tt=tt):
@@ -1390,24 +1774,24 @@ def phase_checkpoint(torch, assets, bundle):
 
 
 def phase_export(torch, bundle, assignment_cuda, bn_act, card):
-    """Both NMS programs of one bucket pair exported (runtime/exported.py),
+    """The program of one bucket pair exported (runtime/exported.py),
     saved, loaded and replayed from CUDA graphs: load_pipeline at the
     loaded one-stream point (K1) and load_batched_pipeline at 8 streams,
     moderate-16 (K2). Over 8 seeded frames every FrameResult field and the
     final stores equal the live facade's, replayed from graphs at the same
-    bucket set; the full NMS program equals the live step's; K1/K2, K6 and
-    K7 are counted on replay, K6 and K7 as often as in the live run."""
+    bucket set; K1/K2, K6, K7 and K8 are counted on replay, K6, K7 and K8
+    as often as in the live run."""
     import shutil
     import tempfile
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop
+    from botsort_tpu_torch.ops import crop, nms
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.runtime import exported
 
     cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
-    k7 = crop.crop_resize_cuda
+    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
     tmp = tempfile.mkdtemp(prefix="botsort_export_")
     points = (("one stream, loaded", 0, loaded_cfg(TrackerConfig), 0),
               (f"{STREAMS} streams, moderate-16", STREAMS,
@@ -1416,7 +1800,6 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
         for label, streams, tracker_cfg, seed in points:
             cfgs = (tracker_cfg, NMSConfig(), PipelineConfig())
             d = min(tracker_cfg.max_dets, cfgs[1].max_boxes_per_class)
-            full = cfgs[1].pre_nms_top_k
             path = os.path.join(tmp, f"streams{streams}")
             t0 = time.perf_counter()
             manifest = exported.export_all(
@@ -1427,17 +1810,15 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
                                else "artifacts"]
             t0 = time.perf_counter()
             programs = exported.Programs(path, bundle, manifest)
-            for e in entries:
-                programs.program(streams, FRAME_HW, d, d, e["nms_iters"])
+            programs.program(streams, FRAME_HW, d, d)
             load_s = time.perf_counter() - t0
-            ops = sorted({str(n.target) for e in entries
-                          for n in programs.exported_program(
-                              streams, FRAME_HW, d, d,
-                              e["nms_iters"]).graph.nodes
-                          if "botsort_tpu_torch" in str(n.target)})
+            ops = sorted({str(n.target) for n in programs.exported_program(
+                streams, FRAME_HW, d, d).graph.nodes
+                if "botsort_tpu_torch" in str(n.target)})
             want_ops = ["botsort_tpu_torch.bn_act.default",
                         "botsort_tpu_torch.cascade_solve.default",
-                        "botsort_tpu_torch.crop_resize.default"]
+                        "botsort_tpu_torch.crop_resize.default",
+                        "botsort_tpu_torch.nms_fixpoint.default"]
             if ops != want_ops:
                 raise AssertionError(f"export: the graph calls {ops}")
             if streams:
@@ -1458,12 +1839,13 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             rng = np.random.default_rng(seed)
             frames = [rng.integers(0, 255, shape, dtype=np.uint8)
                       for _ in range(8)]
-            rows, k6_runs, k7_runs = {}, {}, {}
+            rows, k6_runs, k7_runs, k8_runs = {}, {}, {}, {}
             for mode, pipe in (("live", live), ("loaded", loaded)):
                 cuda.launches = cuda.batched_launches = k6.launches = 0
-                k7.launches = 0
+                k7.launches = k8.launches = 0
                 rows[mode] = drive(torch, pipe, frames, launches_of)
                 k6_runs[mode], k7_runs[mode] = k6.launches, k7.launches
+                k8_runs[mode] = k8.launches
                 if other():
                     raise AssertionError(f"export {mode}: the other "
                                          "solver kernel launched")
@@ -1484,34 +1866,23 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             if k7_runs["loaded"] != k7_runs["live"] or k7_runs["loaded"] != \
                     k7_expected(rows["loaded"]):
                 raise AssertionError(f"export ({label}): K7 {k7_runs}")
-            # The full NMS program (the facades' re-run) on the last
-            # frames, from the final stores, against the live step's.
-            dev = bundle.device
-            frame_dev = torch.from_numpy(frames[-1]).to(dev)
-            before = (launches_of(), k6.launches)
-            results = [p._step(p.stores if streams else p.store, frame_dev,
-                               d, d, None, full)[1].to_host()
-                       for p in (live, loaded)]
-            same_results(torch, host, [dict(result=results[0])],
-                         [dict(result=results[1])], None, None,
-                         f"export ({label}): full NMS program")
-            if launches_of() - before[0] < 2 or k6.launches == before[1]:
-                raise AssertionError(f"export ({label}): the full NMS "
-                                     "programs did not launch the kernels")
+            if k8_runs["loaded"] != k8_runs["live"] or k8_runs["loaded"] != \
+                    sum(expected_launches(r) for r in rows["loaded"]):
+                raise AssertionError(f"export ({label}): K8 {k8_runs}")
             nbytes = [e["bytes"] for e in entries]
             secs = [round(e["export_seconds"], 3) for e in entries]
             med = {m: statistics.median(steady_ms(rows[m])) for m in rows}
-            log(f"export ({label}): {len(entries)} programs (fixed and "
-                f"full NMS count, buckets ({d},{d})) in {export_s:.3f} s "
-                f"(each {secs} s), {nbytes} bytes, loaded in {load_s:.3f} s;"
-                f" the graph calls {ops}; over {len(frames)} frames "
-                f"replayed from graphs every FrameResult field and the "
-                f"final stores equal the live facade's, and the full NMS "
-                f"program's step equals the live one's; solver launches "
-                f"{kernel_launches} over runs "
+            log(f"export ({label}): {len(entries)} program (buckets "
+                f"({d},{d}); the NMS fixpoint runs to its end inside it) in "
+                f"{export_s:.3f} s (each {secs} s), {nbytes} bytes, loaded "
+                f"in {load_s:.3f} s; the graph calls {ops}; over "
+                f"{len(frames)} frames replayed from graphs every "
+                f"FrameResult field and the final stores equal the live "
+                f"facade's; solver launches {kernel_launches} over runs "
                 f"{[r['runs'] for r in rows['loaded']]}, K6 launches "
                 f"{k6_runs['loaded']} (live {k6_runs['live']}), K7 launches "
-                f"{k7_runs['loaded']} (live {k7_runs['live']})")
+                f"{k7_runs['loaded']} (live {k7_runs['live']}), K8 launches "
+                f"{k8_runs['loaded']} (live {k8_runs['live']})")
             log(f"timing: export ({label}): replayed median live "
                 f"{med['live']:.3f} ms, loaded {med['loaded']:.3f} ms a "
                 f"step in this call; {card}")
@@ -1525,11 +1896,10 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
 def phase_serve(torch, bundle, card):
     """cli/serve.py's server on a localhost thread with a numpy decoder,
     its connections sharing one graph cache: cold, and after warm_up has
-    captured both NMS programs of every bucket pair at 1080p
-    (--warmup_hw). The JSON of 4
-    frames equals a pipeline driven directly; prints the first request's
-    latency both ways, each pair's capture time and the card's reserved
-    memory afterwards."""
+    captured the program of every bucket pair at 1080p (--warmup_hw). The
+    JSON of 4 frames equals a pipeline driven directly; prints the first
+    request's latency both ways, each pair's capture time and the card's
+    reserved memory afterwards."""
     import io
     import socket
     import threading
@@ -1597,13 +1967,13 @@ def phase_serve(torch, bundle, card):
     n_tracks = [len(a["tracks"]) for a in want]
     log(f"serve: {len(frames)} frames over one connection, cold and after "
         f"warm_up: the JSON equals the direct pipeline's ({n_tracks} "
-        f"tracks); warm_up captured {len(warmed)} steps (both NMS programs "
-        f"of {len({k[:2] for k, _ in warmed})} bucket pairs), {caps_warm} "
+        f"tracks); warm_up captured {len(warmed)} steps (one program a "
+        f"bucket pair, {len({k for k, _ in warmed})} pairs), {caps_warm} "
         f"graphs in all (cold server: {caps_cold})")
     log(f"timing: serve: first request {ms_cold[0]:.3f} ms cold, "
         f"{ms_warm[0]:.3f} ms after warm_up; later requests "
         f"{[round(x, 3) for x in ms_warm[1:]]} ms; capture seconds per "
-        f"(reid bucket, face bucket, NMS count) "
+        f"(reid bucket, face bucket) "
         f"{[(k, round(t, 3)) for k, t in warmed]}; "
         f"torch.cuda.max_memory_reserved after all of them {reserved} B; "
         f"{card}")
@@ -1678,17 +2048,17 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
     each routed through its custom op, as a trace is (their ``tracing``
     patched to say so), in the order direct, op, op, direct. Every
     FrameResult field, the final stores and the K1 and K6 launches are
-    equal across the runs, K7's too; prints each run's median and the two
-    routes' (the dispatcher's host cost on the eager step)."""
+    equal across the runs, K7's and K8's too; prints each run's median and
+    the two routes' (the dispatcher's host cost on the eager step)."""
     import contextlib
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop
+    from botsort_tpu_torch.ops import crop, nms
     from botsort_tpu_torch.pipeline import host
 
     cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
-    k7 = crop.crop_resize_cuda
+    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
     cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
@@ -1702,21 +2072,21 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
                     stack.enter_context(
                         mock.patch.object(m, "tracing", lambda: True))
             cuda.launches = cuda.batched_launches = k6.launches = 0
-            k7.launches = 0
+            k7.launches = k8.launches = 0
             rows = drive(torch, pipe, frames, lambda: cuda.launches)
         runs.append((route, rows, pipe.store,
                      (cuda.launches, cuda.batched_launches, k6.launches,
-                      k7.launches)))
+                      k7.launches, k8.launches)))
     _, rows0, store0, launches0 = runs[0]
     for route, rows, store, launches in runs[1:]:
         same_results(torch, host, rows0, rows, store0, store,
                      f"oproute: the {route} route's run differs")
         if launches != launches0:
-            raise AssertionError(f"oproute: launches (K1, K2, K6, K7) "
+            raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8) "
                                  f"{launches} against {launches0}")
     if launches0[0] < len(frames) or launches0[1] or launches0[2] < 1 or \
-            launches0[3] < len(frames):
-        raise AssertionError(f"oproute: launches (K1, K2, K6, K7) "
+            launches0[3] < len(frames) or launches0[4] < len(frames):
+        raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8) "
                              f"{launches0}")
     med = {}
     for route, rows, _, _ in runs:
@@ -1724,12 +2094,12 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
     each = [(route, round(statistics.median(steady_ms(rows)), 3))
             for route, rows, _, _ in runs]
     d, o = (statistics.median(med[r]) for r in ("direct", "op"))
-    calls = (launches0[0] + launches0[2] + launches0[3]) / len(frames)
+    calls = (launches0[0] + sum(launches0[2:])) / len(frames)
     log(f"oproute: {len(frames)} eager frames at the loaded one-stream "
         f"point, kernels called directly and through torch.ops."
         f"botsort_tpu_torch, runs in the order direct, op, op, direct: "
         f"every FrameResult field, the final stores and the launches equal "
-        f"(K1, K2, K6, K7 per run: {launches0})")
+        f"(K1, K2, K6, K7, K8 per run: {launches0})")
     log(f"timing: oproute: eager one-stream step median {d:.3f} ms direct, "
         f"{o:.3f} ms through the custom ops ({o - d:+.3f} ms, "
         f"{1e3 * (o - d) / calls:+.1f} us a kernel call over {calls:.1f} "
@@ -2884,7 +3254,9 @@ def main() -> int:
     from botsort_tpu_torch.models import (bn_act, facereid_dw, fastreid,
                                           fastreid_fused)
     from botsort_tpu_torch.models.common import cast_compute
-    from botsort_tpu_torch.ops import assignment, assignment_cuda, crop
+    from botsort_tpu_torch.ops import assignment, assignment_cuda, crop, nms
+    from botsort_tpu_torch.ops.boxes import iou_matrix
+    from botsort_tpu_torch.pipeline import switch
     from botsort_tpu_torch.runtime import assets, kernels
 
     dev = torch.device("cuda", 0)
@@ -2933,13 +3305,13 @@ def main() -> int:
                    for p in m.parameters())
     log(f"bundle: full width, bfloat16, {n_params} parameters")
     done("bundle")
-    (k1_launches, k7_launches, main_pipe, main_frame, main_cfgs,
+    (k1_launches, k7_launches, k8_launches, main_pipe, main_frame, main_cfgs,
      main_cascades) = phase_main(torch, bundle, assignment, assignment_cuda,
                                  card)
     done("main")
-    (k2_launches, k6_launches, k7_multi, unlowered, multi_pipe, multi_frames,
-     multi_cfgs) = phase_multi(torch, bundle, assignment, assignment_cuda,
-                               bn_act, card)
+    (k2_launches, k6_launches, k7_multi, k8_multi, unlowered, multi_pipe,
+     multi_frames, multi_cfgs) = phase_multi(torch, bundle, assignment,
+                                             assignment_cuda, bn_act, card)
     done("multi")
     phase_nosync(torch, bundle, main_pipe, main_frame, main_cfgs, multi_pipe,
                  multi_frames)
@@ -2949,10 +3321,17 @@ def main() -> int:
     k6_err, k6_times = phase_k6(torch, F, bn_act, bundle, multi_pipe,
                                 multi_frames, multi_cfgs, card)
     done("K6")
+    k8_err, k8_times = phase_k8(torch, nms, iou_matrix, bundle, main_frame,
+                                multi_frames, main_cfgs, card)
+    done("K8")
     del main_pipe, multi_pipe  # their graphs and the graphs' memory pools
     torch.cuda.empty_cache()
     k7_err, k7_times = phase_k7(torch, F, crop, dev, card)
     done("K7")
+    k9_err, k9_plain = phase_k9(torch, switch, dev)
+    done("K9")
+    k9_launches, k9_times = phase_switch(torch, bundle, card, k9_plain)
+    done("switch")
     k2_temporal, k7_temporal = phase_temporal(torch, bundle, assignment_cuda,
                                               card, unlowered)
     done("temporal")
@@ -2976,6 +3355,8 @@ def main() -> int:
                                       k4_model, face_inputs, card))
     times["K6"] = k6_times
     times["K7"] = k7_times
+    times["K8"] = k8_times
+    times["K9"] = k9_times
     done("timings")
     phase_export(torch, bundle, assignment_cuda, bn_act, card)
     done("export")
@@ -2984,8 +3365,8 @@ def main() -> int:
     phase_store(torch, bundle)
     done("store")
     phase_oproute(torch, bundle, assignment_cuda, bn_act,
-                  (assignment, bn_act, crop, facereid_dw, fastreid_fused),
-                  card)
+                  (assignment, bn_act, crop, nms, facereid_dw,
+                   fastreid_fused), card)
     done("oproute")
     torch.cuda.empty_cache()
     k6b_launches, train_norms = phase_train(torch, bn_act, assets,
@@ -3005,6 +3386,8 @@ def main() -> int:
     log(f"temporal: K2 launches on the temporal path {k2_temporal}")
     log(f"K7: launches on the main path {k7_launches}, the {STREAMS}-stream "
         f"path {k7_multi}, the temporal path {k7_temporal}")
+    log(f"K8: launches on the main path {k8_launches}, the {STREAMS}-stream "
+        f"path {k8_multi}; K9: launches on the switch path {k9_launches}")
     log(f"phases (s): {json.dumps(seconds)}, total "
         f"{sum(seconds.values()):.1f}")
     log(card)
@@ -3032,6 +3415,10 @@ def main() -> int:
               k6b_err, "K6b"),
         entry("crop_resize", K7_SOURCE, K7_REPLACES, k7_launches, k7_err,
               "K7"),
+        entry("nms_fixpoint", K8_SOURCE, K8_REPLACES, k8_launches, k8_err,
+              "K8"),
+        entry("graph_cond", K9_SOURCE, K9_REPLACES, k9_launches, k9_err,
+              "K9"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

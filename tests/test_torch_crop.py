@@ -302,7 +302,7 @@ def test_temporal_step_at_the_jax_default_matches_jax(bundles):
             with torch.no_grad():
                 perceived.append(tfs._perception_batched(
                     tb, torch.from_numpy(flat), T_TRK, T_NMSC, T_DEFAULT, d,
-                    d, None))
+                    d))
     _same_crops(j_seen, t_seen, "temporal")
     for g, frames in enumerate(groups):
         t = frames.shape[1]

@@ -1,5 +1,6 @@
-"""Kernels K1-K7 on the card, against their plain PyTorch versions, and
-the frame step replayed from a CUDA graph against the eager step.
+"""Kernels K1-K9 on the card, against their plain PyTorch versions, and
+the frame step replayed from a CUDA graph against the eager step (also
+with the encoders' bucket switch as conditional graph nodes).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card
 and skips without one. The file imports neither JAX nor the JAX package,
@@ -21,11 +22,15 @@ from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
 from botsort_tpu_torch.models import bn_act, facereid, facereid_dw, fastreid
 from botsort_tpu_torch.models import fastreid_fused
 from botsort_tpu_torch.models.common import cast_compute
-from botsort_tpu_torch.ops import assignment, assignment_cuda, crop
+from botsort_tpu_torch.ops import assignment, assignment_cuda, crop, nms
 from botsort_tpu_torch.pipeline import frame_step as fs
-from botsort_tpu_torch.pipeline import host
+from botsort_tpu_torch.pipeline import host, switch
 from botsort_tpu_torch.runtime import assets, kernels
 from botsort_tpu_torch.track.state import empty_stores
+# By its own name (pytest puts this directory on the path): a site package
+# named ``tests`` would shadow the directory as ``tests.torch_scenes``.
+from torch_scenes import (LIVE, REGIMES, WIDTH, TorchCountDetector,
+                          level_frames)
 
 pytestmark = pytest.mark.cuda
 
@@ -942,7 +947,7 @@ def test_encoder_ops_on_the_card_equal_their_cpu_implementation(dev):
 
 def test_mini_exported_step_replayed_from_a_graph_equals_eager(dev,
                                                                 tmp_path):
-    """A MINI bfloat16 step exported on the card (both NMS programs of the
+    """A MINI bfloat16 step exported on the card (the program of the
     det-width bucket pair), loaded and replayed from CUDA graphs by
     load_pipeline: every FrameResult field and the final store bit-equal to
     the eager live facade's; K1 and K6 counted on every replay."""
@@ -970,3 +975,158 @@ def test_mini_exported_step_replayed_from_a_graph_equals_eager(dev,
     for x, y in zip(host._store_tensors(eager.store),
                     host._store_tensors(loaded.store)):
         assert (x is None and y is None) or torch.equal(x, y)
+
+
+# --- K8: the NMS fixpoint; K9: the bucket switch as conditional nodes -----
+
+
+def _k8_case(rng, problems, p, kind):
+    if kind == "chain":   # each box dominates the next: a chain of p
+        x = np.arange(p, dtype=np.float32) * 3.0
+        one = np.stack([x, np.zeros(p, np.float32), x + 10.0,
+                        np.full(p, 10.0, np.float32)], axis=1)
+        return np.stack([one] * problems), np.ones((problems, p), bool)
+    span = 200.0 if kind == "random" else 40.0
+    tl = rng.uniform(0, span, (problems, p, 2))
+    boxes = np.concatenate([tl, tl + rng.uniform(5, 60, (problems, p, 2))],
+                           -1).astype(np.float32)
+    if kind == "tied":   # duplicated boxes: IoU exactly 1
+        boxes[:, 1::2] = boxes[:, ::2][:, :p // 2]
+    return boxes, rng.uniform(0, 1, (problems, p)) < 0.9
+
+
+@pytest.mark.parametrize("problems,p,kind", [
+    (32, 512, "random"), (4, 512, "dense"), (1, 512, "chain"),
+    (2, 1024, "chain"), (8, 252, "tied"), (3, 33, "random")])
+def test_k8_equals_plain(dev, problems, p, kind):
+    """K8 against its plain version, bit for bit, at three thresholds
+    (one launch each, counted), shaped [G, C, P] and flat."""
+    rng = np.random.default_rng(p + problems)
+    boxes, valid = _k8_case(rng, problems, p, kind)
+    tb = torch.from_numpy(boxes).to(dev)
+    tv = torch.from_numpy(valid).to(dev)
+    for thr in (0.3, 0.5, 0.8):
+        before = nms.nms_fixpoint_cuda.launches
+        got = nms.nms_fixpoint_cuda(tb, tv, thr)
+        assert nms.nms_fixpoint_cuda.launches == before + 1
+        want = nms.nms_fixpoint_plain(tb, tv, thr)
+        assert torch.equal(got, want), thr
+    if problems % 2 == 0:
+        shaped = nms.nms_fixpoint(tb.reshape(2, -1, p, 4),
+                                  tv.reshape(2, -1, p), 0.5)
+        assert torch.equal(shaped.reshape(problems, p),
+                           nms.nms_fixpoint_plain(tb, tv, 0.5))
+
+
+def test_k8_wrapper_refuses_and_op_equals_its_cpu_implementation(dev):
+    rng = np.random.default_rng(41)
+    boxes, valid = _k8_case(rng, 4, 96, "random")
+    tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
+    before = nms.nms_fixpoint_cuda.launches
+    got, want = _op_pair(torch.ops.botsort_tpu_torch.nms_fixpoint,
+                         [tb, tv, 0.5], dev)
+    assert nms.nms_fixpoint_cuda.launches == before + 1
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="at most"):
+        nms.nms_fixpoint_cuda(torch.zeros(1, 1025, 4, device=dev),
+                              torch.ones(1, 1025, dtype=torch.bool,
+                                         device=dev), 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        nms.nms_fixpoint_cuda(tb.to(dev).double(), tv.to(dev), 0.5)
+
+
+def _count_bundle(dev):
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    return fs.ModelBundle(TorchCountDetector().to(dev), bundle.body_encoder,
+                          bundle.face_encoder)
+
+
+# Per step, the regime of each of three streams (the step's is the busiest).
+SWITCH_ROWS = (("none", "none", "none"), ("chunk", "none", "none"),
+               ("full", "chunk", "none"), ("none", "none", "chunk"),
+               ("none", "none", "none"))
+
+
+@pytest.mark.parametrize("streams", [1, 3])
+def test_mini_switch_graph_equals_static_bucket_graphs(dev, streams):
+    """host_bucket_dispatch=False replayed from one CUDA graph whose
+    encoder batches are conditional nodes behind K9: over loads that take
+    every branch, each step bit-equal to the static-bucket graph at the
+    buckets the branches encode (0, 4, 8), one capture for every load, K9
+    twice a replay (body and face switch), K7 once a step plus once a
+    branch taken."""
+    bundle = _count_bundle(dev)
+    pipe_cfg = dataclasses.replace(MINI_PIPE, compute_dtype="float32",
+                                   crop_int8=False)
+    sw_cfg = dataclasses.replace(pipe_cfg, host_bucket_dispatch=False)
+
+    def make(cfg):
+        if streams == 1:
+            return host.BoTSORTPipeline(bundle, MINI_TRK, MINI_NMS, cfg)
+        return host.BatchedBoTSORTPipeline(bundle, streams, MINI_TRK,
+                                           MINI_NMS, cfg)
+
+    sw, st = make(sw_cfg), make(pipe_cfg)
+    k7 = crop.crop_resize_cuda
+    seen = set()
+    for t, row in enumerate(SWITCH_ROWS):
+        frames = np.stack(level_frames([REGIMES[r] for r in
+                                        row[:streams]], seed=30 + t))
+        arg = frames[0] if streams == 1 else frames
+        store_before = st.store if streams == 1 else st.stores
+        before = (switch.launch_conditional.launches, k7.launches)
+        sw.update(arg)
+        torch.cuda.synchronize()
+        values = fs.switch_values(sw.last_result, MINI_TRK, MINI_NMS,
+                                  sw_cfg)
+        if t:  # the first step also warmed up and captured
+            assert switch.launch_conditional.launches - before[0] == 2
+            assert k7.launches - before[1] == 1 + sum(v > 0 for v in values)
+        buckets = [0 if v == 0 else 4 if v <= 4 else 8 for v in values]
+        seen.add(buckets[0])
+        new, packed = st._step(store_before, st._upload("f", frames if
+                                                        streams > 1 else
+                                                        frames[0]),
+                               *buckets)
+        _same_result(sw.last_result, packed.to_host())
+        for x, y in zip(host._store_tensors(sw.store if streams == 1
+                                            else sw.stores),
+                        host._store_tensors(new)):
+            assert (x is None and y is None) or torch.equal(x, y)
+        if streams == 1:
+            st.store = new
+        else:
+            st.stores = new
+    assert seen == {0, 4, 8}
+    assert sw._graphs.captures == 1 and sw._graphs.keys()[0][5:7] == (
+        None, None)
+
+
+def test_mini_eager_switch_zeroes_beyond_the_branch_without_waiting(dev):
+    """On the card without graphs the switch embeds the full width and
+    zeroes the slots beyond the branch the device's count picks, with no
+    synchronisation between upload and readback."""
+    bundle = _count_bundle(dev)
+    cfg = dataclasses.replace(MINI_PIPE, host_bucket_dispatch=False)
+    with torch.no_grad():
+        fs._perception_batched(bundle, torch.from_numpy(np.stack(
+            level_frames([70]))).to(dev), MINI_TRK, MINI_NMS, cfg, None,
+            None)
+    torch.cuda.synchronize()
+    for regime in REGIMES:
+        frames = torch.from_numpy(np.stack(level_frames(
+            [REGIMES[regime]], seed=9))).to(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                p = fs._perception_batched(bundle, frames, MINI_TRK,
+                                           MINI_NMS, cfg, None, None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert int(p.det_valid[:, 0].sum()) == LIVE[regime]
+        assert not bool(p.body_feats[:, WIDTH[regime]:].any())
+        if LIVE[regime]:
+            assert bool(p.body_feats[:, :LIVE[regime]].abs().sum(-1)
+                        .gt(0).all())
+

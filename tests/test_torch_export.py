@@ -1,11 +1,10 @@
 """The port's exported frame-step programs (runtime/exported.py) on the CPU.
 
 One module fixture exports, at one bucket pair of a MINI float32 bundle,
-the one-stream and the 2-stream programs with both NMS counts, saves them
-and loads them back. The fixed NMS count is cut to one iteration and the
-NMS IoU threshold lowered while the fixture exports and while the live
-steps run, so that frames do not converge in the fixed count and the
-facades re-run them with the full one: both programs of each pair run.
+the one-stream and the 2-stream programs, saves them and loads them back.
+The NMS IoU threshold is lowered, so that boxes suppress each other: the
+programs run the suppression fixpoint to its end (kernel K8's op), one
+program a pair.
 
 Everything here is the port against itself, so every comparison is
 bitwise: the loaded programs against the live ``frame_step`` /
@@ -21,15 +20,12 @@ import os
 import shutil
 import subprocess
 import sys
-from unittest import mock
-
 import numpy as np
 import pytest
 import torch
 
 from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
 from botsort_tpu_torch.models.common import BatchNorm
-from botsort_tpu_torch.ops import nms as tnms
 from botsort_tpu_torch.pipeline import frame_step as tfs
 from botsort_tpu_torch.pipeline import host as thost
 from botsort_tpu_torch.runtime import assets as tassets
@@ -50,8 +46,6 @@ PIPE = PipelineConfig(detector_input_hw=(96, 128),
                       face_reid_input_hw=(32, 32), max_reid_batch=4)
 SRC_HW = (240, 320)
 BUCKET = 8        # the det width: one pair, (8, 8), is always exact
-FIXED_ITERS = 1   # the fixed NMS count while the fixture runs
-FULL = NMSC.pre_nms_top_k
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,7 +83,7 @@ def _bundle():
                                 device="cpu", dtype=torch.float32, seed=3)
 
 
-def _live(bundle, streams, frames, nms_iters=None):
+def _live(bundle, streams, frames):
     """The live step's flat outputs (store fields, then the FrameResult's)
     over consecutive frames, each from the previous step's store."""
     store = (tstate.empty_stores(TRK, streams) if streams
@@ -98,7 +92,7 @@ def _live(bundle, streams, frames, nms_iters=None):
     outs = []
     for f in frames:
         store, res = fn(bundle, store, torch.from_numpy(f), TRK, NMSC, PIPE,
-                        None, BUCKET, BUCKET, nms_iters)
+                        None, BUCKET, BUCKET)
         outs.append((*exported._present(store), *thost._result_tensors(res)))
     return outs
 
@@ -116,11 +110,10 @@ def export_dir(tmp_path_factory):
     export)."""
     out = str(tmp_path_factory.mktemp("exported"))
     bundle = _bundle()
-    with mock.patch.object(tnms, "FIXPOINT_ITERS", FIXED_ITERS):
-        before = _live(bundle, 0, _frames(2))
-        manifest = exported.export_all(
-            bundle, TRK, NMSC, PIPE, out, [SRC_HW], streams=2,
-            buckets=[BUCKET], mini=True, log=lambda *_: None)
+    before = _live(bundle, 0, _frames(2))
+    manifest = exported.export_all(
+        bundle, TRK, NMSC, PIPE, out, [SRC_HW], streams=2,
+        buckets=[BUCKET], mini=True, log=lambda *_: None)
     return out, bundle, manifest, before
 
 
@@ -131,14 +124,19 @@ def programs(export_dir):
 
 
 def test_manifest_lists_both_nms_programs_and_the_field_layout(export_dir):
+    """One program a (resolution, bucket pair) at each stream count: the
+    NMS fixpoint runs to its end inside it, so the fixed-count program and
+    its full-count re-run became one."""
     out, bundle, manifest, _ = export_dir
     assert manifest["platform"] == {"type": "cpu"}
     assert manifest["torch_version"] == torch.__version__
     assert manifest["buckets"] == [BUCKET]
     for key, streams in (("artifacts", None), ("batched_artifacts", 2)):
         entries = manifest[key]
-        assert sorted(e["nms_iters"] or 0 for e in entries) == [0, FULL]
+        assert [(e["reid_bucket"], e["face_bucket"]) for e in entries] == [
+            (BUCKET, BUCKET)]
         for e in entries:
+            assert "nms_iters" not in e
             assert e.get("streams") == streams
             assert os.path.getsize(os.path.join(out, e["file"])) == \
                 e["bytes"]
@@ -175,20 +173,20 @@ def test_a_manifest_without_the_crop_fields_reads_as_float32(export_dir,
     assert exported.load_pipeline(d, bundle).pipe_cfg == pipe_cfg
 
 
-@pytest.mark.parametrize("nms_iters", [None, FULL], ids=["fixed", "full"])
 @pytest.mark.parametrize("streams", [0, 2])
 def test_programs_call_the_kernels_as_custom_ops(export_dir, programs,
-                                                 streams, nms_iters):
-    """The loaded graph calls K1/K2, K6 and K7 as torch.ops.botsort_tpu_torch
-    ops (one cascade solve, one norm per BatchNorm module, three crops:
-    the detector input, body and face, in int8 mode), derives no
-    batch-norm constant and holds no weight."""
+                                                 streams):
+    """The loaded graph calls K1/K2, K6, K7 and K8 as
+    torch.ops.botsort_tpu_torch ops (one cascade solve, one norm per
+    BatchNorm module, three crops: the detector input, body and face, in
+    int8 mode, one NMS fixpoint), derives no batch-norm constant and holds
+    no weight."""
     _, bundle, _, _ = export_dir
-    ep = programs.exported_program(streams, SRC_HW, BUCKET, BUCKET,
-                                   nms_iters)
+    ep = programs.exported_program(streams, SRC_HW, BUCKET, BUCKET)
     targets = [str(n.target) for n in ep.graph.nodes
                if n.op == "call_function"]
     assert targets.count("botsort_tpu_torch.cascade_solve.default") == 1
+    assert targets.count("botsort_tpu_torch.nms_fixpoint.default") == 1
     n_norms = sum(isinstance(m, BatchNorm) for net in exported.NETS
                   for m in getattr(bundle, net).modules())
     assert targets.count("botsort_tpu_torch.bn_act.default") == n_norms
@@ -202,19 +200,16 @@ def test_programs_call_the_kernels_as_custom_ops(export_dir, programs,
                for v in ep.constants.values()) < 1024
 
 
-@pytest.mark.parametrize("nms_iters", [None, FULL], ids=["fixed", "full"])
 @pytest.mark.parametrize("streams", [0, 2])
-def test_loaded_program_equals_the_live_step(export_dir, programs, streams,
-                                             nms_iters):
+def test_loaded_program_equals_the_live_step(export_dir, programs, streams):
     _, bundle, _, _ = export_dir
     frames = _frames(3, streams, seed=1)
-    with mock.patch.object(tnms, "FIXPOINT_ITERS", FIXED_ITERS):
-        want = _live(bundle, streams, frames, nms_iters)
+    want = _live(bundle, streams, frames)
     store = (tstate.empty_stores(TRK, streams) if streams
              else tstate.empty_store(TRK))
     for t, f in enumerate(frames):
         store, res = programs.run(streams, store, torch.from_numpy(f),
-                                  BUCKET, BUCKET, nms_iters)
+                                  BUCKET, BUCKET)
         _equal((*exported._present(store), *thost._result_tensors(res)),
                want[t], f"step {t}")
 
@@ -222,20 +217,16 @@ def test_loaded_program_equals_the_live_step(export_dir, programs, streams,
 _FRESH = """
 import sys, torch
 sys.path.insert(0, {repo!r})
-from unittest import mock
-from tests.test_torch_export import FIXED_ITERS, _bundle, _frames, _live
-from botsort_tpu_torch.ops import nms
+from tests.test_torch_export import _bundle, _frames, _live
 torch.set_num_threads(1)  # as in the test module
-with mock.patch.object(nms, "FIXPOINT_ITERS", FIXED_ITERS):
-    torch.save(_live(_bundle(), 0, _frames(2)), {path!r})
+torch.save(_live(_bundle(), 0, _frames(2)), {path!r})
 """
 
 
 def test_live_step_after_an_export_equals_before_and_a_fresh_process(
         export_dir, tmp_path):
     _, bundle, _, before = export_dir
-    with mock.patch.object(tnms, "FIXPOINT_ITERS", FIXED_ITERS):
-        after = _live(bundle, 0, _frames(2))
+    after = _live(bundle, 0, _frames(2))
     path = str(tmp_path / "fresh.pt")
     proc = subprocess.run(
         [sys.executable, "-c", _FRESH.format(repo=REPO, path=path)],
@@ -250,21 +241,17 @@ def test_live_step_after_an_export_equals_before_and_a_fresh_process(
 
 def _run_facades(live, loaded, streams, n=5):
     """Both facades over the same frames, compared bitwise at every step;
-    returns the (buckets, NMS count) of every step the loaded one ran."""
+    returns the buckets of every step the loaded one ran."""
     calls = []
     real = loaded._step
-    loaded._step = lambda *a: calls.append((a[2], a[3], a[5]
-                                            if len(a) > 5 else None)) \
-        or real(*a)
-    with mock.patch.object(tnms, "FIXPOINT_ITERS", FIXED_ITERS):
-        for frames in _frames(n, streams, seed=2):
-            want, got = live.update(frames), loaded.update(frames)
-            assert _ids(got) == _ids(want)
-            for a, b in zip(live.last_result[:-1], loaded.last_result[:-1]):
-                np.testing.assert_array_equal(a, b)
-            for a, b in zip(live.last_result.tracks,
-                            loaded.last_result.tracks):
-                np.testing.assert_array_equal(a, b)
+    loaded._step = lambda *a: calls.append((a[2], a[3])) or real(*a)
+    for frames in _frames(n, streams, seed=2):
+        want, got = live.update(frames), loaded.update(frames)
+        assert _ids(got) == _ids(want)
+        for a, b in zip(live.last_result[:-1], loaded.last_result[:-1]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(live.last_result.tracks, loaded.last_result.tracks):
+            np.testing.assert_array_equal(a, b)
     store = (lambda p: p.stores) if streams else (lambda p: p.store)
     for x, y in zip(thost._store_tensors(store(live)),
                     thost._store_tensors(store(loaded))):
@@ -283,9 +270,10 @@ def _ids(tracks):
 def test_loaded_facade_equals_the_live_facade(export_dir, programs, streams,
                                               cached):
     """load_pipeline / load_batched_pipeline against the live facades:
-    equal tracks, FrameResults and stores, the re-run NMS program taken
-    whenever the fixed one did not converge; with ``cached``, through a
-    graph cache (the CPU stand-in for CUDA graphs)."""
+    equal tracks, FrameResults and stores, one program call a frame (the
+    det-width pair never overflows, and the NMS fixpoint needs no re-run);
+    with ``cached``, through a graph cache (the CPU stand-in for CUDA
+    graphs)."""
     from tests.test_torch_graphed import EagerReplayCache
 
     out, bundle, _, _ = export_dir
@@ -301,13 +289,11 @@ def test_loaded_facade_equals_the_live_facade(export_dir, programs, streams,
                                         graph_cache=cache)
     assert loaded._buckets == [BUCKET]
     calls = _run_facades(live, loaded, streams)
-    assert {c[2] for c in calls} == {None, FULL}   # both programs ran
-    assert {c[:2] for c in calls} == {(BUCKET, BUCKET)}
+    assert calls == [(BUCKET, BUCKET)] * 5
     if cached:
         kind = "exported_batched" if streams else "exported_frame"
-        assert sorted(cache.keys(), key=str) == sorted(
-            ((kind, streams or 1, 1) + SRC_HW + (BUCKET, BUCKET, False, it)
-             for it in (None, FULL)), key=str)
+        assert cache.keys() == [
+            (kind, streams or 1, 1) + SRC_HW + (BUCKET, BUCKET, False)]
         assert cache.replays == len(calls)
 
 
@@ -315,8 +301,7 @@ def test_warm_up_runs_every_program_of_a_resolution(export_dir, programs):
     out, bundle, _, _ = export_dir
     pipe = exported.load_pipeline(out, bundle, programs=programs)
     ran = thost.warm_up(pipe, SRC_HW)
-    assert [k for k, _ in ran] == [(BUCKET, BUCKET, None),
-                                   (BUCKET, BUCKET, FULL)]
+    assert [k for k, _ in ran] == [(BUCKET, BUCKET)]
     assert pipe.frame_id == 0 and int(pipe.store.frame_count) == 0
 
 
@@ -324,7 +309,7 @@ def test_warm_up_runs_every_program_of_a_resolution(export_dir, programs):
 def test_export_cli_writes_every_pair_and_the_loaded_facade_runs_them(
         tmp_path, monkeypatch):
     """cli/export.py at its MINI defaults, with the bucket set unpatched:
-    both NMS programs of every pair of ``reid_bucket_set``;
+    the program of every pair of ``reid_bucket_set``;
     ``load_pipeline`` accepts the whole manifest, ``warm_up`` loads and
     runs every program, and the loaded facade equals the live one."""
     from botsort_tpu_torch.cli import export as export_cli
@@ -332,19 +317,15 @@ def test_export_cli_writes_every_pair_and_the_loaded_facade_runs_them(
     out = str(tmp_path / "all")
     bundle = _bundle()
     monkeypatch.setattr(tassets, "build_bundle", lambda *a, **k: bundle)
-    with mock.patch.object(tnms, "FIXPOINT_ITERS", FIXED_ITERS):
-        assert export_cli.main(["--out", out, "--resolutions", "240x320",
-                                "-ep", "cpu", "--mini"]) == 0
+    assert export_cli.main(["--out", out, "--resolutions", "240x320",
+                            "-ep", "cpu", "--mini"]) == 0
     manifest = exported.read_manifest(out)
     cfgs = exported.manifest_configs(manifest)
     buckets = tfs.reid_bucket_set(*cfgs)
     assert manifest["buckets"] == buckets and len(buckets) > 2
-    full = cfgs[1].pre_nms_top_k
-    every = [(b, fb, it) for b, fb in thost.bucket_pairs(buckets)
-             for it in (None, full)]
-    assert sorted(((e["reid_bucket"], e["face_bucket"], e["nms_iters"])
-                   for e in manifest["artifacts"]), key=str) == \
-        sorted(every, key=str)
+    every = thost.bucket_pairs(buckets)
+    assert sorted((e["reid_bucket"], e["face_bucket"])
+                  for e in manifest["artifacts"]) == sorted(every)
     loaded = exported.load_pipeline(out, bundle)
     assert [k for k, _ in thost.warm_up(loaded, SRC_HW)] == every
     live = thost.BoTSORTPipeline(bundle, *cfgs)
@@ -364,12 +345,14 @@ def _edited_copy(src, dst, edit):
 
 @pytest.mark.parametrize("case", ["gmc", "no_host_dispatch", "platform",
                                   "incomplete", "weights", "streams",
-                                  "resolution"])
+                                  "resolution", "fixed_nms_count"])
 def test_loaders_refuse(export_dir, tmp_path, case):
     """GMC, host_bucket_dispatch=False, a platform mismatch, an export
-    without a re-run program, another architecture's weights, a stream
-    count that was not exported, and a frame of a resolution that was not
-    (the error lists those that were)."""
+    without a bucket pair's program, another architecture's weights, a
+    stream count that was not exported, a frame of a resolution that was
+    not (the error lists those that were), and a directory exported while
+    the NMS fixpoint ran a fixed count (its fixed and full programs:
+    export again with cli/export.py)."""
     out, bundle, _, _ = export_dir
     edits = {
         "gmc": lambda m: m["pipe_cfg"].update(enable_gmc=True),
@@ -377,14 +360,18 @@ def test_loaders_refuse(export_dir, tmp_path, case):
             host_bucket_dispatch=False),
         "platform": lambda m: m.update(platform={"type": "cuda",
                                                  "name": "a card"}),
-        "incomplete": lambda m: m.update(artifacts=[
-            e for e in m["artifacts"] if e["nms_iters"] is None]),
+        "incomplete": lambda m: m.update(buckets=[4, BUCKET]),
+        "fixed_nms_count": lambda m: m.update(artifacts=[
+            dict(e, file=e["file"].replace(".pt2", f"_nms{k}.pt2"),
+                 nms_iters=it) for e in m["artifacts"]
+            for k, it in (("fixed", None), ("full", 512))]),
     }
     if case in edits:
         d = _edited_copy(out, str(tmp_path / "edited"), edits[case])
         match = {"gmc": "camera motion", "no_host_dispatch":
                  "host_bucket_dispatch", "platform": "exported for",
-                 "incomplete": "lacks the program"}[case]
+                 "incomplete": "lacks the program",
+                 "fixed_nms_count": "cli/export.py"}[case]
         with pytest.raises(ValueError, match=match):
             exported.load_pipeline(d, bundle)
     elif case == "weights":
@@ -440,15 +427,14 @@ def test_multitrack_artifact_dir_equals_the_live_multitrack(export_dir,
     bundle = export_dir[1]
     monkeypatch.setattr(tassets, "build_bundle", lambda *a, **k: bundle)
     monkeypatch.setattr(exported, "Programs", lambda *a, **k: programs)
-    with mock.patch.object(tnms, "FIXPOINT_ITERS", FIXED_ITERS):
-        assert multitrack.main(["-v", *vids, "-ep", "cpu", "-dvw",
-                                "--artifact_dir", out]) == 0
-        got = list(drawn)
-        # The live facade on the frames the CLI decoded.
-        caps = [cv2.VideoCapture(v) for v in vids]
-        live = thost.BatchedBoTSORTPipeline(bundle, 2, TRK, NMSC, PIPE)
-        want = []
-        for _ in range(3):
-            frames = np.stack([c.read()[1] for c in caps])
-            want += [[t.track_id for t in s] for s in live.update(frames)]
+    assert multitrack.main(["-v", *vids, "-ep", "cpu", "-dvw",
+                            "--artifact_dir", out]) == 0
+    got = list(drawn)
+    # The live facade on the frames the CLI decoded.
+    caps = [cv2.VideoCapture(v) for v in vids]
+    live = thost.BatchedBoTSORTPipeline(bundle, 2, TRK, NMSC, PIPE)
+    want = []
+    for _ in range(3):
+        frames = np.stack([c.read()[1] for c in caps])
+        want += [[t.track_id for t in s] for s in live.update(frames)]
     assert got == want and len(got) == 6

@@ -31,25 +31,47 @@ import pytest
 import torch
 
 from botsort_tpu.ops import nms as jnms
+from botsort_tpu.pipeline.host import BatchedBoTSORTPipeline as JBatched
+from botsort_tpu.pipeline.host import BoTSORTPipeline as JPipeline
 from botsort_tpu_torch.models import bn_act
 from botsort_tpu_torch.models.common import BatchNorm
 from botsort_tpu_torch.ops import assignment_cuda
+from botsort_tpu_torch.ops import crop as tcrop
 from botsort_tpu_torch.ops import nms as tnms
 from botsort_tpu_torch.pipeline import frame_step as tfs
 from botsort_tpu_torch.pipeline import graphed
 from botsort_tpu_torch.pipeline import host as thost
+from botsort_tpu_torch.pipeline import switch
 from botsort_tpu_torch.track import state as tstate
 from tests.test_torch_multistream import _ids, _stream_frames
 from tests.test_torch_pipeline import (  # noqa: F401 (bundles: a fixture)
+    NMSC,
+    PIPE,
+    REGIMES,
+    SWITCH_PIPE,
     T_NMSC,
     T_PIPE,
     T_TRK,
+    TRK,
     _frames,
+    _port,
     bundles,
+    count_bundles,
+    level_frames,
 )
 
 JAX_ACTS = {"none": lambda x: x, "silu": nn.silu, "relu": nn.relu,
             "relu6": lambda x: jnp.minimum(nn.relu(x), 6.0)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: tier-1 runs several workers on
+    a few cores, and a thread pool per worker makes them contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # --- bn_act_plain against Flax's BatchNorm + activation -------------------
@@ -138,12 +160,12 @@ def test_batchnorm_module_is_bn_act_of_its_statistics():
         assert bn.mul() is bn.mul()
 
 
-# --- the NMS fixpoint with a fixed iteration count -------------------------
+# --- the NMS fixpoint run to its end (K8's plain version) -----------------
 
 
-def _old_fixpoint_keep(boxes, scores, iou_threshold, score_threshold):
-    """The kept set of the fixpoint as it ran before: iterate until
-    nothing changes, asking after every iteration."""
+def _fixpoint_iterations(boxes, scores, iou_threshold, score_threshold):
+    """Iterations the fixpoint needs until nothing changes (the last one
+    confirms it), counted outside the port."""
     order = np.argsort(-scores, kind="stable")
     b, s = torch.from_numpy(boxes[order]), scores[order]
     valid = torch.from_numpy(s > score_threshold)
@@ -158,7 +180,7 @@ def _old_fixpoint_keep(boxes, scores, iou_threshold, score_threshold):
         new = valid & ~(dom & keep[:, None]).any(dim=0)
         n_iters += 1
         if torch.equal(new, keep):
-            return order[keep.numpy()], n_iters
+            return n_iters
         keep = new
 
 
@@ -173,89 +195,232 @@ def _chain_boxes(n):
     return boxes, scores
 
 
-def _run_both(boxes, scores, iters):
-    valid = np.ones(len(scores), bool)
-    want = jnms.nms_single_class(jnp.asarray(boxes), jnp.asarray(scores),
-                                 jnp.asarray(valid), 0.5, 0.2, 64, 128)
-    got = tnms.nms_single_class(torch.from_numpy(boxes),
-                                torch.from_numpy(scores),
-                                torch.from_numpy(valid), 0.5, 0.2, 64, 128,
-                                iters)
-    return got, want
-
-
-def test_fixed_count_nms_equals_jax_and_the_old_fixpoint():
+def _nms_case(case):
+    """(boxes [N, 4], scores [N], pre_nms_top_k) of one input kind."""
     rng = np.random.default_rng(11)
-    tl = rng.uniform(0, 200, (100, 2))
-    boxes = np.concatenate([tl, tl + rng.uniform(10, 60, (100, 2))],
-                           -1).astype(np.float32)
-    scores = rng.uniform(0, 1, 100).astype(np.float32)
-    got, want = _run_both(boxes, scores, None)
-    assert bool(got[4])  # converged inside the fixed count
-    kept, n_iters = _old_fixpoint_keep(boxes, scores, 0.5, 0.2)
-    assert n_iters <= tnms.FIXPOINT_ITERS
-    n = int(got[2].sum())
-    assert n == min(len(kept), 64)
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
-    np.testing.assert_array_equal(got[0].numpy()[:n], boxes[kept][:n])
+    if case in ("random", "tied"):
+        tl = rng.uniform(0, 200, (100, 2))
+        boxes = np.concatenate([tl, tl + rng.uniform(10, 60, (100, 2))],
+                               -1).astype(np.float32)
+        scores = rng.uniform(0, 1, 100).astype(np.float32)
+        if case == "tied":  # equal scores and duplicated boxes
+            scores = (np.round(scores * 5) / 5).astype(np.float32)
+            boxes[50:] = boxes[:50]
+        return boxes, scores, 128
+    if case == "chain40":
+        return (*_chain_boxes(40), 128)
+    return (*_chain_boxes(128), 128)  # a chain as long as P
 
 
-def test_a_chain_longer_than_the_count_clears_converged():
-    """40 boxes that suppress each other in a chain need about 40
-    iterations: the fixed count reports that it did not converge (and its
-    kept set is wrong), the full count converges to JAX's result."""
+@pytest.mark.parametrize("form", ["single", "multiclass", "batched"])
+@pytest.mark.parametrize("case", ["random", "tied", "chain40", "chainP"])
+def test_nms_fixpoint_equals_jax_while_loop(case, form):
+    """The port's NMS (the fixpoint run to its end, no re-run) against the
+    JAX ``lax.while_loop`` NMS: kept slots exactly, boxes and scores to
+    1e-4, ``converged`` set. The chains need more iterations than the 16
+    the step ran before; chainP needs P."""
+    boxes, scores, top_k = _nms_case(case)
+    iters = _fixpoint_iterations(boxes, scores, 0.5, 0.2)
+    if case.startswith("chain"):
+        assert iters > 16
+    if case == "chainP":
+        assert len(scores) == top_k and iters >= top_k
+    if form == "single":
+        valid = np.ones(len(scores), bool)
+        args = (boxes, scores, valid)
+        want = jnms.nms_single_class(*[jnp.asarray(a) for a in args],
+                                     0.5, 0.2, 64, top_k)
+        got = tnms.nms_single_class(*[torch.from_numpy(a) for a in args],
+                                    0.5, 0.2, 64, top_k)
+        pairs = list(zip(got[:4], want))
+        assert bool(got[4])
+    else:
+        cls = np.stack([scores, scores[::-1].copy(), scores * 0.9], axis=1)
+        kw = dict(iou_threshold=0.5, score_threshold=0.2, max_per_class=64,
+                  pre_nms_top_k=top_k)
+        if form == "multiclass":
+            want = jnms.multiclass_nms_dense(jnp.asarray(boxes),
+                                             jnp.asarray(cls), **kw)
+            got = tnms.multiclass_nms_dense(torch.from_numpy(boxes),
+                                            torch.from_numpy(cls), **kw)
+        else:  # two frames, the second its boxes shifted and reversed
+            bb = np.stack([boxes, boxes[::-1] + 7.0])
+            cc = np.stack([cls, cls[::-1]])
+            want = jax.vmap(lambda b, c: jnms.multiclass_nms_dense(
+                b, c, **kw))(jnp.asarray(bb), jnp.asarray(cc))
+            got = tnms.multiclass_nms_dense_batched(
+                torch.from_numpy(bb), torch.from_numpy(cc), **kw)
+        pairs = list(zip(got[:4], want))
+        assert bool(got.converged.all())
+    for i, (g, w) in enumerate(pairs):
+        if i in (2, 3):   # valid, clipped
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:             # boxes, scores
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-4)
+    if case == "chain40" and form == "single":
+        assert int(got[2].sum()) == 20   # every other box
+
+
+def test_nms_fixpoint_op_and_dispatch():
+    """K8's custom op on the CPU is the plain version (opcheck: schema,
+    fake, dispatch); the dispatcher takes the plain version for CPU
+    tensors and refuses a device without a kernel; the CUDA wrapper
+    refuses CPU tensors."""
     boxes, scores = _chain_boxes(40)
-    kept, n_iters = _old_fixpoint_keep(boxes, scores, 0.5, 0.2)
-    assert n_iters > tnms.FIXPOINT_ITERS
-    short, want = _run_both(boxes, scores, None)
-    assert not bool(short[4])
-    assert not np.array_equal(short[2].numpy(), np.asarray(want[2]))
-    full, _ = _run_both(boxes, scores, 128)
-    assert bool(full[4])
-    np.testing.assert_array_equal(full[2].numpy(), np.asarray(want[2]))
-    np.testing.assert_allclose(full[0].numpy(), np.asarray(want[0]),
-                               atol=1e-4)
-    assert int(full[2].sum()) == len(kept) == 20
-    # More iterations than candidates are capped: the same result.
-    capped, _ = _run_both(boxes, scores, 10 ** 6)
-    assert all(torch.equal(a, b) for a, b in zip(capped, full))
+    tb = torch.from_numpy(np.stack([boxes, boxes + 1.0]))
+    tv = torch.from_numpy(np.stack([scores > 0.6, scores > 0.0]))
+    want = tnms.nms_fixpoint_plain(tb, tv, 0.5)
+    assert want.dtype == torch.bool and want.shape == tv.shape
+    assert torch.equal(tnms.nms_fixpoint_op(tb, tv, 0.5), want)
+    assert torch.equal(tnms.nms_fixpoint(tb, tv, 0.5), want)
+    torch.library.opcheck(tnms.nms_fixpoint_op, (tb, tv, 0.5))
+    # Nothing to suppress: the fixpoint is the input, returned as a copy.
+    torch.library.opcheck(tnms.nms_fixpoint_op, (tb, tv, 0.99))
+    with pytest.raises(ValueError, match="no kernel"):
+        tnms.nms_fixpoint(tb.to("meta"), tv.to("meta"), 0.5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tnms.nms_fixpoint_cuda(tb, tv, 0.5)
 
 
 @pytest.mark.parametrize("streams", [1, 2])
-def test_facade_reruns_a_step_whose_nms_did_not_converge(bundles, streams):
-    """With the fixed count forced to 1 (and an IoU threshold low enough
-    that boxes do suppress each other) the MINI frames do not converge;
-    the facade re-runs each such step from the pre-step stores with the
-    full count, and tracks exactly what the default count tracks."""
-    _, tb = bundles
-    nmsc = dataclasses.replace(T_NMSC, iou_threshold=0.2)
+def test_facade_steps_a_long_chain_scene_once_a_frame(bundles, streams):
+    """A detector stand-in puts a 40-box suppression chain on every frame
+    (more than the 16 iterations the step ran before, which made the
+    facades re-run it in full): the facade now makes one step call a frame
+    and tracks what the JAX pipeline tracks."""
+    jcb, tcb = count_bundles(*bundles, scene="chain")
+    if streams == 1:
+        jp = JPipeline(jcb, TRK, NMSC, PIPE)
+        tp = thost.BoTSORTPipeline(tcb, T_TRK, T_NMSC, T_PIPE)
+    else:
+        jp = JBatched(jcb, streams, TRK, NMSC, PIPE)
+        tp = thost.BatchedBoTSORTPipeline(tcb, streams, T_TRK, T_NMSC,
+                                          T_PIPE)
+    calls = []
+    real = tp._step
+    tp._step = lambda *a: calls.append(a[2:4]) or real(*a)
+    steps = _stream_frames(3, streams, seed=14)
+    for t, frames in enumerate(steps):
+        arg = frames[0] if streams == 1 else frames
+        want, got = jp.update(arg), tp.update(arg)
+        if streams == 1:
+            want, got = [want], [got]
+        assert _ids(got) == _ids(want), t
+        for gs, ws in zip(got, want):
+            for a, b in zip(gs, ws):
+                np.testing.assert_allclose(a.tlbr, b.tlbr, rtol=0,
+                                           atol=1e-3)
+        res = tp.last_result
+        assert bool(np.all(res.nms_converged))
+        assert int(np.asarray(res.det_valid)[..., 0, :].sum()) == \
+            8 * streams     # 20 kept, 8 slots
+    assert len(calls) == len(steps)
+
+
+@pytest.mark.parametrize("value", [0, 1, 4, 5, 8])
+def test_branch_flags_and_zero_beyond(value):
+    """K9's plain version sets one flag, the branch ``branch_index``
+    picks (none at 0); ``zero_beyond`` keeps exactly that branch's width
+    (the eager route on the card) and ``run_every_branch`` (the warm-up)
+    ends in the same buffer."""
+    calls = []
+
+    def encode(tlbr):
+        calls.append(tlbr.shape[1])
+        return tlbr[..., :1].expand(-1, -1, 3) + 1.0
+
+    branches = switch.bucket_branches(encode, 8, 4)
+    assert [(b.lo, b.hi, b.width) for b in branches] == [
+        (0, 4, 4), (4, switch.INT32_MAX, 8)]
+    assert [b.width for b in switch.bucket_branches(encode, 4, 4)] == [4]
+    v = torch.tensor(value, dtype=torch.int32)
+    flags = switch.branch_flags_plain(v, branches)
+    k = switch.branch_index(value, branches)
+    assert flags.tolist() == [k == 0, k == 1]
+    width = 0 if k is None else branches[k].width
+    tlbr = torch.arange(2 * 8 * 4, dtype=torch.float32).reshape(2, 8, 4)
+    out = torch.zeros(2, 8, 3)
+    switch.run_every_branch(v, branches, (tlbr,), out)
+    assert calls == [4, 8]
+    want = torch.zeros(2, 8, 3)
+    want[:, :width] = tlbr[:, :width, :1] + 1.0
+    assert torch.equal(out, want)
+    eager = torch.zeros(2, 8, 3)
+    switch.run_eager(v, branches, (tlbr,), eager)
+    assert torch.equal(eager, want)
+
+
+# The stream levels of each step of the switch rehearsal.
+SWITCH_STEPS = (("none", "none"), ("chunk", "none"), ("full", "chunk"),
+                ("none", "chunk"), ("none", "none"))
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_switch_program_through_the_cache_equals_eager(bundles, streams):
+    """``host_bucket_dispatch=False`` through the CPU stand-in of the
+    segmented capture: one key (None buckets) and one capture for every
+    load, the program in five pieces (work, switch, work, switch, work),
+    each step equal to the eager facade (the JAX switch) bit for bit while
+    the loads change, and the branch launches counted from the host's
+    copy of the result: K7 once a step run for the detector input and
+    once a branch taken (no branch at 0 live)."""
+    _, tcb = count_bundles(*bundles)
+    pipe = _port(SWITCH_PIPE)
 
     def make():
         if streams == 1:
-            return thost.BoTSORTPipeline(tb, T_TRK, nmsc, T_PIPE)
-        return thost.BatchedBoTSORTPipeline(tb, streams, T_TRK, nmsc,
-                                            T_PIPE)
+            return thost.BoTSORTPipeline(tcb, T_TRK, T_NMSC, pipe)
+        return thost.BatchedBoTSORTPipeline(tcb, streams, T_TRK, T_NMSC,
+                                            pipe)
 
-    want_pipe, got_pipe = make(), make()
-    calls = []
-    real = got_pipe._step
-    got_pipe._step = lambda *a: calls.append(a[5] if len(a) > 5 else None) \
-        or real(*a)
-    for frames in _stream_frames(3, streams, seed=8):
-        arg = frames[0] if streams == 1 else frames
-        want = want_pipe.update(arg)
-        assert want_pipe.last_result.nms_converged.all()
-        with mock.patch.object(tnms, "FIXPOINT_ITERS", 1):
-            got = got_pipe.update(arg)
-        assert got_pipe.last_result.nms_converged.all()
-        if streams == 1:
-            want, got = [want], [got]
-        assert _ids(got) == _ids(want)
-        for a, b in zip(want_pipe.last_result[:-1],
-                        got_pipe.last_result[:-1]):
-            np.testing.assert_array_equal(a, b)
-    assert T_NMSC.pre_nms_top_k in calls  # at least one step re-ran in full
+    eager, cached = make(), make()
+    cached._graphs = cache = EagerReplayCache(torch.device("cpu"))
+    k7 = tcrop.crop_resize_cuda
+    real_plain = tcrop.crop_resize_plain
+
+    def ticking(*a, **k):
+        k7.launches += 1
+        return real_plain(*a, **k)
+
+    k7.launches = 0
+    taken = []
+    with mock.patch.object(tcrop, "crop_resize_plain", ticking):
+        for t, row in enumerate(SWITCH_STEPS):
+            frames = np.stack(level_frames([REGIMES[r] for r in
+                                            row[:streams]], seed=20 + t))
+            arg = frames[0] if streams == 1 else frames
+            want = eager.update(arg)
+            before = k7.launches
+            got = cached.update(arg)
+            if streams == 1:
+                want, got = [want], [got]
+            assert _ids(got) == _ids(want), t
+            for a, b in zip(eager.last_result[:-1], cached.last_result[:-1]):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(eager.last_result.tracks,
+                            cached.last_result.tracks):
+                np.testing.assert_array_equal(a, b)
+            values = tfs.switch_values(cached.last_result, T_TRK, T_NMSC,
+                                       pipe)
+            branches = [v > 0 for v in values]
+            taken.append(tuple(values))
+            warm = 5 if t == 0 else 0   # the warm-up runs every branch
+            assert k7.launches - before == warm + 1 + sum(branches), t
+    k7.launches = 0
+    kind = "frame" if streams == 1 else "batched"
+    assert cache.keys() == [(kind, streams, 1, 240, 320, None, None, False)]
+    assert (cache.captures, cache.replays) == (1, len(SWITCH_STEPS))
+    items = cache.programs[0]
+    assert [i[0] for i in items] == ["segment", "switch", "segment",
+                                     "switch", "segment"]
+    assert all([b.width for b in i[2]] == [4, 8] for i in items[1::2])
+    assert {v[0] for v in taken} == {0, 3, 7}   # every body branch ran
+    for x, y in zip(thost._store_tensors(eager.store if streams == 1
+                                         else eager.stores),
+                    thost._store_tensors(cached.store if streams == 1
+                                         else cached.stores)):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 # --- no tensor from Python values in a warm step; one-copy readback -------
@@ -318,36 +483,77 @@ class EagerReplayCache(graphed.GraphCache):
     """GraphCache whose "graph" is the eager function itself: captured by
     running it once, replayed by running it again into the captured output
     buffers. Like a capture, the capturing run's results are not used;
-    like a replay, a re-run leaves the wrappers' Python counters alone."""
+    like a replay, a re-run leaves the wrappers' Python counters alone.
 
-    def _capture(self, fn, static_in):
-        outputs = [None if o is None else torch.zeros_like(o)
-                   for o in fn(*static_in)]
+    A step with a bucket switch is recorded in segments by the cache's own
+    ``_capture``, as on the card; here a segment is not replayable, so a
+    replay re-runs the step, and at each switch hands the replay's inputs
+    and zeroed output buffer to the tensors the capture recorded (what a
+    graph's fixed addresses do), runs the branch the value picks with the
+    captured branch on the captured tensors only, and hands the buffer
+    back: a branch that read anything but its declared inputs and the
+    step's static inputs would see the capture's stale values."""
+
+    def _begin(self):
+        return None
+
+    def _end(self, token):
+        return None
+
+    def _program(self, items, fn, static_in, outputs):
+        recorded = [item for item in items if item[0] == "switch"]
+        self.programs.append(items)
+
+        def handover(value, branches, inputs, out):
+            _, c_value, c_branches, _, c_inputs, c_out = recorded[
+                handover.at]
+            handover.at += 1
+            assert len(branches) == len(c_branches)
+            for dst, src in zip((c_value, *c_inputs, c_out),
+                                (value, *inputs, out)):
+                dst.copy_(src)
+            k = switch.branch_index(int(c_value), c_branches)
+            if k is not None:
+                c_branches[k].run(*c_inputs, c_out)
+            out.copy_(c_out)
 
         def replay():
             before = graphed._read_counters()
-            for dst, src in zip(outputs, fn(*static_in)):
+            handover.at = 0
+            with switch.runner(handover):
+                fresh = fn(*static_in)
+            assert handover.at == len(recorded)
+            for dst, src in zip(outputs, fresh):
                 if dst is not None:
                     dst.copy_(src)
             for (wrapper, attr), n in zip(graphed.LAUNCH_COUNTERS, before):
                 setattr(wrapper, attr, n)
 
-        return replay, outputs
+        return replay
+
+    def __init__(self, device):
+        super().__init__(device)
+        # Every captured program's items, in capture order.
+        self.programs = []
 
 
 def test_step_key_names_what_changes_the_program():
-    key = graphed.step_key("batched", (8, 1080, 1920, 3), 16, 16, False, None)
-    assert key == ("batched", 8, 1, 1080, 1920, 16, 16, False, None)
+    """Kind, shape, buckets and affines; no NMS count (the fixpoint runs to
+    its end in every program); None buckets for the in-program switch."""
+    key = graphed.step_key("batched", (8, 1080, 1920, 3), 16, 16, False)
+    assert key == ("batched", 8, 1, 1080, 1920, 16, 16, False)
     temporal = graphed.step_key("temporal", (8, 2, 1080, 1920, 3), 16, 0,
-                                True, 512)
-    assert temporal == ("temporal", 8, 2, 1080, 1920, 16, 0, True, 512)
-    assert len({key, temporal,
-                graphed.step_key("batched", (8, 1080, 1920, 3), 16, 16, True,
-                                 None),
-                graphed.step_key("batched", (8, 1080, 1920, 3), 0, 16, False,
-                                 None),
-                graphed.step_key("batched", (4, 1080, 1920, 3), 16, 16, False,
-                                 None)}) == 5
+                                True)
+    assert temporal == ("temporal", 8, 2, 1080, 1920, 16, 0, True)
+    dynamic = graphed.step_key("frame", (1080, 1920, 3), None, None, False)
+    assert dynamic == ("frame", 1, 1, 1080, 1920, None, None, False)
+    assert len({key, temporal, dynamic,
+                graphed.step_key("batched", (8, 1080, 1920, 3), 16, 16,
+                                 True),
+                graphed.step_key("batched", (8, 1080, 1920, 3), 0, 16,
+                                 False),
+                graphed.step_key("batched", (4, 1080, 1920, 3), 16, 16,
+                                 False)}) == 6
 
 
 def test_cache_copies_out_and_counts_launches_per_replay():
@@ -436,7 +642,7 @@ def test_facade_through_the_cache_equals_eager(bundles, streams):
     assert len(set(runs)) >= 2                        # a bucket change
     kind = "frame" if streams == 1 else "batched"
     assert sorted(cache.keys()) == sorted(
-        (kind, streams, 1, 240, 320, rb, fb, False, None)
+        (kind, streams, 1, 240, 320, rb, fb, False)
         for rb, fb in set(runs))
     assert cache.captures == len(set(runs)) and cache.replays == len(runs)
     assert len(cache._inputs) == 1  # every key shares the input buffers

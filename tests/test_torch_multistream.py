@@ -48,23 +48,41 @@ from tests.test_torch_cascade import (FLOAT_FIELDS, INT_FIELDS, _cfgs,
                                       _pack, _scene, jax_tpu_cascade)
 from tests.test_torch_jv import _chip_smoke
 from tests.test_torch_pipeline import (  # noqa: F401 (bundles: a fixture)
+    LIVE,
     NMSC,
     PIPE,
+    REGIMES,
     REPO,
     SRC_HW,
+    SWITCH_PIPE,
     T_NMSC,
     T_PIPE,
     T_TRK,
     TRK,
+    WIDTH,
     _close,
     _eq,
     _frames,
     _port,
     _t,
+    assert_perception_equals_jax,
+    assert_step_equals_jax,
     bundles,
+    count_bundles,
+    level_frames,
 )
 
 LIMITS = (0.8, 0.5, 0.7)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: tier-1 runs several workers on
+    a few cores, and a thread pool per worker makes them contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -668,3 +686,34 @@ def test_multitrack_refuses_unported_modes(tmp_path, flag):
     with pytest.raises(err, match=match):
         multitrack.main(["-v", str(vid), "-ep", "cpu", *flag])
     assert os.path.isfile(vid)
+
+
+# The regime of a step is that of its busiest stream (the JAX package's
+# n_live is the largest live count over the streams).
+STREAM_LEVELS = {"none": ("none", "none"), "chunk": ("none", "chunk"),
+                 "full": ("chunk", "full")}
+
+
+@pytest.mark.parametrize("regime", list(STREAM_LEVELS))
+def test_switch_batched_step_matches_jax(bundles, regime):
+    """Two streams with no bucket: the switch follows the larger live count
+    (0, 3, 7); perception and frame_step_batched against the JAX package's
+    over two steps."""
+    jcb, tcb = count_bundles(*bundles)
+    frames = np.stack(level_frames(
+        [REGIMES[r] for r in STREAM_LEVELS[regime]], seed=6))
+    assert_perception_equals_jax(jcb, tcb, frames, regime, LIVE[regime],
+                                 WIDTH[regime])
+    jst = jax.tree.map(lambda x: jnp.stack([x] * 2),
+                       jstate.empty_store(TRK))
+    tst = tstate.empty_stores(T_TRK, 2)
+    for t in range(2):
+        jst, j_res = jfs.frame_step_batched(jcb, jst, jnp.asarray(frames),
+                                            TRK, NMSC, SWITCH_PIPE)
+        tst, t_res = tfs.frame_step_batched(
+            tcb, tst, torch.from_numpy(frames), T_TRK, T_NMSC,
+            _port(SWITCH_PIPE))
+        assert_step_equals_jax(tst, t_res, jst, j_res, f"{regime} {t}")
+    assert tfs.switch_values(thost.to_host(t_res), T_TRK, T_NMSC,
+                             _port(SWITCH_PIPE))[0] == LIVE[regime]
+

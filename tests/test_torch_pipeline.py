@@ -19,6 +19,7 @@ import sys
 import textwrap
 
 import cv2
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,12 +39,22 @@ from botsort_tpu.track import cascade as jcascade
 from botsort_tpu.track import state as jstate
 from botsort_tpu_torch import config as tconfig
 from botsort_tpu_torch.pipeline import frame_step as tfs
+from botsort_tpu_torch.pipeline import host as thost
 from botsort_tpu_torch.pipeline.host import BoTSORTPipeline as TPipeline
 from botsort_tpu_torch.runtime import assets as tassets
 from botsort_tpu_torch.runtime.from_flax import load_flax_variables
 from botsort_tpu_torch.track import cascade as tcascade
 from botsort_tpu_torch.track import state as tstate
 from tests.test_torch_cascade import jax_tpu_cascade
+from tests.torch_scenes import (  # noqa: F401 (shared with other tests)
+    LIVE,
+    REGIMES,
+    WIDTH,
+    TorchCountDetector,
+    chain_scene,
+    count_scene,
+    level_frames,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -70,6 +81,16 @@ def _port(cfg):
 
 
 T_TRK, T_NMSC, T_PIPE = _port(TRK), _port(NMSC), _port(PIPE)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: tier-1 runs several workers on
+    a few cores, and a thread pool per worker makes them contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -298,6 +319,120 @@ def test_pipeline_dispatch_modes_match_jax(bundles, pipe_cfg):
     for t, frame in enumerate(_frames(3, seed=3)):
         j_ids = [x.track_id for x in jp.update(frame)]
         assert [x.track_id for x in tp.update(frame)] == j_ids, t
+
+
+# --- the in-program bucket switch (host_bucket_dispatch=False) ------------
+#
+# tests/torch_scenes.py's detector stand-in sets the live count from the
+# frame's brightness (REGIMES: 0, 3 and 7 live bodies; the switch's three
+# branches at max_reid_batch 4 and 8 body slots); JaxCountDetector is the
+# same stand-in for the JAX package.
+
+SWITCH_PIPE = dataclasses.replace(PIPE, host_bucket_dispatch=False)
+
+
+class JaxCountDetector(fnn.Module):
+    """The detector stand-in in JAX (no parameters); ``scene="chain"``
+    gives ``chain_scene`` on every frame instead."""
+
+    scene: str = "count"
+
+    @fnn.compact
+    def __call__(self, x):
+        b = x.shape[0]
+        if self.scene == "chain":
+            boxes, scores = (jnp.asarray(a) for a in chain_scene())
+            return (jnp.broadcast_to(boxes, (b,) + boxes.shape),
+                    jnp.broadcast_to(scores, (b,) + scores.shape))
+        boxes, scores = (jnp.asarray(a) for a in count_scene())
+        n_on = jnp.floor(jnp.mean(x[..., 0], axis=(1, 2)) / 20.0)
+        on = jnp.arange(8)[None, :] < n_on[:, None]
+        s = jnp.broadcast_to(scores, (b,) + scores.shape)
+        s = s.at[:, :8, 0].set(jnp.where(on, 0.9, 0.001))
+        return jnp.broadcast_to(boxes, (b,) + boxes.shape), s
+
+
+def count_bundles(jb, tb, scene="count"):
+    """The JAX and port bundles with the detector stand-in of ``scene``
+    and the MINI encoders."""
+    return (jfs.ModelBundle(JaxCountDetector(scene), {}, jb.body_encoder,
+                            jb.body_params, jb.face_encoder, jb.face_params),
+            tfs.ModelBundle(TorchCountDetector(scene).to(tb.device),
+                            tb.body_encoder, tb.face_encoder))
+
+
+def assert_step_equals_jax(t_store, t_res, j_store, j_res, what):
+    """A port step's FrameResult and stores against the JAX step's:
+    slots, indices and flags exactly, coordinates and features to 1e-4."""
+    from tests.test_torch_cascade import FLOAT_FIELDS, INT_FIELDS
+
+    for name in j_res._fields[:-1]:
+        got, want = getattr(t_res, name), getattr(j_res, name)
+        if got.dtype.is_floating_point:
+            _close(got, want, 1e-4, f"{what} {name}")
+        else:
+            _eq(got, want, f"{what} {name}")
+    assert bool(t_res.nms_converged.all())
+    for name in j_res.tracks._fields:
+        got, want = getattr(t_res.tracks, name), getattr(j_res.tracks, name)
+        if got.dtype.is_floating_point:
+            _close(got, want, 1e-4, f"{what} tracks.{name}")
+        else:
+            _eq(got, want, f"{what} tracks.{name}")
+    for name in INT_FIELDS:
+        _eq(getattr(t_store, name), getattr(j_store, name),
+            f"{what} store.{name}")
+    for name in FLOAT_FIELDS:
+        _close(getattr(t_store, name), getattr(j_store, name), 1e-4,
+               f"{what} store.{name}")
+
+
+_jax_perception = jax.jit(jfs._perception_batched, static_argnums=(2, 3, 4))
+
+
+def assert_perception_equals_jax(jcb, tcb, frames, what, live, width):
+    """``_perception_batched`` of both packages with no bucket (the
+    switch) on frames [G, H, W, 3]: equal validity, features to 1e-4, the
+    body slots beyond the taken branch exactly zero on both sides."""
+    want = _jax_perception(jcb, jnp.asarray(frames), TRK, NMSC,
+                           SWITCH_PIPE)
+    with torch.no_grad():
+        got = tfs._perception_batched(tcb, torch.from_numpy(frames), T_TRK,
+                                      T_NMSC, _port(SWITCH_PIPE), None,
+                                      None)
+    _eq(got.det_valid, want[2], f"{what} det_valid")
+    d = tfs._det_width(T_TRK, T_NMSC)
+    assert int(got.det_valid[:, 0, :d].sum(-1).max()) == live
+    _close(got.body_feats, want[8], 1e-4, f"{what} body features")
+    _close(got.face_feats, want[9], 1e-4, f"{what} face features")
+    assert not bool(got.body_feats[:, width:].any())
+    assert not np.asarray(want[8])[:, width:].any()
+    if width:
+        assert bool(got.body_feats[:, :live].abs().sum(-1).gt(0).all())
+
+
+@pytest.mark.parametrize("regime", list(REGIMES))
+def test_switch_perception_and_step_match_jax(bundles, regime):
+    """One stream at 0, 3 and 7 live bodies (no branch, the 4-slot one,
+    the 8-slot one): the port's perception and frame_step with no bucket
+    against the JAX package's ``lax.switch`` (CPU: a Python branch on the
+    live count), over two frames of the regime."""
+    jcb, tcb = count_bundles(*bundles)
+    frames = level_frames([REGIMES[regime]] * 2, seed=5)
+    assert_perception_equals_jax(jcb, tcb, np.stack(frames[:1]), regime,
+                                 LIVE[regime], WIDTH[regime])
+    jst, tst = jstate.empty_store(TRK), tstate.empty_store(T_TRK)
+    for t, frame in enumerate(frames):
+        jst, j_res = jfs.frame_step(jcb, jst, jnp.asarray(frame), TRK, NMSC,
+                                    SWITCH_PIPE)
+        tst, t_res = tfs.frame_step(tcb, tst, torch.from_numpy(frame),
+                                    T_TRK, T_NMSC, _port(SWITCH_PIPE))
+        assert_step_equals_jax(tst, t_res, jst, j_res, f"{regime} {t}")
+    host_res = thost.to_host(t_res)
+    n_live, n_eff = tfs.switch_values(host_res, T_TRK, T_NMSC,
+                                      _port(SWITCH_PIPE))
+    assert n_live == LIVE[regime]
+    assert n_eff == {"none": 0, "chunk": 3, "full": 5}[regime]
 
 
 def test_gmc_is_not_ported_yet(bundles):

@@ -1,5 +1,5 @@
 """The port's serving and persistence surfaces on the CPU, at MINI: the
-export CLI (one bucket, so that it writes two programs), the server over
+export CLI (one bucket, so that it writes one program), the server over
 the live models and over the exported programs, the warm-up CLI, the
 track-store checkpoint and the facades' session resume, and
 ``platform_summary``.
@@ -124,7 +124,7 @@ def _args(**kw):
 @pytest.fixture(scope="module")
 def cli_export(tmp_path_factory):
     """cli/export.py --mini -ep cpu at 120x160 with the bucket set patched
-    to the det width alone: both NMS programs of one pair."""
+    to the det width alone: the program of one pair."""
     out = str(tmp_path_factory.mktemp("cli_export"))
     with mock.patch.object(exported, "reid_bucket_set", lambda *a: [8]):
         rc = export_cli.main(["--out", out, "--resolutions", "120x160",
@@ -135,11 +135,13 @@ def cli_export(tmp_path_factory):
 
 
 def test_export_cli_writes_both_programs_of_each_pair(cli_export):
+    """One program a pair now: the NMS fixpoint runs to its end inside it,
+    so the fixed-count program and its full-count re-run became one."""
     manifest = exported.read_manifest(cli_export)
     assert manifest["mini"] and manifest["buckets"] == [8]
-    assert [(e["frame_hw"], e["reid_bucket"], e["face_bucket"],
-             e["nms_iters"]) for e in manifest["artifacts"]] == [
-        ([120, 160], 8, 8, None), ([120, 160], 8, 8, 512)]
+    assert [(e["frame_hw"], e["reid_bucket"], e["face_bucket"])
+            for e in manifest["artifacts"]] == [([120, 160], 8, 8)]
+    assert not any("nms_iters" in e for e in manifest["artifacts"])
     assert manifest["batched_artifacts"] == []
     assert exported.manifest_configs(manifest) == (
         TrackerConfig(max_tracks=16, max_dets=8, body_feature_dim=256,
@@ -188,8 +190,8 @@ def test_serve_round_trip_tracks_something(tmp_path):
 
 
 def test_serve_main_warms_and_serves(capsys):
-    """The CLI: --warmup_hw runs both NMS programs of every bucket pair
-    before it serves."""
+    """The CLI: --warmup_hw runs the program of every bucket pair before
+    it serves."""
     ready = threading.Event()
     real = serve.Server
 
@@ -214,8 +216,8 @@ def test_serve_main_warms_and_serves(capsys):
         thread.join(60)
     assert not thread.is_alive()
     out = capsys.readouterr().out
-    # {0, 4, 8}: 6 pairs, each with both NMS programs
-    assert out.count("warmed 120x160 buckets") == 12
+    # {0, 4, 8}: 6 pairs, one program each
+    assert out.count("warmed 120x160 buckets") == 6
     assert "serving on 127.0.0.1" in out
 
 
@@ -264,9 +266,39 @@ def test_warmup_cli_cpu_runs_every_pair(capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("ran 120x160 buckets")]
     assert [ln.split(" in ")[0] for ln in lines] == [
-        f"ran 120x160 buckets ({b},{fb}) NMS {n}"
-        for b, fb in thost.bucket_pairs([0, 4, 8])
-        for n in ("fixed", NMSConfig().pre_nms_top_k)]
+        f"ran 120x160 buckets ({b},{fb})"
+        for b, fb in thost.bucket_pairs([0, 4, 8])]
+
+
+@pytest.mark.parametrize("card", [True, False], ids=["card", "no_card"])
+def test_load_store_defaults_to_the_card(tmp_path, card):
+    """load_store / load_checkpoint without a device put the store on the
+    card, as the JAX package's load_store returns arrays on the default
+    device and build_bundle defaults to the card (here the CUDA check is
+    mocked and the copy to the card recorded), and raise where there is no
+    card; the CPU is asked for by name."""
+    path = str(tmp_path / "store.pt")
+    checkpoint.save_store(path, tstate.empty_store(TrackerConfig(
+        max_tracks=4)), frame_id=3)
+    moved = []
+
+    def to(t, *a, **k):
+        moved.append(torch.device(a[0] if a else k["device"]))
+        return t
+
+    with mock.patch.object(torch.cuda, "is_available", lambda: card), \
+            mock.patch.object(torch.Tensor, "to", to):
+        if card:
+            assert checkpoint.load_store(path) is not None
+            assert checkpoint.load_checkpoint(path)[1] == {"frame_id": 3}
+            assert moved and {d.type for d in moved} == {"cuda"}
+        else:
+            for fn in (checkpoint.load_store, checkpoint.load_checkpoint):
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    fn(path)
+            assert not moved
+    assert checkpoint.load_store(path, "cpu").frame_count.device.type == \
+        "cpu"
 
 
 def _stores_equal(a, b):
@@ -283,13 +315,13 @@ def test_save_store_round_trips_every_field(tmp_path):
                                    .astype(x.numpy().dtype)))
     path = str(tmp_path / "s" / "store.pt")
     checkpoint.save_store(path, store, frame_id=7, last_live=None)
-    back = checkpoint.load_store(path)
+    back = checkpoint.load_store(path, "cpu")
     _stores_equal(back, store)
-    assert checkpoint.load_checkpoint(path)[1] == {"frame_id": 7}
-    assert checkpoint.load_store(str(tmp_path / "missing.pt")) is None
+    assert checkpoint.load_checkpoint(path, "cpu")[1] == {"frame_id": 7}
+    assert checkpoint.load_store(str(tmp_path / "missing.pt"), "cpu") is None
     plain = tstate.empty_store(TrackerConfig(max_tracks=4))
     checkpoint.save_store(path, plain)
-    back = checkpoint.load_store(path)
+    back = checkpoint.load_store(path, "cpu")
     assert back.body_hist is None and back.hist_pos is None
     _stores_equal(back, plain)
 

@@ -35,21 +35,40 @@ from botsort_tpu_torch.track import state as tstate
 from tests.test_torch_cascade import jax_tpu_cascade
 from tests.test_torch_multistream import _stream_frames, _write_video
 from tests.test_torch_pipeline import (  # noqa: F401 (bundles: a fixture)
+    LIVE,
     NMSC,
     PIPE,
+    REGIMES,
     REPO,
+    SWITCH_PIPE,
     T_NMSC,
     T_PIPE,
     T_TRK,
     TRK,
+    WIDTH,
     _close,
     _eq,
     _frames,
+    _port,
     _t,
+    assert_perception_equals_jax,
+    assert_step_equals_jax,
     bundles,
+    count_bundles,
+    level_frames,
 )
 
 B, T = 2, 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: tier-1 runs several workers on
+    a few cores, and a thread pool per worker makes them contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -95,7 +114,7 @@ def test_temporal_step_matches_jax_stage_by_stage(bundles):
          j_ff) = perceive(jnp.asarray(flat))
         with torch.no_grad():
             p = tfs._perception_batched(tb, torch.from_numpy(flat), T_TRK,
-                                        T_NMSC, T_PIPE, d, d, None)
+                                        T_NMSC, T_PIPE, d, d)
         _eq(p.det_valid, j_valid, f"group {g} det_valid")
         _eq(p.dets.clipped, j_clip, f"group {g} clipped")
         assert bool(p.dets.converged.all())
@@ -165,7 +184,7 @@ def _sequential(tb, stores, frames, gmc, buckets):
     b, t = frames.shape[:2]
     with torch.no_grad():
         whole = tfs._perception_batched(
-            tb, frames.flatten(0, 1), T_TRK, T_NMSC, T_PIPE, *buckets, None)
+            tb, frames.flatten(0, 1), T_TRK, T_NMSC, T_PIPE, *buckets)
     real = tfs._perception_batched
     outs = []
     for tt in range(t):
@@ -348,3 +367,33 @@ def test_multitrack_cli_temporal_cpu_mini(tmp_path):
         cap = cv2.VideoCapture(str(tmp_path / f"{stem}_tracked.mp4"))
         assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == n
         cap.release()
+
+
+# [stream][frame] regimes of one group; the step's regime is the busiest
+# of its B x T frames.
+GROUP_LEVELS = {"none": (("none", "none"), ("none", "none")),
+                "chunk": (("none", "chunk"), ("none", "none")),
+                "full": (("chunk", "none"), ("full", "chunk"))}
+
+
+@pytest.mark.parametrize("regime", list(GROUP_LEVELS))
+def test_switch_temporal_step_matches_jax(bundles, regime):
+    """B = 2 streams x T = 2 frames with no bucket: perception over the
+    four frames switches on their largest live count (0, 3, 7), and the
+    temporal step equals the JAX package's."""
+    jcb, tcb = count_bundles(*bundles)
+    levels = [REGIMES[r] for row in GROUP_LEVELS[regime] for r in row]
+    frames = np.stack(level_frames(levels, seed=7)).reshape(
+        (B, T) + level_frames([10])[0].shape)
+    assert_perception_equals_jax(jcb, tcb, frames.reshape(
+        (B * T,) + frames.shape[2:]), regime, LIVE[regime], WIDTH[regime])
+    jst = jax.tree.map(lambda x: jnp.stack([x] * B),
+                       jstate.empty_store(TRK))
+    jst, j_res = jfs.frame_step_batched_temporal(
+        jcb, jst, jnp.asarray(frames), TRK, NMSC, SWITCH_PIPE)
+    tst, t_res = tfs.frame_step_batched_temporal(
+        tcb, tstate.empty_stores(T_TRK, B), torch.from_numpy(frames), T_TRK,
+        T_NMSC, _port(SWITCH_PIPE))
+    assert_step_equals_jax(tst, t_res, jst, j_res, regime)
+    assert tuple(t_res.nms_converged.shape) == (B, T)
+

@@ -1,0 +1,83 @@
+"""Synthetic detector scenes for the port's tests, in PyTorch and numpy
+only (tests/test_torch_cuda.py runs where there is no JAX; the JAX
+stand-in is tests/test_torch_pipeline.py::JaxCountDetector).
+
+A detector stand-in makes the live count a function of the frame: eight
+bodies on a 4 x 2 grid of the 96 x 128 detector input, a head in each, a
+face in the even ones' heads; the first floor(mean / 20) bodies (mean of
+the input's first channel) score 0.9, the others 0.001 (below the score
+threshold). The real MINI encoders embed real crops of the noise frames.
+With max_reid_batch 4 and 8 body slots the in-program bucket switch has
+three branches: no crop (0 live), 4 slots (1..4 live) and 8 (5..8).
+"""
+
+import numpy as np
+import torch
+
+SRC_HW = (240, 320)
+# Frame brightness per regime -> 0, 3 and 7 live bodies (2 and 4 faces).
+REGIMES = {"none": 10, "chunk": 70, "full": 150}
+LIVE = {"none": 0, "chunk": 3, "full": 7}
+WIDTH = {"none": 0, "chunk": 4, "full": 8}   # slots the taken branch fills
+
+
+def count_scene():
+    """(anchor boxes [24, 4] in detector-input pixels, class scores
+    [24, 4] before the bodies' own are set)."""
+    bodies, heads, faces = [], [], []
+    for i in range(8):
+        x0, y0 = 32 * (i % 4), 48 * (i // 4)
+        bodies.append((x0 + 2, y0 + 2, x0 + 30, y0 + 46))
+        heads.append((x0 + 8, y0 + 3, x0 + 24, y0 + 15))
+        faces.append((x0 + 11, y0 + 5, x0 + 21, y0 + 13))
+    boxes = np.asarray(bodies + heads + faces, np.float32)
+    scores = np.full((24, 4), 0.001, np.float32)
+    scores[8:16, 1] = 0.8
+    scores[16:24:2, 3] = 0.7
+    return boxes, scores
+
+
+def chain_scene(n=40):
+    """(boxes [n, 4], class scores [n, 4]): n bodies in a row, each
+    overlapping its neighbours at IoU 0.885 and the next ones at 0.782 (the
+    NMS threshold is 0.8), scores descending: a suppression chain of n
+    boxes, which the fixpoint settles one box an iteration."""
+    x = np.arange(n, dtype=np.float32) * 2.2
+    boxes = np.stack([x, np.full(n, 20.0, np.float32), x + 36.0,
+                      np.full(n, 76.0, np.float32)], axis=1)
+    scores = np.full((n, 4), 0.001, np.float32)
+    scores[:, 0] = np.linspace(0.9, 0.5, n)
+    return boxes, scores
+
+
+class TorchCountDetector(torch.nn.Module):
+    """The stand-in for the port's YOLOX (``scene="chain"``: ``chain_scene``
+    on every frame); its constants are buffers, so that a step can be
+    captured in a CUDA graph."""
+
+    def __init__(self, scene="count"):
+        super().__init__()
+        self.scene = scene
+        boxes, scores = chain_scene() if scene == "chain" else count_scene()
+        self.register_buffer("boxes", torch.from_numpy(boxes))
+        self.register_buffer("scores", torch.from_numpy(scores))
+        # ModelBundle.device reads the detector's first parameter.
+        self.anchor = torch.nn.Parameter(torch.zeros(1), requires_grad=False)
+
+    def forward(self, x):
+        b = x.shape[0]
+        if self.scene == "chain":
+            return (self.boxes.expand(b, -1, -1),
+                    self.scores.expand(b, -1, -1))
+        n_on = torch.floor(x[..., 0].mean(dim=(1, 2)) / 20.0)
+        on = torch.arange(8, device=x.device)[None, :] < n_on[:, None]
+        s = self.scores.expand(b, -1, -1).clone()
+        s[:, :8, 0] = torch.where(on, 0.9, 0.001)
+        return self.boxes.expand(b, -1, -1), s
+
+
+def level_frames(levels, seed=0):
+    """One noise frame a level (SRC_HW, values within 8 of the level)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(v - 8, v + 9, SRC_HW + (3,)).astype(np.uint8)
+            for v in levels]
