@@ -1,5 +1,5 @@
-// K8: greedy non-maximum suppression run to its fixpoint, one block per
-// (frame, class) problem.
+// K8: greedy non-maximum suppression run to its fixpoint, one thread-block
+// cluster per (frame, class) problem.
 //
 // A kernel of the port alone: no Pallas kernel stands behind it. In the
 // JAX package the suppression is a ``lax.while_loop`` inside the jitted
@@ -26,117 +26,221 @@
 // with --fmad=false besides), so a box exactly at the threshold goes the
 // way the plain version sends it.
 //
-// Design: the block first builds, for every box j, the bits of the
-// higher-ranked boxes i < j that dominate it (valid, IoU above thr), as
-// ceil(P/32) 32-bit words: word w of box j at dom[w * P + j], so that the
+// The decision without a division: with t = f32(thr) normal and in
+// [2^-60, 2^60], the host passes hi = fl(t (1 + 2^-20)) and
+// lo = fl(t (1 - 2^-20)); d = max(denom, 1e-12). If inter > fl(d hi),
+// then inter / d > t (1 + 2^-21), above t's rounding midpoint
+// t + ulp(t) / 2 <= t (1 + 2^-24), so fl(inter / d) > t; if
+// inter < fl(d lo), then inter / d < t and fl(inter / d) <= t. Only the
+// pairs between (IoUs within about 2^-20 of t) take __fdiv_rn, so every
+// decision is the division's. Another t gets hi = +inf and lo = -inf:
+// every pair divides.
+//
+// Design: the problem's dominance bits are built by a cluster of c blocks
+// (c from the host: ops/nms.py::cluster_size, 16 at 4 problems and 3 at
+// 32 on the H100) and gathered in the leader block's (rank 0) shared
+// memory. Word w of box j holds the bits of the boxes 32w..32w+31 that
+// rank above j, are valid and dominate it, at dom[w * P + j], so that the
 // 32 lanes of a warp, which own 32 consecutive boxes, touch 32 consecutive
-// banks (32 KB of shared memory at P = 512). The keep vector is ceil(P/32)
-// words, double-buffered. One iteration: each thread ANDs its box's words
-// with keep, and __ballot_sync packs the warp's 32 results into the next
-// keep word; __syncthreads_or ends the loop when no word changed. So the
-// loop costs one block barrier an iteration, not one per box as a serial
-// greedy scan would, and no [P, P] IoU or dominance tensor ever reaches
-// device memory.
+// banks (32 KB at P = 512). Only the words with 32w < j hold work (the
+// triangle); in tasks of 32 consecutive boxes j (a warp, lane = j mod 32)
+// they are numbered row by row (w, then j), and each block takes an equal
+// share of the numbers. A lane walks the 32 boxes i of word w, which every
+// lane reads at one address (a broadcast), in straight-line code (the
+// decision without a division; the few pairs it leaves divide afterwards),
+// builds its word in a register and stores it into the leader's dom
+// through distributed shared memory: a warp's 32 words at 32 consecutive
+// addresses. Every block loads the problem's boxes, areas and valid bits
+// itself (P x 17 B, from L2). One cluster barrier orders the remote stores
+// before the leader reads them; the other blocks then exit (nobody reads
+// their shared memory). The leader alone iterates: each thread ANDs its
+// box's words with keep, __ballot_sync packs the warp's 32 results into
+// the next keep word (double-buffered), and __syncthreads_or ends the loop
+// when no word changed. So an iteration costs one block barrier, and no
+// [P, P] IoU or dominance tensor ever reaches device memory.
 //
 // What bounds it on the card: neither bytes nor operations at these
 // sizes. A problem reads P x 17 B and writes P B; its IoUs are about
-// P^2 / 2 (131,072 at P = 512, some 12 float32 operations each, one a
-// division), and one problem's IoUs run on one SM (4 blocks at one
-// stream, 32 at eight): the build's instruction latency on that SM, then
-// a barrier an iteration, set the time, far above the card's bound.
+// P^2 / 2 (131,072 at P = 512, some 12 float32 operations each). The
+// build's instruction throughput, spread over c SMs (over every SM at 8
+// streams), and the leader's fixpoint, a block barrier an iteration, set
+// the time.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cmath>
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <utility>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-// A block of 1024 threads: the IoU build is most of a launch, and it runs
-// on one SM; 32 warps hide the division's latency where 8 could not (256
-// and 512 threads were slower on the card at the steps' shapes).
-constexpr int kThreads = 1024;
+// ops/nms.py::MAX_CANDIDATES: the dominance bits of the largest problem
+// fill 128 KB of shared memory.
+constexpr int kMaxCandidates = 1024;
 
-struct Box {
+struct __align__(16) Box {
   float x1, y1, x2, y2;
 };
 
-// ops/boxes.py::iou_matrix for one pair (a = the higher-ranked box), then
-// the comparison with the threshold.
-__device__ __forceinline__ bool dominates(const Box a, float area_a,
-                                          const Box b, float area_b,
-                                          float thr) {
+// t = f32(thr); the division-free decision's bounds (see the note above).
+struct Threshold {
+  float t, lo, hi;
+};
+
+// ops/boxes.py::iou_matrix for one pair (a = the higher-ranked box) up to
+// the division: the intersection, max(denom, 1e-12) and whether the IoU
+// is a quotient (overlap on both axes, denom > 0) or 0.
+struct Pair {
+  float inter, d;
+  bool quotient;
+};
+
+__device__ __forceinline__ Pair pair_of(const Box a, float area_a,
+                                        const Box b, float area_b) {
   const float w = __fsub_rn(fminf(a.x2, b.x2), fmaxf(a.x1, b.x1));
   const float h = __fsub_rn(fminf(a.y2, b.y2), fmaxf(a.y1, b.y1));
-  float iou = 0.0f;
-  if (w > 0.0f && h > 0.0f) {  // overlap
-    const float inter = __fmul_rn(w, h);
-    const float denom = __fsub_rn(__fadd_rn(area_a, area_b), inter);
-    if (denom > 0.0f) iou = __fdiv_rn(inter, fmaxf(denom, 1e-12f));
-  }
-  return iou > thr;
+  const float inter = __fmul_rn(w, h);
+  const float denom = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+  return Pair{inter, fmaxf(denom, 1e-12f),
+              w > 0.0f && h > 0.0f && denom > 0.0f};
 }
 
-// Shared memory: dom [words][p], keep [2][words], valid bits [words] and
-// area [p] as 32-bit words, then the boxes [p] on a 16-byte boundary.
+// iou > t without a division where the margin decides (see the note), in
+// straight-line code: *hit, or *unsure where only the division can tell.
+// zero_hit = 0 > t, the decision for an IoU of 0 (false unless t < 0,
+// which the division path takes).
+__device__ __forceinline__ void decide(const Pair q, const Threshold thr,
+                                       bool zero_hit, bool* hit,
+                                       bool* unsure) {
+  const bool above = q.inter > __fmul_rn(q.d, thr.hi);
+  const bool below = q.inter < __fmul_rn(q.d, thr.lo);
+  *hit = q.quotient && above;
+  *unsure = q.quotient ? !above && !below : zero_hit;
+}
+
+// iou > t by the division.
+__device__ __forceinline__ bool dominates(const Pair q, const Threshold thr) {
+  return (q.quotient ? __fdiv_rn(q.inter, q.d) : 0.0f) > thr.t;
+}
+
+// Shared memory (every block of a launch gets the same): dom [words][p]
+// (the leader's is the one written), keep [2][words], valid bits [words]
+// and area [p_pad] as 32-bit words, then the boxes [p_pad] on a 16-byte
+// boundary (p_pad = 32 words; the padding is zero).
 __host__ __device__ __forceinline__ size_t boxes_offset(int p) {
   const size_t words = (p + 31) / 32;
-  const size_t head = 4 * (words * p + 3 * words + p);
+  const size_t head = 4 * (words * p + 3 * words + 32 * words);
   return (head + 15) & ~static_cast<size_t>(15);
 }
 
+size_t smem_bytes(int p) {
+  return boxes_offset(p) + 16 * 32 * static_cast<size_t>((p + 31) / 32);
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
 nms_fixpoint_kernel(const float4* __restrict__ boxes,
                     const uint8_t* __restrict__ valid,
-                    uint8_t* __restrict__ keep_out, int p, float thr) {
-  extern __shared__ uint32_t smem[];
+                    uint8_t* __restrict__ keep_out, int p,
+                    Threshold thr) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.dim_blocks().x);
+  const int rank = static_cast<int>(cluster.block_rank());
+  // The leader's shared memory may take remote stores only once every
+  // block of the cluster runs: arrive now, wait before the first store.
+  cluster_arrive_relaxed();
+
   const int words = (p + 31) >> 5;
   const int p_pad = words << 5;
   uint32_t* dom = smem;                           // [words][p]
   uint32_t* keep = dom + words * p;               // [2][words]
   uint32_t* valid_bits = keep + 2 * words;        // [words]
-  float* area = reinterpret_cast<float*>(valid_bits + words);  // [p]
+  float* area = reinterpret_cast<float*>(valid_bits + words);  // [p_pad]
   Box* box = reinterpret_cast<Box*>(reinterpret_cast<char*>(smem) +
-                                    boxes_offset(p));             // [p]
+                                    boxes_offset(p));             // [p_pad]
 
-  const int prob = blockIdx.x;
+  const int prob = blockIdx.x / c;
   const float4* pb = boxes + static_cast<int64_t>(prob) * p;
   const uint8_t* pv = valid + static_cast<int64_t>(prob) * p;
   const int tid = threadIdx.x;
 
   for (int j = tid; j < p_pad; j += kThreads) {
     const bool v = j < p && pv[j] != 0;
-    if (j < p) {
-      const float4 q = pb[j];
-      box[j] = Box{q.x, q.y, q.z, q.w};
-      area[j] = __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
-    }
+    const float4 q = j < p ? pb[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    box[j] = Box{q.x, q.y, q.z, q.w};
+    area[j] = __fmul_rn(__fsub_rn(q.z, q.x), __fsub_rn(q.w, q.y));
     const uint32_t bits = __ballot_sync(0xffffffffu, v);
     if ((j & 31) == 0) {
       valid_bits[j >> 5] = bits;
-      keep[j >> 5] = bits;  // keep0 = valid
+      keep[j >> 5] = bits;  // keep0 = valid (read in the leader only)
     }
   }
   __syncthreads();
+  cluster_wait();
 
-  // dom[w][j]: bit b set where box 32w + b (< j, valid) dominates valid j.
-  for (int idx = tid; idx < words * p; idx += kThreads) {
-    const int w = idx / p;
-    const int j = idx - w * p;
+  // The words with 32w < j in tasks of 32 consecutive boxes j = 32m + lane
+  // (one warp, m >= w), numbered row by row: row w holds the chunks
+  // m = w .. words - 1. This block's share is [t0, t1) of the `tasks`
+  // numbers; warp k takes t0 + k, t0 + k + warps, ...
+  const int tasks = words * (words + 1) / 2;
+  const int t0 = tasks * rank / c;
+  const int t1 = tasks * (rank + 1) / c;
+  constexpr int kWarps = kThreads / 32;
+  const int lane = tid & 31;
+  uint32_t* leader_dom = cluster.map_shared_rank(dom, 0);
+  const bool zero_hit = 0.0f > thr.t;
+  int w = 0, row0 = 0;  // the warp's row and the number of its first task
+  for (int t = t0 + (tid >> 5); t < t1; t += kWarps) {
+    while (t >= row0 + words - w) {
+      row0 += words - w;
+      ++w;
+    }
+    const int j = 32 * (w + t - row0) + lane;
+    if (j >= p) continue;
     uint32_t bits = 0;
-    const int i0 = w << 5;
-    if (i0 < j && ((valid_bits[j >> 5] >> (j & 31)) & 1u)) {
+    if ((valid_bits[j >> 5] >> (j & 31)) & 1u) {
       const Box b = box[j];
       const float ab = area[j];
-      const uint32_t vw = valid_bits[w];
-      const int i1 = min(i0 + 32, j);
-      for (int i = i0; i < i1; ++i) {
-        if (((vw >> (i - i0)) & 1u) &&
-            dominates(box[i], area[i], b, ab, thr))
-          bits |= 1u << (i - i0);
+      const int i0 = 32 * w;
+      // Valid boxes i = i0 + k < j: the bits the word can hold.
+      const uint32_t cand =
+          valid_bits[w] & (j - i0 >= 32 ? 0xffffffffu
+                                        : (1u << (j - i0)) - 1u);
+      uint32_t unsure = 0;
+      const Box* bi = box + i0;  // padded to p_pad: no index leaves it
+      const float* ai = area + i0;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        bool hit, uns;
+        decide(pair_of(bi[k], ai[k], b, ab), thr, zero_hit, &hit, &uns);
+        if (hit) bits |= 1u << k;
+        if (uns) unsure |= 1u << k;
+      }
+      bits &= cand;
+      for (unsure &= cand; unsure != 0; unsure &= unsure - 1) {
+        const int k = __ffs(unsure) - 1;
+        if (dominates(pair_of(bi[k], ai[k], b, ab), thr)) bits |= 1u << k;
       }
     }
-    dom[idx] = bits;
+    leader_dom[w * p + j] = bits;  // 32 lanes, 32 consecutive words
   }
-  __syncthreads();
+  // Release the remote stores, acquire them in the leader.
+  cluster.sync();
+  if (rank != 0) return;
 
   // keep_{t+1}[j] = valid[j] and no kept dominator, from keep_t, until no
   // word changes (at most p iterations, as the JAX loop's cap).
@@ -150,7 +254,7 @@ nms_fixpoint_kernel(const float4* __restrict__ boxes,
       if (j < p && ((valid_bits[j >> 5] >> (j & 31)) & 1u)) {
         uint32_t hit = 0;
         const int last = (j - 1) >> 5;  // words that can hold a dominator
-        for (int w = 0; w <= last; ++w) hit |= dom[w * p + j] & k_old[w];
+        for (int v = 0; v <= last; ++v) hit |= dom[v * p + j] & k_old[v];
         kj = hit == 0;
       }
       const uint32_t bits = __ballot_sync(0xffffffffu, kj);
@@ -169,29 +273,115 @@ nms_fixpoint_kernel(const float4* __restrict__ boxes,
     out[j] = static_cast<uint8_t>((k_fin[j >> 5] >> (j & 31)) & 1u);
 }
 
-size_t smem_bytes(int p) {
-  return boxes_offset(p) + 16 * static_cast<size_t>(p);
+using KernelFn = void (*)(const float4*, const uint8_t*, uint8_t*, int,
+                          Threshold);
+
+// The kernel for a block size, or null: 1024 threads (ops/nms.py::THREADS)
+// in the wrapper; 256 and 512 only in chip_smoke.py's timing.
+KernelFn pick(int threads) {
+  switch (threads) {
+    case 256: return nms_fixpoint_kernel<256>;
+    case 512: return nms_fixpoint_kernel<512>;
+    case 1024: return nms_fixpoint_kernel<1024>;
+    default: return nullptr;
+  }
+}
+
+// Sets a kernel's attributes once per device: dynamic shared memory up to
+// the largest candidate count's, and the non-portable cluster sizes.
+cudaError_t prepare(KernelFn kernel) {
+  static std::mutex mu;
+  static std::set<std::pair<KernelFn, int>> ready;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready.count({kernel, device})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes(kMaxCandidates)));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  ready.insert({kernel, device});
+  return cudaSuccess;
+}
+
+// The launch configuration of `problems` clusters of `cluster` blocks of
+// `threads` threads, the kernel prepared for it. `attr` is the
+// configuration's one attribute.
+cudaError_t configure(KernelFn kernel, int problems, int p, int threads,
+                      int cluster, cudaStream_t stream,
+                      cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  const cudaError_t err = prepare(kernel);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(problems * cluster);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem_bytes(p);
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+Threshold threshold(float thr) {
+  Threshold out{thr, -INFINITY, INFINITY};
+  if (thr >= 0x1p-60f && thr <= 0x1p60f) {
+    out.lo = thr * (1.0f - 0x1p-20f);
+    out.hi = thr * (1.0f + 0x1p-20f);
+  }
+  return out;
+}
+
+bool valid_shape(int problems, int p, int cluster) {
+  return problems >= 1 && p >= 1 && p <= kMaxCandidates && cluster >= 1 &&
+         cluster <= 16;
 }
 
 }  // namespace
 
 extern "C" size_t nms_fixpoint_smem_bytes(int p) { return smem_bytes(p); }
 
+// How many clusters of `cluster` blocks of `threads` threads can run at
+// once at candidate count p (cudaOccupancyMaxActiveClusters), into *out;
+// 0 means that the cluster size cannot be scheduled.
+extern "C" int nms_fixpoint_max_active_clusters(int p, int cluster,
+                                                int threads, int* out) {
+  const KernelFn kernel = pick(threads);
+  if (kernel == nullptr || !valid_shape(1, p, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure(kernel, 1, p, threads, cluster, nullptr,
+                              &attr, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
+}
+
 // boxes [problems, p, 4] float32, valid [problems, p] uint8 (0/1), keep
-// [problems, p] uint8 out; all contiguous on one device.
+// [problems, p] uint8 out; all contiguous on one device. One cluster of
+// `cluster` blocks of `threads` threads a problem, on `stream`.
 extern "C" int nms_fixpoint_launch(const void* boxes, const void* valid,
                                    void* keep, int problems, int p,
-                                   float thr, cudaStream_t stream) {
-  if (problems < 1 || p < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(p);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nms_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  nms_fixpoint_kernel<<<problems, kThreads, smem, stream>>>(
-      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), p, thr);
+                                   float thr, int cluster, int threads,
+                                   cudaStream_t stream) {
+  const KernelFn kernel = pick(threads);
+  if (kernel == nullptr || !valid_shape(problems, p, cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure(kernel, problems, p, threads, cluster, stream,
+                              &attr, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const float4*>(boxes),
+                           static_cast<const uint8_t*>(valid),
+                           static_cast<uint8_t*>(keep), p, threshold(thr));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

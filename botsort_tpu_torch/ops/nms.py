@@ -9,17 +9,19 @@ classes of all frames run together as one batch.
 The fixpoint runs until nothing changes, as the JAX package's
 ``lax.while_loop`` does, and never asks the host whether it is done: on
 the card it is kernel K8 (csrc/nms_fixpoint.cu, ``nms_fixpoint_cuda``),
-one block per (frame, class) problem that computes its IoUs itself and
-iterates inside the block; on the CPU it is ``nms_fixpoint_plain``. The
-stable sort, the gathers and the compaction stay in PyTorch. The
-fixpoint is unique, so ``Detections.converged`` is true by construction
-(the field keeps the FrameResult's layout).
+one thread-block cluster per (frame, class) problem whose blocks compute
+its IoUs themselves, gather the dominance bits in the leader block and
+leave it to iterate (``cluster_size`` picks the cluster); on the CPU it
+is ``nms_fixpoint_plain``. The stable sort, the gathers and the
+compaction stay in PyTorch. The fixpoint is unique, so
+``Detections.converged`` is true by construction (the field keeps the
+FrameResult's layout).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +33,12 @@ from botsort_tpu_torch.utils.consts import tracing
 # The largest candidate count K8 takes: its dominance bits are P x P / 8
 # bytes of shared memory (128 KB at 1024).
 MAX_CANDIDATES = 1024
+# K8's largest cluster (16 blocks: a non-portable size, which the H100
+# schedules) and its block size, the one the card ran fastest at the
+# steps' candidates with ``cluster_size``'s clusters (chip_smoke.py's K8
+# phase also times 256 and 512).
+MAX_CLUSTER = 16
+THREADS = 1024
 
 
 class Detections(NamedTuple):
@@ -74,19 +82,69 @@ def _lib() -> ctypes.CDLL:
     lib = kernels.load("nms_fixpoint")
     fn = lib.nms_fixpoint_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_float,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.nms_fixpoint_smem_bytes.argtypes = [ctypes.c_int]
         lib.nms_fixpoint_smem_bytes.restype = ctypes.c_size_t
+        lib.nms_fixpoint_max_active_clusters.argtypes = [
+            ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.nms_fixpoint_max_active_clusters.restype = ctypes.c_int
     return lib
+
+
+def cluster_size(problems: int, sm_count: int,
+                 active_clusters: Callable[[int], int]) -> int:
+    """K8's cluster size for ``problems`` problems on a card of
+    ``sm_count`` SMs: the largest c <= MAX_CLUSTER with problems x c <=
+    sm_count (1 where none is), lowered while the card cannot hold every
+    problem's cluster of c blocks at once (``active_clusters(c)``, how
+    many it can, below ``problems``): on the H100 a second wave of
+    clusters cost more than a smaller cluster."""
+    c = max(1, min(MAX_CLUSTER, sm_count // problems))
+    while c > 1 and active_clusters(c) < problems:
+        c -= 1
+    return c
+
+
+def max_active_clusters(cluster: int, p: int, device: torch.device) -> int:
+    """How many clusters of ``cluster`` K8 blocks (``p`` candidates)
+    ``device`` can run at once (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _lib().nms_fixpoint_max_active_clusters(
+            p, cluster, THREADS, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"nms_fixpoint occupancy query failed: CUDA "
+                           f"error {rc}")
+    return n.value
+
+
+_CLUSTERS: Dict[tuple, int] = {}
+
+
+def launch_shape(problems: int, p: int, device: torch.device) -> int:
+    """The cluster size K8 launches ``problems`` problems of ``p``
+    candidates with on ``device`` (``cluster_size`` with the card's SM
+    count and occupancy), cached per shape."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, problems, p)
+    c = _CLUSTERS.get(key)
+    if c is None:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        c = _CLUSTERS[key] = cluster_size(
+            problems, sms, lambda size: max_active_clusters(size, p, index))
+    return c
 
 
 def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
                       iou_threshold: float) -> torch.Tensor:
     """K8: ``nms_fixpoint_plain`` on the card, one launch on the current
-    stream for every problem of the leading dimensions; nothing is
+    stream for every problem of the leading dimensions (a cluster of
+    ``launch_shape`` blocks of THREADS threads each); nothing is
     synchronised. top_boxes [..., P, 4] float32 and top_valid [..., P]
     bool on one CUDA device, P <= MAX_CANDIDATES. ``launches`` counts
     launches."""
@@ -112,9 +170,10 @@ def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
     boxes = top_boxes.contiguous()
     valid = top_valid.contiguous()
     with torch.cuda.device(boxes.device):
+        cluster = launch_shape(problems, p, boxes.device)
         rc = _lib().nms_fixpoint_launch(
             boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), problems, p,
-            float(np.float32(iou_threshold)),
+            float(np.float32(iou_threshold)), cluster, THREADS,
             kernels.current_stream(boxes.device))
     if rc != 0:
         raise RuntimeError(f"nms_fixpoint launch failed: CUDA error {rc}")

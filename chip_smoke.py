@@ -66,10 +66,17 @@ Drives the port's paths on the card and fails loudly if any phase fails:
       K8      the NMS fixpoint kernel against its plain version, bit for
               bit, on the candidates the loaded one-stream and the
               8-stream steps give it (recorded from their frames) and on a
-              suppression chain of length P = 512; the iterations each
-              needs; CUDA-event, graph and plain times beside the bound
-              and the 16-iteration PyTorch chain it replaced (its time and
-              device kernels a call), in this call.
+              suppression chain of length P = 512, through the wrapper and
+              launched directly (``k8_sweep``) at block sizes 256, 512 and
+              1024 and at cluster sizes 2-16; the cluster size
+              (ops/nms.py::launch_shape) and block size each input
+              launches with; the iterations each needs; CUDA-event, graph
+              and plain times beside the bound, the graph time per block
+              size and per cluster size, and the
+              16-iteration PyTorch chain it replaced (its time and device
+              kernels a call), in this call; the empty-node floor (a CUDA
+              graph of 100 one-element kernels, ms a node), printed again
+              beside K9's time after the switch phase.
       K7      the crop-resize kernel against its plain version in its
               three modes (float32, bfloat16, int8) at the main paths'
               shapes: 1080p to 480x640 at B = 1 and 8, 50 body crops at
@@ -1266,14 +1273,68 @@ def k8_chain(torch, p, dev):
             torch.ones((1, 4, p), dtype=torch.bool, device=dev))
 
 
+def empty_node_floor(torch, dev, nodes=100, replays=20):
+    """The least time a kernel node of a CUDA graph takes: a graph of
+    ``nodes`` one-element PyTorch kernels (``add_`` on one float), replayed;
+    device ms a node."""
+    x = torch.zeros(1, device=dev)
+    return graph_ms(torch, lambda: x.add_(1.0), calls=nodes,
+                    replays=replays)
+
+
+# The block sizes the K8 library holds; ops/nms.py launches THREADS.
+K8_BLOCK_THREADS = (256, 512, 1024)
+
+
+def k8_direct(torch, nms, boxes, valid, thr, cluster, threads):
+    """K8's library launched directly, not counted, at a cluster size and
+    block size of the caller's: a function that launches it into a fresh
+    keep tensor and returns it."""
+    lib = nms._lib()
+    problems, p = valid.shape[0] * valid.shape[1], valid.shape[-1]
+
+    def run():
+        keep = torch.empty_like(valid)
+        rc = lib.nms_fixpoint_launch(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), problems,
+            p, float(np.float32(thr)), cluster, threads,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"K8 at cluster size {cluster}, {threads} "
+                               f"threads: CUDA error {rc}")
+        return keep
+
+    return run
+
+
+def k8_sweep(torch, nms, boxes, valid, thr, want, shapes):
+    """Graph ms of K8 at each (cluster size, block size) of ``shapes``,
+    each launch first checked bit-equal to ``want``."""
+    out = []
+    for c, n in shapes:
+        run = k8_direct(torch, nms, boxes, valid, thr, c, n)
+        got = run()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K8 != plain at cluster size {c}, {n} "
+                                 "threads")
+        out.append(graph_ms(torch, run))
+    return out
+
+
 def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
              cfgs, card):
     """K8 against nms_fixpoint_plain on the card, bit for bit, at the
     loaded one-stream and the 8-stream steps' candidates and on a chain of
-    length P; iterations; CUDA-event, graph and plain times, the old
-    16-iteration chain's time and device kernels in this call, the bound.
-    Returns (max element difference, (ms, plain ms, bound ms, bound by,
-    library ms)) at the loaded one-stream step's candidates."""
+    length P; the cluster size and block size each input launches with;
+    iterations; CUDA-event, graph and plain times, the graph time per
+    block size (at the launched cluster size) and per cluster size (at
+    nms.THREADS threads), each of those launches bit-equal too, the old
+    16-iteration chain's time and device kernels in this call, the bound,
+    and the empty-node floor. Returns
+    (max element difference, (ms, plain ms, bound ms, bound by, library
+    ms)) at the loaded one-stream step's candidates, and the floor (ms a
+    graph node)."""
     _, nms_cfg, _ = cfgs
     thr = nms_cfg.iou_threshold
     dev = bundle.device
@@ -1285,15 +1346,21 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
                  cfgs),
              (f"chain of {nms_cfg.pre_nms_top_k}",) + k8_chain(
                  torch, nms_cfg.pre_nms_top_k, dev))
+    floor = empty_node_floor(torch, dev)
+    log(f"timing: empty-node floor {floor:.4f} ms a kernel node (a CUDA "
+        f"graph of 100 one-element add_ kernels, replayed); {card}")
     max_err, first = 0, None
     for label, boxes, valid in cases:
-        got = nms.nms_fixpoint_cuda(boxes, valid, thr)
         want = nms.nms_fixpoint_plain(boxes, valid, thr)
+        got = nms.nms_fixpoint_cuda(boxes, valid, thr)
         torch.cuda.synchronize()
         err = int((got != want).sum())
         if err:
             raise AssertionError(f"K8 != plain on {label}: {err} of "
                                  f"{got.numel()} differ")
+        problems, p = valid.shape[0] * valid.shape[1], valid.shape[-1]
+        cluster = nms.launch_shape(problems, p, dev)
+        resident = nms.max_active_clusters(cluster, p, dev)
         iters = fixpoint_iterations(torch, iou_matrix, boxes, valid, thr)
         run = lambda b=boxes, v=valid: nms.nms_fixpoint_cuda(  # noqa: E731
             b, v, thr)
@@ -1304,7 +1371,6 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
                          nms.nms_fixpoint_plain(b, v, thr), 3)
         old_ms, old_graph = event_ms(torch, old, 10), graph_ms(torch, old)
         old_kernels = step_profile(torch, old)[0]
-        problems, p = valid.shape[0] * valid.shape[1], valid.shape[-1]
         n_valid = valid.reshape(problems, p).sum(-1).double()
         pairs = float((n_valid * (n_valid - 1) / 2).sum())
         # Each box's 16 B and valid byte read once, each keep byte written
@@ -1313,19 +1379,35 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
         b_ms, b_by = bound(nbytes, 12 * pairs, F32_FLOPS)
         log(f"timing: K8 {label}: [{valid.shape[0]}, {valid.shape[1]}, "
             f"{p}], {int(n_valid.sum())} valid candidates, {iters} "
-            f"iterations to the fixpoint; kernel {ms:.4f} ms eager, "
+            f"iterations to the fixpoint; {problems} clusters of {cluster} "
+            f"blocks of {nms.THREADS} threads ({resident} fit at once); "
+            f"kernel {ms:.4f} ms eager, "
             f"{ms_graph:.4f} ms graph; plain {plain:.4f} ms; the "
             f"16-iteration chain it replaced {old_ms:.4f} ms eager, "
             f"{old_graph:.4f} ms graph, {old_kernels:.0f} device kernels a "
             f"call; bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {pairs:.0f} "
             f"IoU pairs); library: none (no PyTorch call suppresses); "
-            f"{card}")
+            f"empty-node floor {floor:.4f} ms; {card}")
+        log(f"timing: K8 {label}: graph ms per block size at cluster size "
+            f"{cluster}, bit-equal at each: " + ", ".join(
+                f"{n} threads {t:.4f}" for n, t in zip(
+                    K8_BLOCK_THREADS, k8_sweep(
+                        torch, nms, boxes, valid, thr, want,
+                        [(cluster, n) for n in K8_BLOCK_THREADS]))))
+        sizes = (2, 3, 4, 6, 8, 12, 16)
+        log(f"timing: K8 {label}: graph ms per cluster size at "
+            f"{nms.THREADS} threads (clusters that fit at once), bit-equal "
+            "at each: " + ", ".join(
+                f"{c} {t:.4f} ({nms.max_active_clusters(c, p, dev)})"
+                for c, t in zip(sizes, k8_sweep(
+                    torch, nms, boxes, valid, thr, want,
+                    [(c, nms.THREADS) for c in sizes]))))
         if first is None:
             first = (ms, plain, b_ms, b_by, None)
         max_err = max(max_err, err)
     log(f"K8: equal to the plain version bit for bit on all "
-        f"{len(cases)} inputs")
-    return max_err, first
+        f"{len(cases)} inputs at every block size and cluster size")
+    return max_err, first, floor
 
 
 def phase_k9(torch, switch, dev):
@@ -3321,8 +3403,9 @@ def main() -> int:
     k6_err, k6_times = phase_k6(torch, F, bn_act, bundle, multi_pipe,
                                 multi_frames, multi_cfgs, card)
     done("K6")
-    k8_err, k8_times = phase_k8(torch, nms, iou_matrix, bundle, main_frame,
-                                multi_frames, main_cfgs, card)
+    k8_err, k8_times, floor = phase_k8(torch, nms, iou_matrix, bundle,
+                                       main_frame, multi_frames, main_cfgs,
+                                       card)
     done("K8")
     del main_pipe, multi_pipe  # their graphs and the graphs' memory pools
     torch.cuda.empty_cache()
@@ -3331,6 +3414,11 @@ def main() -> int:
     k9_err, k9_plain = phase_k9(torch, switch, dev)
     done("K9")
     k9_launches, k9_times = phase_switch(torch, bundle, card, k9_plain)
+    log(f"timing: empty-node floor {floor:.4f} ms a graph node; K8 "
+        f"{k8_times[0]:.4f} ms eager at the loaded one-stream candidates "
+        f"(graph times in the K8 lines); K9 {k9_times[0]:.4f} ms a launch "
+        f"inside a graphed step, {k9_times[0] / floor:.2f} x the floor; "
+        f"{card}")
     done("switch")
     k2_temporal, k7_temporal = phase_temporal(torch, bundle, assignment_cuda,
                                               card, unlowered)

@@ -24,13 +24,13 @@ from botsort_tpu_torch.models import fastreid_fused
 from botsort_tpu_torch.models.common import cast_compute
 from botsort_tpu_torch.ops import assignment, assignment_cuda, crop, nms
 from botsort_tpu_torch.pipeline import frame_step as fs
-from botsort_tpu_torch.pipeline import host, switch
+from botsort_tpu_torch.pipeline import graphed, host, switch
 from botsort_tpu_torch.runtime import assets, kernels
 from botsort_tpu_torch.track.state import empty_stores
 # By its own name (pytest puts this directory on the path): a site package
 # named ``tests`` would shadow the directory as ``tests.torch_scenes``.
 from torch_scenes import (LIVE, REGIMES, WIDTH, TorchCountDetector,
-                          level_frames)
+                          boundary_boxes, level_frames)
 
 pytestmark = pytest.mark.cuda
 
@@ -997,15 +997,31 @@ def _k8_case(rng, problems, p, kind):
 
 @pytest.mark.parametrize("problems,p,kind", [
     (32, 512, "random"), (4, 512, "dense"), (1, 512, "chain"),
-    (2, 1024, "chain"), (8, 252, "tied"), (3, 33, "random")])
+    (2, 1024, "chain"), (8, 252, "tied"), (3, 33, "random"),
+    ("c16", 512, "random"), ("c8", 512, "dense"), ("c4", 300, "tied"),
+    ("c2", 512, "random"), ("c1", 97, "random"), (6, 2, "boundary")])
 def test_k8_equals_plain(dev, problems, p, kind):
     """K8 against its plain version, bit for bit, at three thresholds
-    (one launch each, counted), shaped [G, C, P] and flat."""
+    (one launch each, counted), shaped [G, C, P] and flat. "cN": a problem
+    count that takes cluster size N on the H100 (its SM count // N, or
+    fewer where the card holds fewer clusters of N at once); "boundary":
+    the pairs of tests/torch_scenes.py::boundary_boxes, whose IoU is each
+    threshold one ulp down, exactly and one ulp up."""
+    if isinstance(problems, str):
+        cluster = int(problems[1:])
+        props = torch.cuda.get_device_properties(dev)
+        problems = min(props.multi_processor_count // cluster,
+                       nms.max_active_clusters(cluster, p, dev))
+        assert nms.launch_shape(problems, p, dev) == cluster
     rng = np.random.default_rng(p + problems)
-    boxes, valid = _k8_case(rng, problems, p, kind)
-    tb = torch.from_numpy(boxes).to(dev)
-    tv = torch.from_numpy(valid).to(dev)
+    boxes, valid = _k8_case(rng, problems, p, kind) \
+        if kind != "boundary" else (None, None)
     for thr in (0.3, 0.5, 0.8):
+        if kind == "boundary":
+            boxes, _ = boundary_boxes(thr)
+            valid = np.ones(boxes.shape[:2], bool)
+        tb = torch.from_numpy(boxes).to(dev)
+        tv = torch.from_numpy(valid).to(dev)
         before = nms.nms_fixpoint_cuda.launches
         got = nms.nms_fixpoint_cuda(tb, tv, thr)
         assert nms.nms_fixpoint_cuda.launches == before + 1
@@ -1016,6 +1032,30 @@ def test_k8_equals_plain(dev, problems, p, kind):
                                   tv.reshape(2, -1, p), 0.5)
         assert torch.equal(shaped.reshape(problems, p),
                            nms.nms_fixpoint_plain(tb, tv, 0.5))
+
+
+def test_k8_replayed_from_a_graph_equals_eager(dev):
+    """K8 captured in a CUDA graph by pipeline/graphed.py::GraphCache, as
+    the facades capture a step, and replayed on two inputs: equal to the
+    eager launch and to the plain version, and counted as chip_smoke counts
+    it (the capture's warm-up calls, then one a replay)."""
+    rng = np.random.default_rng(13)
+    inputs = [[torch.from_numpy(a).to(dev)
+               for a in _k8_case(rng, 4, 512, kind)]
+              for kind in ("dense", "random")]
+    cache = graphed.GraphCache(dev)
+
+    def step(boxes, valid):
+        return [nms.nms_fixpoint(boxes, valid, 0.8)]
+
+    before = nms.nms_fixpoint_cuda.launches
+    for tb, tv in inputs + inputs:
+        eager = nms.nms_fixpoint_cuda(tb, tv, 0.8)
+        got, = cache.run(("k8",), step, [tb, tv])
+        assert torch.equal(got, eager)
+        assert torch.equal(got, nms.nms_fixpoint_plain(tb, tv, 0.8))
+    assert cache.captures == 1 and cache.replays == 4
+    assert nms.nms_fixpoint_cuda.launches - before == 4 + cache.warmups + 4
 
 
 def test_k8_wrapper_refuses_and_op_equals_its_cpu_implementation(dev):

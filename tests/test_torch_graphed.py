@@ -37,6 +37,7 @@ from botsort_tpu_torch.models import bn_act
 from botsort_tpu_torch.models.common import BatchNorm
 from botsort_tpu_torch.ops import assignment_cuda
 from botsort_tpu_torch.ops import crop as tcrop
+from botsort_tpu_torch.ops.boxes import iou_matrix
 from botsort_tpu_torch.ops import nms as tnms
 from botsort_tpu_torch.pipeline import frame_step as tfs
 from botsort_tpu_torch.pipeline import graphed
@@ -59,6 +60,7 @@ from tests.test_torch_pipeline import (  # noqa: F401 (bundles: a fixture)
     count_bundles,
     level_frames,
 )
+from tests.torch_scenes import boundary_boxes
 
 JAX_ACTS = {"none": lambda x: x, "silu": nn.silu, "relu": nn.relu,
             "relu6": lambda x: jnp.minimum(nn.relu(x), 6.0)}
@@ -260,6 +262,75 @@ def test_nms_fixpoint_equals_jax_while_loop(case, form):
                                        atol=1e-4)
     if case == "chain40" and form == "single":
         assert int(got[2].sum()) == 20   # every other box
+
+
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.8])
+def test_nms_boundary_iou_equals_jax(thr):
+    """Box pairs whose float32 IoU (iou_matrix's order) is f32(thr) one ulp
+    down, exactly, and one ulp up (tests/torch_scenes.py::boundary_boxes):
+    the port's NMS (K8's plain version) keeps what the JAX package's
+    nms_single_class and multiclass_nms_dense keep, and suppresses the
+    lower-ranked box only at the ulp above (iou > thr in float32)."""
+    boxes, ious = boundary_boxes(thr)
+    tb = torch.from_numpy(boxes)
+    np.testing.assert_array_equal(
+        iou_matrix(tb, tb)[:, 0, 1].numpy(), ious)
+    suppressed = ious > np.float32(thr)
+    assert suppressed.tolist() == [False] * 4 + [True] * 2
+    scores = np.array([0.9, 0.8], np.float32)
+    args = (scores, np.ones(2, bool))
+    for pair, sup in zip(boxes, suppressed):
+        got = tnms.nms_single_class(
+            torch.from_numpy(pair), *map(torch.from_numpy, args), thr, 0.2,
+            2, 2)
+        want = jnms.nms_single_class(jnp.asarray(pair),
+                                     *map(jnp.asarray, args), thr, 0.2, 2,
+                                     2)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        assert int(got[2].sum()) == (1 if sup else 2)
+    # Every pair a frame of one batched call; class 1 ranks b first.
+    cls = np.broadcast_to(np.array([[0.9, 0.8], [0.8, 0.9]], np.float32),
+                          (len(boxes), 2, 2)).copy()
+    kw = dict(iou_threshold=thr, score_threshold=0.2, max_per_class=2,
+              pre_nms_top_k=2)
+    want = jax.vmap(lambda b, c: jnms.multiclass_nms_dense(b, c, **kw))(
+        jnp.asarray(boxes), jnp.asarray(cls))
+    got = tnms.multiclass_nms_dense_batched(tb, torch.from_numpy(cls), **kw)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got.boxes.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got.valid.sum(-1).numpy(),
+                                  np.where(suppressed, 1, 2)[:, None]
+                                  .repeat(2, 1))
+
+
+@pytest.mark.parametrize("problems,want", [
+    (4, 16), (8, 16), (9, 14), (32, 4), (33, 4), (34, 3), (66, 2), (67, 1),
+    (132, 1), (133, 1)])
+def test_k8_cluster_size_rule(problems, want):
+    """K8's cluster size on a card of 132 SMs that holds any number of
+    clusters at once: the largest c <= 16 with problems x c <= 132, else
+    1."""
+    assert tnms.cluster_size(problems, 132, lambda c: 10 ** 6) == want
+
+
+def test_k8_cluster_size_lowers_until_every_cluster_fits():
+    """Where the card cannot hold every problem's cluster at once (fewer
+    active clusters than problems; 0: none), the size is lowered one block
+    at a time until it can, down to 1 (launched, and raising if
+    refused). The H100's counts at 1024 threads: 30 clusters of 4, 39 of
+    3, 7 of 16."""
+    asked = []
+
+    def h100(c):
+        asked.append(c)
+        return {16: 7, 4: 30, 3: 39}[c]
+
+    assert tnms.cluster_size(32, 132, h100) == 3
+    assert asked == [4, 3]
+    assert tnms.cluster_size(4, 132, h100) == 16
+    assert tnms.cluster_size(4, 132, lambda c: 0) == 1
+    assert tnms.cluster_size(4, 132, lambda c: 0 if c > 8 else 4) == 8
+    assert tnms.cluster_size(200, 132, lambda c: 0) == 1
 
 
 def test_nms_fixpoint_op_and_dispatch():

@@ -81,3 +81,52 @@ def level_frames(levels, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(v - 8, v + 9, SRC_HW + (3,)).astype(np.uint8)
             for v in levels]
+
+
+def _iou_f32(a, b):
+    """ops/boxes.py::iou_matrix for row-aligned box pairs in numpy float32,
+    in its order of operations."""
+    w = np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0])
+    h = np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1])
+    inter = w * h
+    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    denom = area_a + area_b - inter
+    iou = inter / np.maximum(denom, np.float32(1e-12))
+    return np.where((w > 0) & (h > 0) & (denom > 0), iou, np.float32(0))
+
+
+def boundary_boxes(thr, pairs=2, seed=0):
+    """Box pairs at the suppression threshold: for each IoU target
+    f32(thr) one ulp down, f32(thr) and one ulp up (in that order),
+    ``pairs`` pairs (a, b) whose float32 IoU in iou_matrix's order is the
+    target exactly. Box b = [0, 0, wb, hb] lies inside a = [0, 0, wa, ha]
+    (integer sides, wb a float32 near target * wa * ha / hb). Returns
+    (boxes [3 * pairs, 2, 4] float32, one pair a problem with a ranked
+    first; IoU targets [3 * pairs]): greedy NMS keeps b unless its IoU
+    with a is above f32(thr), i.e. only at the ulp above. A seeded search:
+    random sides, then the float32 neighbours of wb, 256 ulps each way."""
+    rng = np.random.default_rng(seed)
+    t = np.float32(thr)
+    targets = [np.nextafter(t, np.float32(-np.inf)), t,
+               np.nextafter(t, np.float32(np.inf))]
+    steps = np.arange(-256, 257, dtype=np.int32)
+    out, ious = [], []
+    for target in targets:
+        found = 0
+        while found < pairs:
+            wa, ha = (int(x) for x in rng.integers(64, 2048, 2))
+            hb = int(rng.integers(int(np.ceil(float(target) * ha)), ha + 1))
+            wb0 = np.float32(float(target) * wa * ha / hb)
+            wb = (wb0.view(np.int32) + steps).view(np.float32)
+            wb = wb[(wb > 0) & (wb <= wa)]
+            n = len(wb)
+            a = np.tile(np.array([0, 0, wa, ha], np.float32), (n, 1))
+            b = np.stack([np.zeros(n, np.float32), np.zeros(n, np.float32),
+                          wb, np.full(n, hb, np.float32)], 1)
+            hit = np.flatnonzero(_iou_f32(a, b) == target)
+            if len(hit):
+                out.append(np.stack([a[hit[0]], b[hit[0]]]))
+                ious.append(target)
+                found += 1
+    return np.stack(out), np.asarray(ious, np.float32)
