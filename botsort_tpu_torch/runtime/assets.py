@@ -15,9 +15,11 @@ file name without its extension (the names the reference's ``-odm`` /
 ``-bfem`` / ``-ffem`` options take). ``build_bundle`` loads the files it
 finds (``torch.load(..., weights_only=True)``) and warns on stderr about
 every network left at its seeded init; ``save_bundle`` writes them.
-runtime/from_flax.py loads a Flax variable tree into a built network, and
-tools/convert_orbax_to_torch.py turns the JAX package's orbax checkpoints
-into these files. Fetching checkpoints over the network is not ported.
+cli/import_onnx.py turns the reference's ONNX releases into these files
+(runtime/import_onnx.py), with no JAX; runtime/from_flax.py loads a Flax
+variable tree into a built network, and tools/convert_orbax_to_torch.py
+turns the JAX package's orbax checkpoints into these files. Fetching
+checkpoints over the network is not ported.
 """
 
 from __future__ import annotations
@@ -179,7 +181,9 @@ def build_bundle(detector_name: str = DEFAULT_DETECTOR,
         else:
             # stderr: callers may keep stdout for their own output.
             print(f"WARNING: no checkpoint at {path}; using random init "
-                  "(tools/convert_orbax_to_torch.py converts the JAX "
-                  "package's checkpoints)", file=sys.stderr)
+                  "(python -m botsort_tpu_torch.cli.import_onnx converts "
+                  "the reference's ONNX releases, "
+                  "tools/convert_orbax_to_torch.py the JAX package's "
+                  "checkpoints)", file=sys.stderr)
         cast_compute(model, dtype).to(device).eval().requires_grad_(False)
     return ModelBundle(*models)

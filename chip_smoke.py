@@ -109,6 +109,21 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               directory and build_bundle(weights_dir=...) back: no warning
               on stderr, the three networks' outputs bit-equal; a directory
               without files gives the three warnings.
+      onnx    the release files' route with no JAX: full-width ONNX wire
+              files (runtime/onnx_lite.py's writer) of the seeded float32
+              networks, norms and biases perturbed, in the release layouts
+              (the detector with its decode/NMS tail and an
+              Identity-wrapped weight, the encoders with their
+              post_feature_only tail), each imported through
+              cli/import_onnx.py: every tensor bit-equal to its source;
+              build_bundle(weights_dir=...) loads them with no warning; the
+              one-stream graphed pipeline at the loaded point over the main
+              phase's frames equals the source networks' on every
+              FrameResult field and the final store (K1, K6, K7, K8
+              launching). A fully fused face file (every norm folded into
+              its conv) imports with identity norms, its features within
+              FUSED_FACE_RTOL (relative L2, float32) of the source's.
+              Prints each file's bytes and import seconds.
  10. K5       the depthwise stencil against its plain version: the face
               encoder's 13 stride-1 shapes at 50 faces, odd shapes in
               float32 and bfloat16, C > 1024, a partial span of planes,
@@ -273,6 +288,17 @@ K4_LAYOUT = dict(stage_blocks=(3, 1, 1, 1))
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+# The onnx phase: (importer model name, release file name, the release
+# graph's tail) per network, and the trace sizes of the JAX package's
+# full-scale import tests (tests/test_import_fullscale.py::TRACE_HW).
+ONNX_NETWORKS = (("yolox", "detector", "post"),
+                 ("fastreid", "body_encoder", "feature"),
+                 ("facereid", "face_encoder", "feature"))
+ONNX_TRACE_HW = {"yolox": (96, 128), "fastreid": (64, 32),
+                 "facereid": (128, 128)}
+# The fully fused face file against its source, float32 on the card with
+# TF32 off: the largest relative L2 error of a face's features.
+FUSED_FACE_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1855,6 +1881,315 @@ def phase_checkpoint(torch, assets, bundle):
         "gave the three warnings")
 
 
+def release_layers(torch, imp, model, sample):
+    """[(kind, arrays)] a release graph of ``model`` carries, in call order
+    (runtime/import_onnx.py::execution_order): OIHW conv kernels with their
+    biases, BatchNormalization quads, Gemm (out, in) with transB=1. Kind by
+    kind, the layers tests/test_import_mapping.py::synth_onnx_layers makes
+    of a Flax tree; here from the network's float32 state."""
+    state = {k: v.detach().to("cpu", torch.float32).numpy()
+             for k, v in model.state_dict().items()}
+    layers = []
+    for kind, p in imp.model_entries(model,
+                                     imp.execution_order(model, sample)):
+        if kind == "bn":
+            layers.append(("bn", {"scale": state[p + ".weight"],
+                                  "bias": state[p + ".bias"],
+                                  "mean": state[p + ".running_mean"],
+                                  "var": state[p + ".running_var"],
+                                  "name": p}))
+        elif kind == "conv":
+            layers.append(("conv", {"kernel": state[p + ".weight"],
+                                    "bias": state.get(p + ".bias"),
+                                    "name": p}))
+        else:
+            layers.append(("gemm", {"kernel": state[p + ".weight"],
+                                    "bias": state.get(p + ".bias"),
+                                    "transB": 1, "name": p}))
+    return layers
+
+
+def fold_norms(layers, eps):
+    """The layers of a fused export (tests/test_import_adversarial.py::
+    _fold_bn_layers): every norm that follows a conv not yet folded into,
+    at its width, is folded into it (kernel scaled, bias made); the other
+    norms stay BatchNormalization nodes."""
+    out, last, claimed = [], None, set()
+    for kind, arrs in layers:
+        if kind == "conv":
+            out.append((kind, dict(arrs)))
+            last = len(out) - 1
+        elif kind == "bn" and last is not None and last not in claimed \
+                and out[last][1]["kernel"].shape[0] == arrs["scale"].shape[0]:
+            claimed.add(last)
+            conv = out[last][1]
+            inv = arrs["scale"] / np.sqrt(arrs["var"] + eps)
+            conv["kernel"] = (conv["kernel"] * inv[:, None, None, None]
+                              ).astype(np.float32)
+            old_b = conv["bias"] if conv["bias"] is not None else 0.0
+            conv["bias"] = (arrs["bias"] + (old_b - arrs["mean"]) * inv
+                            ).astype(np.float32)
+        else:
+            out.append((kind, arrs))
+    return out
+
+
+def encode_release(lite, layers, tail, wrap_conv=None):
+    """Wire bytes of ``layers`` in a release graph's shape, the JAX
+    package's import tests' bytes: an activation after every conv, conv
+    ``wrap_conv``'s weight behind an Identity node, and the releases' tail
+    after the last layer: ``"post"``, the detector's decode and NMS nodes
+    with their constants (tests/test_import_adversarial.py::
+    _encode_with_tail), or ``"feature"``, the encoders'
+    ``post_feature_only`` L2 normalisation and similarity matmul
+    (tests/test_import_fullscale.py::_feature_tail)."""
+    act = "Sigmoid" if tail == "post" else "Relu"
+    nodes, inits, value, conv_i = [], [], "x", 0
+    for idx, (kind, arrs) in enumerate(layers):
+        out = f"t{idx}"
+        if kind == "bn":
+            names = [f"{part}{idx}" for part in ("scale", "bias", "mean",
+                                                  "var")]
+            inits += [lite.encode_tensor(n, arrs[part]) for n, part in zip(
+                names, ("scale", "bias", "mean", "var"))]
+            nodes.append(lite.encode_node("BatchNormalization",
+                                          [value] + names, [out],
+                                          name=f"bn_{idx}"))
+            value = out
+            continue
+        wname = f"w{idx}"
+        inits.append(lite.encode_tensor(wname, arrs["kernel"]))
+        if kind == "conv" and conv_i == wrap_conv:
+            nodes.append(lite.encode_node("Identity", [wname],
+                                          [wname + "_id"],
+                                          name=f"wrap_{idx}"))
+            wname += "_id"
+        inputs = [value, wname]
+        if arrs.get("bias") is not None:
+            inits.append(lite.encode_tensor(f"b{idx}", arrs["bias"]))
+            inputs.append(f"b{idx}")
+        if kind == "conv":
+            nodes.append(lite.encode_node("Conv", inputs, [out],
+                                          name=f"conv_{idx}"))
+            conv_i += 1
+            nodes.append(lite.encode_node(act, [out], [out + "_act"],
+                                          name=f"act_{idx}"))
+            out += "_act"
+        else:
+            nodes.append(lite.encode_node(
+                "Gemm", inputs, [out], name=f"gemm_{idx}",
+                int_attrs={"transB": int(arrs.get("transB") or 0)}))
+        value = out
+    if tail == "post":
+        for nm, arr in (
+                ("grid", np.arange(24, dtype=np.float32).reshape(1, 24)),
+                ("strides_c", np.full((1, 24), 8.0, np.float32)),
+                ("starts", np.asarray([0], np.int64)),
+                ("ends", np.asarray([4], np.int64)),
+                ("maxout", np.asarray([20], np.int64))):
+            inits.append(lite.encode_tensor(nm, arr))
+        ops = [("Add", [value, "grid"], ["dec_xy"]),
+               ("Exp", [value], ["dec_exp"]),
+               ("Mul", ["dec_exp", "strides_c"], ["dec_wh"]),
+               ("Slice", ["dec_xy", "starts", "ends"], ["dec_xy4"]),
+               ("Concat", ["dec_xy4", "dec_wh"], ["dec_boxes"]),
+               ("NonMaxSuppression", ["dec_boxes", "dec_xy", "maxout"],
+                ["nms_idx"]),
+               ("Gather", ["dec_boxes", "nms_idx"], ["final"])]
+    else:
+        ops = [("ReduceL2", [value], ["feat_norm"]),
+               ("Clip", ["feat_norm"], ["feat_norm_c"]),
+               ("Div", [value, "feat_norm_c"], ["features"]),
+               ("Transpose", ["features"], ["features_t"]),
+               ("MatMul", ["target_features", "features_t"],
+                ["similarities"])]
+    for op, ins, outs in ops:
+        nodes.append(lite.encode_node(op, ins, outs, name=f"tail_{op}"))
+    return lite.encode_model(nodes, inits)
+
+
+def perturb_weights_(torch, assets, model, rng):
+    """``assets.perturb_norms_`` and every conv bias drawn from ``rng``:
+    no two norms or biases of one width hold the same values, so a swap
+    in the import shows."""
+    assets.perturb_norms_(model, rng)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.from_numpy(rng.normal(
+                    0.0, 0.1, tuple(m.bias.shape)).astype(np.float32)))
+    return model
+
+
+def phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card):
+    """The release files' route into the port, on the card machine with no
+    JAX: full-width wire files of seeded float32 networks (norms and
+    biases perturbed) in the release layouts, each imported through
+    cli/import_onnx.py bit for bit, then build_bundle(weights_dir=...)
+    with no warning, and the loaded one-stream graphed pipeline bit-equal
+    to the source networks' over the main phase's frames (K1, K6, K7 and
+    K8 launching); a fully fused face file's features within
+    FUSED_FACE_RTOL of its source's."""
+    import contextlib
+    import copy
+    import io
+    import shutil
+    import tempfile
+
+    from botsort_tpu_torch.cli import import_onnx as cli
+    from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
+                                          TrackerConfig)
+    from botsort_tpu_torch.models.common import cast_compute
+    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.pipeline import host
+    from botsort_tpu_torch.pipeline.frame_step import ModelBundle
+    from botsort_tpu_torch.runtime import import_onnx as imp
+    from botsort_tpu_torch.runtime import onnx_lite
+
+    dev = bundle.device
+    dtype = next(bundle.detector.parameters()).dtype  # the conv weights'
+    files = {"detector": assets.DEFAULT_DETECTOR,
+             "body_encoder": assets.DEFAULT_BODY_REID,
+             "face_encoder": assets.DEFAULT_FACE_REID}
+    tmp = tempfile.mkdtemp(prefix="botsort_onnx_")
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            src = assets.build_bundle(weights_dir=os.path.join(tmp, "none"),
+                                      seed=0, device="cpu",
+                                      dtype=torch.float32)
+        rng = np.random.default_rng(14)
+        stats = []
+        for name, field, tail in ONNX_NETWORKS:
+            model = perturb_weights_(torch, assets, getattr(src, field), rng)
+            sample = torch.zeros((1,) + ONNX_TRACE_HW[name] + (3,))
+            path = os.path.join(tmp, files[field])
+            with open(path, "wb") as f:
+                f.write(encode_release(
+                    onnx_lite, release_layers(torch, imp, model, sample),
+                    tail, wrap_conv=1 if tail == "post" else None))
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["--model", name, "--onnx", path,
+                               "--weights_dir", tmp, "--input-hw",
+                               *map(str, ONNX_TRACE_HW[name])])
+            secs = time.perf_counter() - t0
+            if rc != 0 or err.getvalue():
+                raise AssertionError(f"onnx: {name} import gave rc {rc}, "
+                                     f"{err.getvalue()!r}")
+            got = torch.load(assets.checkpoint_path(tmp, files[field]),
+                             weights_only=True)
+            want = model.state_dict()
+            if set(got) != set(want) or not all(
+                    got[k].dtype == torch.float32 and torch.equal(got[k],
+                                                                 want[k])
+                    for k in want):
+                raise AssertionError(f"onnx: {name}'s checkpoint differs "
+                                     "from its source")
+            stats.append((name, os.path.getsize(path), secs, len(want)))
+            log(f"onnx: {name}: {os.path.getsize(path)} bytes of ONNX, "
+                f"imported in {secs:.3f} s ({out.getvalue().strip()}), "
+                f"{len(want)} tensors bit-equal to the source; {card}")
+
+        # A fully fused face file (every norm folded into its conv).
+        face = src.face_encoder
+        sample = torch.zeros((1,) + ONNX_TRACE_HW["facereid"] + (3,))
+        plain = release_layers(torch, imp, face, sample)
+        fused = fold_norms(plain, imp.BN_EPS["facereid"])
+        n_norms = sum(1 for k, _ in plain if k == "bn")
+        fused_path = os.path.join(tmp, "face_fused.onnx")
+        with open(fused_path, "wb") as f:
+            f.write(encode_release(onnx_lite, fused, "feature"))
+        fused_pt = os.path.join(tmp, "face_fused.pt")
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(["--model", "facereid", "--onnx", fused_path,
+                           "--out", fused_pt, "--input-hw",
+                           *map(str, ONNX_TRACE_HW["facereid"])])
+        fused_secs = time.perf_counter() - t0
+        report = err.getvalue().strip()
+        if rc != 0 or any(k == "bn" for k, _ in fused) or not \
+                report.startswith("fused Conv+BN export detected: "
+                                  f"synthesized {n_norms} identity"):
+            raise AssertionError(f"onnx: fused face import: rc {rc}, "
+                                 f"{report!r}")
+        fused_state = torch.load(fused_pt, weights_only=True)
+        for kind, arrs in fused:
+            key = arrs["name"] + ".weight"
+            if not torch.equal(fused_state[key],
+                               torch.from_numpy(arrs["kernel"])):
+                raise AssertionError(f"onnx: fused face {key} differs")
+
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            loaded = assets.build_bundle(weights_dir=tmp, seed=5, device=dev,
+                                         dtype=dtype)
+        if err.getvalue():
+            raise AssertionError(f"onnx: build_bundle said {err.getvalue()!r}")
+        ref = ModelBundle(*(cast_compute(copy.deepcopy(getattr(src, f)),
+                                         dtype).to(dev).eval()
+                            for _, f, _ in ONNX_NETWORKS))
+        for _, field, _ in ONNX_NETWORKS:
+            a = getattr(ref, field).state_dict()
+            b = getattr(loaded, field).state_dict()
+            if not all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                       for k in a):
+                raise AssertionError(f"onnx: the loaded {field} differs "
+                                     "from its source cast to the card")
+
+        fused_face = imp.build_model("facereid")[0]
+        fused_face.load_state_dict(fused_state)
+        fused_face.to(dev)
+        src_face = copy.deepcopy(face).to(dev)
+        faces = torch.from_numpy(np.random.default_rng(15).uniform(
+            0, 255, (N_FACES, 128, 128, 3)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            want, got = src_face(faces), fused_face(faces)
+        rel = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+        if not torch.isfinite(got).all() or not rel <= FUSED_FACE_RTOL:
+            raise AssertionError(f"onnx: the fused face's features are {rel} "
+                                 f"relative L2 from the source's")
+        del fused_face, src_face
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
+              for _ in range(8)]
+    check = lambda res: check_finite(res, cfgs[1])  # noqa: E731
+    pipes, rows, launched = {}, {}, {}
+    counters = (assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda,
+                crop.crop_resize_cuda, nms.nms_fixpoint_cuda)
+    for which, b in (("source", ref), ("loaded", loaded)):
+        pipes[which] = host.BoTSORTPipeline(b, *cfgs)
+        before = [c.launches for c in counters]
+        rows[which] = drive(torch, pipes[which], frames, lambda: 0,
+                            force_at=4, check=check)
+        launched[which] = [c.launches - n for c, n in zip(counters, before)]
+        if min(launched[which]) < 1:
+            raise AssertionError(f"onnx: the {which} run launched K1, K6, "
+                                 f"K7, K8 {launched[which]} times")
+    same_results(torch, host, rows["source"], rows["loaded"],
+                 pipes["source"].store, pipes["loaded"].store,
+                 "onnx: loaded != source")
+    dets = [int(r["result"].det_valid.sum()) for r in rows["loaded"]]
+    if max(dets) < 1:
+        raise AssertionError("onnx: no detection on any frame")
+    log(f"onnx: the imported bundle's graphed one-stream run equals the "
+        f"source's on every FrameResult field of {len(frames)} frames and "
+        f"on the final store (detections per frame {dets}, K1/K6/K7/K8 "
+        f"launches {launched['loaded']}); fused face file: {report.split(';')[0]}, "
+        f"imported in {fused_secs:.3f} s, features {rel:.3e} relative L2 "
+        f"from the source's (limit {FUSED_FACE_RTOL}); {card}")
+    log("timing: onnx import " + json.dumps(
+        {n: {"bytes": nb, "seconds": round(s, 3), "tensors": nt}
+         for n, nb, s, nt in stats}) + f"; {card}")
+
+
 def phase_export(torch, bundle, assignment_cuda, bn_act, card):
     """The program of one bucket pair exported (runtime/exported.py),
     saved, loaded and replayed from CUDA graphs: load_pipeline at the
@@ -3425,6 +3760,9 @@ def main() -> int:
     done("temporal")
     phase_checkpoint(torch, assets, bundle)
     done("checkpoint")
+    phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card)
+    torch.cuda.empty_cache()
+    done("onnx")
     face_inputs, k5_err = phase_k5(torch, facereid_dw, dev)
     done("K5")
     k4_model, k4_err = phase_k4(torch, F, assets, fastreid, fastreid_fused,
