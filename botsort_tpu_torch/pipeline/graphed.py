@@ -55,7 +55,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from botsort_tpu_torch.models import bn_act, facereid_dw, fastreid_fused
-from botsort_tpu_torch.ops import assignment_cuda, crop, nms
+from botsort_tpu_torch.ops import assignment_cuda, crop, hierarchy, nms
 from botsort_tpu_torch.pipeline import switch
 
 WARMUP_CALLS = 1
@@ -70,6 +70,7 @@ LAUNCH_COUNTERS = (
     (bn_act.bn_act_cuda, "launches"),
     (crop.crop_resize_cuda, "launches"),
     (nms.nms_fixpoint_cuda, "launches"),
+    (hierarchy.greedy_scan_cuda, "launches"),
 )
 
 

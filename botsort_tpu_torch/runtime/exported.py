@@ -28,10 +28,12 @@ A program is a function of flat tuples of tensors::
 
 The kernels appear in the program as the custom ops
 ``torch.ops.botsort_tpu_torch.*`` (K1/K2 ``cascade_solve``, K6 ``bn_act``,
-K7 ``crop_resize``, K8 ``nms_fixpoint``, with lowered encoders K4
-``stem_stage1`` and K5 ``dw_conv3x3``): their CUDA implementation is the
-kernel, their CPU implementation the plain version, so a program exported
-on one platform runs only there.
+K7 ``crop_resize``, K8 ``nms_fixpoint``, K10 ``hierarchy_scan``, with
+lowered encoders K4 ``stem_stage1`` and K5 ``dw_conv3x3``): their CUDA
+implementation is the kernel, their CPU implementation the plain version,
+so a program exported on one platform runs only there. Programs exported
+while the hierarchy's claims were an unrolled loop of tensor ops compute
+the same picks and still load.
 
 The NMS fixpoint runs to its end inside the program, so one program serves
 each (resolution, bucket pair). Directories exported while the fixpoint

@@ -14,8 +14,8 @@ operations bit for bit (ops/assignment.py). The depthwise stencil (K5)
 does too, with its products and sums written as __fmul_rn/__fadd_rn,
 which no flag contracts, and so do the batch norm pass (K6), its
 backward (K6b), the crop-resize (K7) and the NMS fixpoint (K8); K4
-(stem_stage1) is held to a tolerance. All nine libraries share these
-flags.
+(stem_stage1) is held to a tolerance, and the hierarchy scan (K10) only
+compares. All ten libraries share these flags.
 
 Every entry point takes the raw handle of the CUDA stream to launch on;
 ``current_stream`` gives it to every wrapper.
@@ -47,10 +47,11 @@ NVCC_FLAGS = (
 
 # Every kernel of the port: K1/K2 (cascade_lap), K3 (jv_lap), K4
 # (stem_stage1), K5 (dw_conv3x3), K6 (bn_act), its backward K6b
-# (bn_act_backward), K7 (crop_resize), K8 (nms_fixpoint) and K9 with the
-# conditional-graph assembly (graph_cond).
+# (bn_act_backward), K7 (crop_resize), K8 (nms_fixpoint), K9 with the
+# conditional-graph assembly (graph_cond) and K10 (hierarchy_scan).
 KERNELS = ("cascade_lap", "jv_lap", "stem_stage1", "dw_conv3x3", "bn_act",
-           "bn_act_backward", "crop_resize", "nms_fixpoint", "graph_cond")
+           "bn_act_backward", "crop_resize", "nms_fixpoint", "graph_cond",
+           "hierarchy_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building in this process, nvcc's output).

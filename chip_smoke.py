@@ -5,7 +5,7 @@ Drives the port's paths on the card and fails loudly if any phase fails:
 
   1. device   a CUDA card is required (no CPU fallback); prints its name
               and power limit; TF32 is switched off.
-  2. build    builds every CUDA kernel from csrc/ (nine libraries), one
+  2. build    builds every CUDA kernel from csrc/ (ten libraries), one
               nvcc per source, all at once; prints registers and spills.
   3. K1       the cascade solver kernel against its plain PyTorch version
               on the card: equal matchings on random, odd-shaped,
@@ -42,15 +42,17 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               share. K7 must launch once a step run and once a non-zero
               bucket, K8 once a step run (the NMS fixpoint runs to its end:
               one NMS program, no re-run; every step of every phase that
-              drives a facade must report it converged). Then the crops'
+              drives a facade must report it converged), K10 once a step
+              run (the hierarchy's claims). Then the crops'
               cost: the graphed point again at
               PipelineConfig(compute_dtype="float32", crop_int8=False)
               beside the default (int8 crops), both medians, and K7's
               share of a graphed frame's device time (torch.profiler).
   9. multi    the same for BatchedBoTSORTPipeline at 8 streams, full width,
               over 8 steps of 8 seeded 1080p frames at the moderate-16
-              point, with K2 once per step run; counts K6's and K7's
-              launches; the crops' cost as in main.
+              point, with K2 once per step run, K8 and K10 once per step
+              run; counts K6's and K7's launches; the crops' cost as in
+              main.
       nosync  one loaded full-width frame_step, its replay from the graph
               and an 8-stream update_async under
               torch.cuda.set_sync_debug_mode("error"): nothing between the
@@ -97,14 +99,30 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               and the 8-stream point (0 and up to 16): each step bit-equal
               to the static-bucket graph at the buckets its branches
               encode, one capture a facade, K9 twice a replay, K7 once a
-              step and once a branch taken; graphed medians and device ms
+              step and once a branch taken, K8 and K10 once a step;
+              graphed medians and device ms
               a step per regime; a replay and an 8-stream update_async
               under the sync debug mode.
       temporal TemporalBatchedBoTSORTPipeline at full width, B = 8, T = 2,
               moderate-16, seeded per-stream affines, replayed from CUDA
               graphs: the first groups equal T chained frame_step_batched
               calls at equal buckets (their perception taken from the same
-              batch of B*T frames); K2 launches T times per step run.
+              batch of B*T frames); K2 launches T times per step run, K10
+              once (all B*T frames' problems in one launch).
+      K10     the hierarchy's claims kernel against its plain version
+              (greedy_scan_plain) on the card, bit for bit, on the inputs
+              the loaded one-stream, the 8-stream and the temporal steps
+              give it (recorded from their frames) and on adversarial ties
+              (duplicate and grid-snapped boxes, invalid bases and
+              targets, all-invalid problems); CUDA-event, graph and plain
+              times beside the bound and the empty-node floor, and the
+              unrolled loop it replaced from a graph with its kernels a
+              call. Then the graphed loaded one-stream and 8-stream
+              facades with K10 and with the plain loop patched in (the
+              only place that patches it): every FrameResult field and
+              the final stores bit-equal, K10 silent in the patched runs,
+              and, profiled in the order plain, K10, K10, plain, device
+              kernels and device ms a step and the steady medians.
       checkpoint save_bundle of the full-width bundle to a temporary
               directory and build_bundle(weights_dir=...) back: no warning
               on stderr, the three networks' outputs bit-equal; a directory
@@ -137,8 +155,8 @@ Drives the port's paths on the card and fails loudly if any phase fails:
  12. lowered  the 8-stream path again with FastReIDSBS(fused_stem=True)
               and FaceReID(dw_mode="kernel") loaded with the same weights,
               replayed from CUDA graphs: K4 once per step run with body
-              crops, K5 13 times per step run with face crops, K2 once per
-              step run; the last step's encoder inputs re-run with K4 and
+              crops, K5 13 times per step run with face crops, K2 and K10
+              once per step run; the last step's encoder inputs re-run with K4 and
               K5 replaced by their plain versions on the card give the same
               features (face: equal, body: relative L2 <= 1e-2).
       coherent pops per solve of the cascade against three chained
@@ -162,8 +180,9 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               and load_batched_pipeline at 8 streams, moderate-16 (K2);
               over 8 frames every FrameResult field and the final stores
               equal the live facade's, the graphs call the kernels as
-              torch.ops.botsort_tpu_torch ops (K8's among them), and
-              K1/K2, K6, K7 and K8 count on replay. Prints export and load
+              torch.ops.botsort_tpu_torch ops (K8's and K10's among them),
+              and K1/K2, K6, K7, K8 and K10 count on replay. Prints export
+              and load
               seconds, bytes and live against loaded replay medians.
  15. serve    cli/serve.py's server on a localhost thread with a numpy
               decoder, cold and after warm_up captured the program of
@@ -268,6 +287,10 @@ K9_SOURCE = "botsort_tpu_torch/csrc/graph_cond.cu"
 # lax.switch (botsort_tpu/pipeline/frame_step.py:165, and :723 batched).
 K9_REPLACES = "botsort_tpu/pipeline/frame_step.py:165"
 K9_KERNEL = "set_conditionals_kernel"
+K10_SOURCE = "botsort_tpu_torch/csrc/hierarchy_scan.cu"
+# K10 replaces no TPU kernel: the JAX hierarchy's claims are a lax.scan
+# inside the jitted step (botsort_tpu/ops/hierarchy.py:122-130).
+K10_REPLACES = "botsort_tpu/ops/hierarchy.py:130"
 # The crops' numerics before the port read PipelineConfig.compute_dtype and
 # crop_int8 (the main and multi phases time both in one call).
 FLOAT32_CROPS = {"compute_dtype": "float32", "crop_int8": False}
@@ -1018,11 +1041,11 @@ def report_point(torch, label, unit, pipes, rows, frames_per_step, card,
 def phase_main(torch, bundle, assignment, assignment_cuda, card):
     """The loaded one-stream point, eager and replayed from CUDA graphs
     over the same frames, then its crops' cost (``crop_cost``); returns
-    K1's, K7's and K8's launches in the replayed run, the nosync / async
-    material and the eager run's cascade inputs."""
+    K1's, K7's, K8's and K10's launches in the replayed run, the nosync /
+    async material and the eager run's cascade inputs."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -1047,17 +1070,20 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log("main: last eager frame's tracks with the plain solver equal K1's")
     k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    k10 = hierarchy.greedy_scan_cuda
     cuda.launches = cuda.batched_launches = k7.launches = k8.launches = 0
+    k10.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], frames,
                             lambda: cuda.launches, force_at=4, check=check)
     main_launches, k7_launches = cuda.launches, k7.launches
-    k8_launches = k8.launches
+    k8_launches, k10_launches = k8.launches, k10.launches
     if k7_launches != k7_expected(rows["graphed"]):
         raise AssertionError(f"main: K7 launched {k7_launches} times, not "
                              "once a step run and once a non-zero bucket")
-    if k8_launches != sum(expected_launches(r) for r in rows["graphed"]):
-        raise AssertionError(f"main: K8 launched {k8_launches} times, not "
-                             "once a step run")
+    for name, n in (("K8", k8_launches), ("K10", k10_launches)):
+        if n != sum(expected_launches(r) for r in rows["graphed"]):
+            raise AssertionError(f"main: {name} launched {n} times, not "
+                                 "once a step run")
     if cuda.batched_launches:
         raise AssertionError("the one-stream path launched K2")
     same_results(torch, host, rows["eager"], rows["graphed"],
@@ -1096,13 +1122,14 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
         f"detector input, body and face crops; frames staged as {staged}, "
         f"so {crop.crop_mode(cfgs[2], staged)} mode); K8 launches "
         f"{k8_launches} (one NMS program a bucket pair, "
-        f"{len(cache.keys())} captured, no NMS re-run)")
+        f"{len(cache.keys())} captured, no NMS re-run), K10 launches "
+        f"{k10_launches}")
     crop_cost(torch, "loaded one-stream", "frame", pipes["graphed"],
               lambda: host.BoTSORTPipeline(bundle, *cfgs[:2],
                                        PipelineConfig(**FLOAT32_CROPS)),
               frames, card)
-    return (main_launches, k7_launches, k8_launches, pipes["graphed"],
-            frames[-1], cfgs, solver_rec.calls)
+    return (main_launches, k7_launches, k8_launches, k10_launches,
+            pipes["graphed"], frames[-1], cfgs, solver_rec.calls)
 
 
 def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
@@ -1112,7 +1139,7 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     (``crop_cost``)."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -1140,16 +1167,19 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     log(f"multi: last eager step's tracks with the plain solver equal K2's "
         f"on all {STREAMS} streams")
     k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    k10 = hierarchy.greedy_scan_cuda
     cuda.launches = cuda.batched_launches = k6.launches = k7.launches = 0
-    k8.launches = 0
+    k8.launches = k10.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], steps,
                             lambda: cuda.batched_launches, force_at=4,
                             check=check)
     k2_launches, k6_launches = cuda.batched_launches, k6.launches
     k7_launches, k8_launches = k7.launches, k8.launches
-    if k8_launches != sum(expected_launches(r) for r in rows["graphed"]):
-        raise AssertionError(f"multi: K8 launched {k8_launches} times, not "
-                             "once a step run")
+    k10_launches = k10.launches
+    for name, n in (("K8", k8_launches), ("K10", k10_launches)):
+        if n != sum(expected_launches(r) for r in rows["graphed"]):
+            raise AssertionError(f"multi: {name} launched {n} times, not "
+                                 "once a step run")
     if k7_launches != k7_expected(rows["graphed"]):
         raise AssertionError(f"multi: K7 launched {k7_launches} times, not "
                              "once a step run and once a non-zero bucket")
@@ -1188,14 +1218,16 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
         "moderate-16)", "step", pipes, rows, STREAMS, card, steps[-1])
     log(f"multi: K7 launches in the replayed run {k7_launches}, K8 "
         f"{k8_launches} (one launch for the {STREAMS} x 4 NMS problems of a "
-        f"step run)")
+        f"step run), K10 {k10_launches} (one for the {3 * STREAMS} "
+        f"hierarchy problems)")
     crop_cost(torch, f"{STREAMS} streams moderate-16", "step",
               pipes["graphed"],
               lambda: host.BatchedBoTSORTPipeline(
                   bundle, STREAMS, *cfgs[:2], PipelineConfig(**FLOAT32_CROPS)),
               steps, card)
     return (k2_launches, k6_launches, k7_launches, k8_launches,
-            point["graphed"], pipes["graphed"], steps[-1], cfgs)
+            k10_launches, point["graphed"], pipes["graphed"], steps[-1],
+            cfgs)
 
 
 def phase_nosync(torch, bundle, main_pipe, frame, cfgs, multi_pipe, frames):
@@ -1549,8 +1581,8 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
     at the 8-stream moderate-16 point with 0 and up to 16.
     Each step bit-equal (FrameResult and stores) to the static-bucket
     graph at the buckets its branches encode; one capture a facade; K9
-    twice a replay, K7 once a step and once a branch taken, K8 once a
-    step. Prints the live counts, graphed medians and device ms a step per
+    twice a replay, K7 once a step and once a branch taken, K8 and K10
+    once a step. Prints the live counts, graphed medians and device ms a step per
     regime, K9's device time, and a replay (8 streams: update_async) under
     the sync debug mode. Returns (K9 launches, K9's (ms, plain ms, bound
     ms, bound by, library ms))."""
@@ -1558,11 +1590,12 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host, switch
 
     k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    k10 = hierarchy.greedy_scan_cuda
     k9 = switch.launch_conditional
     nms_cfg = NMSConfig()
     sw_pipe = PipelineConfig(host_bucket_dispatch=False)
@@ -1600,13 +1633,14 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
             rows = []
             for i, f in enumerate(frames):
                 pre = sw.stores if streams else sw.store
-                before = (k9.launches, k7.launches, k8.launches)
+                before = (k9.launches, k7.launches, k8.launches,
+                          k10.launches)
                 t0 = time.perf_counter()
                 sw.update(f)
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0)
                 ran = (k9.launches - before[0], k7.launches - before[1],
-                       k8.launches - before[2])
+                       k8.launches - before[2], k10.launches - before[3])
                 res = sw.last_result
                 if not np.all(res.nms_converged):
                     raise AssertionError("switch: NMS did not converge")
@@ -1616,9 +1650,10 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
                 # the first step's warm-up ran every branch once more.
                 k7_want = 1 + sum(w > 0 for w in widths) + (
                     (1 + 2 * n_switch) if i == 0 else 0)
-                if ran != (2, k7_want, 1 + (i == 0)):
+                if ran != (2, k7_want, 1 + (i == 0), 1 + (i == 0)):
                     raise AssertionError(f"switch ({label}, {name}): step "
-                                         f"{i + 1} launched (K9, K7, K8) "
+                                         f"{i + 1} launched (K9, K7, K8, "
+                                         f"K10) "
                                          f"{ran}, widths {widths}")
                 new, packed = st._step(pre, st._upload("frame", f), *widths)
                 want = packed.to_host()
@@ -1726,10 +1761,11 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     """TemporalBatchedBoTSORTPipeline at full width, B = 8, T = 2,
     moderate-16, seeded per-stream affines: equal to T chained
     frame_step_batched calls at equal buckets, K2 launched T times a step
-    run."""
+    run, K10 once. Returns K2's, K7's and K10's launches and the first
+    group's frames [B, T, H, W, 3]."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop
+    from botsort_tpu_torch.ops import crop, hierarchy
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track.state import empty_stores
@@ -1748,7 +1784,8 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     scale = 1.0 + rng.uniform(-0.02, 0.02, gmc.shape[:-2])
     gmc[..., 0, 0] = gmc[..., 1, 1] = scale
     cuda, k7 = assignment_cuda.cascade_solve_cuda, crop.crop_resize_cuda
-    cuda.launches = cuda.batched_launches = k7.launches = 0
+    k10 = hierarchy.greedy_scan_cuda
+    cuda.launches = cuda.batched_launches = k7.launches = k10.launches = 0
 
     def check(res):
         if res.det_boxes.shape[:2] != (STREAMS, t_batch):
@@ -1760,10 +1797,14 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     rows = drive(torch, pipe, groups, lambda: cuda.batched_launches,
                  force_at=3, gmc=gmc, check=check)
     k2_temporal, k7_temporal = cuda.batched_launches, k7.launches
+    k10_temporal = k10.launches
     if k7_temporal != k7_expected(rows):
         raise AssertionError(f"temporal: K7 launched {k7_temporal} times, "
                              "not once a step run and once a non-zero "
                              "bucket")
+    if k10_temporal != sum(expected_launches(r) for r in rows):
+        raise AssertionError(f"temporal: K10 launched {k10_temporal} "
+                             "times, not once a step run")
     for i, r in enumerate(rows):
         if r["launches"] != expected_launches(r, per_run=t_batch):
             raise AssertionError(
@@ -1805,8 +1846,8 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     log(f"temporal: B={STREAMS} T={t_batch}, seeded affines: the first 2 "
         f"groups equal {t_batch} chained frame_step_batched calls on every "
         f"field; K2 launches per step {[r['launches'] for r in rows]} over "
-        f"runs {[r['runs'] for r in rows]}; live tracks of the last group "
-        f"{n_tracks}")
+        f"runs {[r['runs'] for r in rows]}, K10 {k10_temporal} in all; live "
+        f"tracks of the last group {n_tracks}")
     if max(max(n) for n in n_tracks) < 1:
         raise AssertionError("temporal: no live tracks")
     ms = [r["ms"] for r in rows if len(r["runs"]) == 1
@@ -1821,7 +1862,192 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
         f"{[round(r['ms'], 3) for r in rows]}), {fps:.2f} frames/s; the "
         f"{STREAMS}-stream step of this call: {batched_point[0]:.3f} ms, "
         f"{batched_point[1]:.2f} frames/s; {card}")
-    return k2_temporal, k7_temporal
+    return k2_temporal, k7_temporal, k10_temporal, groups[0]
+
+
+class ScanRecorder:
+    """Wraps ops/hierarchy.py's greedy_scan: keeps a device copy of every
+    call's four inputs (what K10 gets), without waiting for the card."""
+
+    def __init__(self, hierarchy):
+        self.real = hierarchy.greedy_scan
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append([a.clone() for a in args])
+        return self.real(*args)
+
+
+def k10_inputs(torch, hierarchy, bundle, frames_dev, cfgs):
+    """(iou, dist, used0, round_active): what K10 gets in a step on
+    ``frames_dev`` [G, H, W, 3], recorded from the step's perception run
+    eagerly at buckets (0, 0) (the hierarchy runs before the encoders)."""
+    from botsort_tpu_torch.pipeline import frame_step as fs_mod
+
+    rec = ScanRecorder(hierarchy)
+    with torch.no_grad(), mock.patch.object(hierarchy, "greedy_scan", rec):
+        fs_mod._perception_batched(bundle, frames_dev, *cfgs, 0, 0)
+    if len(rec.calls) != 1:
+        raise AssertionError(f"a step called the hierarchy scan "
+                             f"{len(rec.calls)} times")
+    return rec.calls[0]
+
+
+def k10_ties(torch, hierarchy, dev, n=50):
+    """Adversarial inputs for K10, made by ops/hierarchy.py::scan_inputs:
+    3 x STREAMS problems of n bases x n targets with rounds (1, 1, 2), a
+    quarter each of duplicated boxes (every box twice: IoU and distance
+    ties, the lowest index wins), boxes on an 8-pixel grid with sides 16,
+    24 or 32 (exact ties everywhere), 60% invalid bases and targets, and
+    no valid box at all."""
+    rng = np.random.default_rng(15)
+    problems = []
+    for i in range(3 * STREAMS):
+        kind = i % 4
+        if kind == 1:
+            tl = rng.integers(0, 12, (2 * n, 2)) * 8.0
+            boxes = np.concatenate(
+                [tl, tl + rng.choice([16.0, 24.0, 32.0], (2 * n, 2))], -1)
+        else:
+            tl = rng.uniform(0, 300, (n, 2))
+            base = np.concatenate([tl, tl + rng.uniform(20, 80, (n, 2))], -1)
+            boxes = np.concatenate([base, base[rng.integers(0, n, n)]
+                                    + rng.uniform(-10, 10, (n, 4))])
+        if kind == 0:
+            boxes[1::2] = boxes[0::2]
+        valid = rng.uniform(0, 1, 2 * n) < (0.4 if kind == 2 else 0.9)
+        if kind == 3:
+            valid[:] = False
+        b = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+        v = torch.from_numpy(valid).to(dev)
+        problems.append((b[:n], v[:n], b[n:], v[n:], 1 + (i % 3 == 2)))
+    return hierarchy.scan_inputs(problems)
+
+
+def phase_k10(torch, bundle, main_frame, multi_frames, temporal_frames,
+              main_cfgs, multi_cfgs, card, floor):
+    """K10 against greedy_scan_plain on the card, bit for bit, on the
+    inputs of the loaded one-stream, the 8-stream and the temporal steps
+    and on adversarial ties; CUDA-event, graph and plain times, the
+    unrolled loop it replaced from a graph with its device kernels a call,
+    the bound and the floor. Then the graphed loaded one-stream and
+    8-stream facades with K10 and with the plain loop patched in (the only
+    place that patches it) over the same frames: bit-equal, K10 silent in
+    the patched runs; device kernels and device ms a step profiled in the
+    order plain, K10, K10, plain, and the steady medians. Returns (max
+    index difference, (ms, plain ms, bound ms, bound by, library ms)) at
+    the loaded one-stream step's inputs."""
+    import contextlib
+
+    from botsort_tpu_torch.ops import hierarchy
+    from botsort_tpu_torch.pipeline import host
+
+    dev = bundle.device
+    k10 = hierarchy.greedy_scan_cuda
+    on_card = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    cases = (
+        ("loaded one stream", k10_inputs(torch, hierarchy, bundle,
+                                         on_card(main_frame)[None],
+                                         main_cfgs)),
+        (f"{STREAMS} streams", k10_inputs(torch, hierarchy, bundle,
+                                          on_card(multi_frames),
+                                          multi_cfgs)),
+        (f"temporal {STREAMS} x {temporal_frames.shape[1]}", k10_inputs(
+            torch, hierarchy, bundle,
+            on_card(temporal_frames).flatten(0, 1), multi_cfgs)),
+        ("adversarial ties", k10_ties(torch, hierarchy, dev)))
+    max_err, first = 0, None
+    for label, args in cases:
+        want = hierarchy.greedy_scan_plain(*args)
+        got = k10(*args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, index_err(torch, got, want,
+                                         f"K10 != plain on {label}"))
+        p, b, t = args[0].shape
+        r = args[3].shape[1]
+        run = lambda a=args: k10(*a)  # noqa: E731
+        plain = lambda a=args: hierarchy.greedy_scan_plain(*a)  # noqa: E731
+        ms, ms_graph = event_ms(torch, run, 100), graph_ms(torch, run)
+        plain_ms = event_ms(torch, plain, 3)
+        plain_graph = graph_ms(torch, plain, calls=2, replays=5)
+        plain_kernels = step_profile(torch, plain)[0]
+        # iou and dist read once, used0 and round_active once, picks written
+        # once; per claim and target a select, a max, a candidate test and
+        # an argmin comparison.
+        nbytes = p * b * t * 8 + p * t + p * r + b * p * r * 4
+        b_ms, b_by = bound(nbytes, 4 * b * r * p * t, F32_FLOPS)
+        # Each frame's problems claim faces, heads and hands, in turn.
+        targets = (~args[2]).reshape(-1, 3, t).sum((0, 2)).tolist()
+        log(f"timing: K10 {label}: [{p}, {b}, {t}], {r} rounds, valid "
+            f"targets (faces, heads, hands) {targets}, "
+            f"{int((want >= 0).sum())} claims of {b * p * r}; kernel "
+            f"{ms:.4f} ms eager, {ms_graph:.4f} ms graph; plain "
+            f"{plain_ms:.4f} ms eager (the loop it replaced), "
+            f"{plain_graph:.4f} ms graph in {plain_kernels:.0f} device "
+            f"kernels a call; bound {b_ms:.6f} ms by {b_by} ({nbytes} B); "
+            f"library: none (no PyTorch call claims greedily); empty-node "
+            f"floor {floor:.4f} ms; {card}")
+        if first is None:
+            first = (ms, plain_ms, b_ms, b_by, None)
+    log(f"K10: equal to the plain version bit for bit on all {len(cases)} "
+        "inputs")
+
+    def plain_on_card(*args):
+        return hierarchy.greedy_scan_plain(*args)
+
+    def patched(mode):
+        return (mock.patch.object(hierarchy, "greedy_scan", plain_on_card)
+                if mode == "plain" else contextlib.nullcontext())
+
+    points = (("loaded one stream", 0, main_cfgs, 20),
+              (f"{STREAMS} streams moderate-16", STREAMS, multi_cfgs, 21))
+    for label, streams, cfgs, seed in points:
+        rng = np.random.default_rng(seed)
+        shape = ((streams,) if streams else ()) + FRAME_HW + (3,)
+        frames = [rng.integers(0, 255, shape, dtype=np.uint8)
+                  for _ in range(6)]
+        pipes, rows = {}, {}
+        for mode in ("K10", "plain"):
+            pipes[mode] = (host.BatchedBoTSORTPipeline(bundle, streams, *cfgs)
+                           if streams else host.BoTSORTPipeline(bundle, *cfgs))
+            with patched(mode):
+                rows[mode] = drive(torch, pipes[mode], frames,
+                                   lambda: k10.launches)
+            n = sum(r["launches"] for r in rows[mode])
+            want = 0 if mode == "plain" else sum(
+                expected_launches(r) for r in rows[mode])
+            if n != want:
+                raise AssertionError(f"K10 ({label}, {mode}): K10 launched "
+                                     f"{n} times, not {want}")
+        stores = {m: (p.stores if streams else p.store)
+                  for m, p in pipes.items()}
+        same_results(torch, host, rows["K10"], rows["plain"], stores["K10"],
+                     stores["plain"],
+                     f"K10 ({label}): the step with K10 != with the plain "
+                     "loop")
+        prof = {"K10": [], "plain": []}
+        for mode in ("plain", "K10", "K10", "plain"):
+            with patched(mode):
+                prof[mode].append(step_profile(
+                    torch, lambda p=pipes[mode]: p.update(frames[-1])))
+        line = []
+        for mode in ("K10", "plain"):
+            n_dev = statistics.mean(x[0] for x in prof[mode])
+            dev_ms = statistics.mean(x[2] for x in prof[mode])
+            med = statistics.median(steady_ms(rows[mode]))
+            line.append(f"{mode}: median {med:.3f} ms a step, "
+                        f"{n_dev:.0f} device kernels and copies, "
+                        f"{dev_ms:.3f} ms of device time a step "
+                        f"(profiles {[round(x[2], 3) for x in prof[mode]]})")
+        log(f"K10 ({label}): graphed with K10 equals graphed with the "
+            f"plain loop on every FrameResult field of {len(frames)} steps "
+            f"and the final stores")
+        log(f"timing: K10 end to end, {label} graphed (profiled plain, "
+            f"K10, K10, plain): " + "; ".join(line) + f"; {card}")
+        del pipes, rows, stores
+        gc.collect()  # before the next point's captures (``drive``)
+        torch.cuda.empty_cache()
+    return max_err, first
 
 
 def phase_checkpoint(torch, assets, bundle):
@@ -2196,19 +2422,20 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
     loaded one-stream point (K1) and load_batched_pipeline at 8 streams,
     moderate-16 (K2). Over 8 seeded frames every FrameResult field and the
     final stores equal the live facade's, replayed from graphs at the same
-    bucket set; K1/K2, K6, K7 and K8 are counted on replay, K6, K7 and K8
-    as often as in the live run."""
+    bucket set; K1/K2, K6, K7, K8 and K10 are counted on replay, K6, K7, K8
+    and K10 as often as in the live run."""
     import shutil
     import tempfile
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.runtime import exported
 
     cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
     k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    k10 = hierarchy.greedy_scan_cuda
     tmp = tempfile.mkdtemp(prefix="botsort_export_")
     points = (("one stream, loaded", 0, loaded_cfg(TrackerConfig), 0),
               (f"{STREAMS} streams, moderate-16", STREAMS,
@@ -2235,6 +2462,7 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             want_ops = ["botsort_tpu_torch.bn_act.default",
                         "botsort_tpu_torch.cascade_solve.default",
                         "botsort_tpu_torch.crop_resize.default",
+                        "botsort_tpu_torch.hierarchy_scan.default",
                         "botsort_tpu_torch.nms_fixpoint.default"]
             if ops != want_ops:
                 raise AssertionError(f"export: the graph calls {ops}")
@@ -2256,13 +2484,13 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             rng = np.random.default_rng(seed)
             frames = [rng.integers(0, 255, shape, dtype=np.uint8)
                       for _ in range(8)]
-            rows, k6_runs, k7_runs, k8_runs = {}, {}, {}, {}
+            rows, k6_runs, k7_runs, k8_runs, k10_runs = {}, {}, {}, {}, {}
             for mode, pipe in (("live", live), ("loaded", loaded)):
                 cuda.launches = cuda.batched_launches = k6.launches = 0
-                k7.launches = k8.launches = 0
+                k7.launches = k8.launches = k10.launches = 0
                 rows[mode] = drive(torch, pipe, frames, launches_of)
                 k6_runs[mode], k7_runs[mode] = k6.launches, k7.launches
-                k8_runs[mode] = k8.launches
+                k8_runs[mode], k10_runs[mode] = k8.launches, k10.launches
                 if other():
                     raise AssertionError(f"export {mode}: the other "
                                          "solver kernel launched")
@@ -2283,9 +2511,10 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
             if k7_runs["loaded"] != k7_runs["live"] or k7_runs["loaded"] != \
                     k7_expected(rows["loaded"]):
                 raise AssertionError(f"export ({label}): K7 {k7_runs}")
-            if k8_runs["loaded"] != k8_runs["live"] or k8_runs["loaded"] != \
-                    sum(expected_launches(r) for r in rows["loaded"]):
-                raise AssertionError(f"export ({label}): K8 {k8_runs}")
+            for name, runs in (("K8", k8_runs), ("K10", k10_runs)):
+                if runs["loaded"] != runs["live"] or runs["loaded"] != \
+                        sum(expected_launches(r) for r in rows["loaded"]):
+                    raise AssertionError(f"export ({label}): {name} {runs}")
             nbytes = [e["bytes"] for e in entries]
             secs = [round(e["export_seconds"], 3) for e in entries]
             med = {m: statistics.median(steady_ms(rows[m])) for m in rows}
@@ -2299,7 +2528,8 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
                 f"{[r['runs'] for r in rows['loaded']]}, K6 launches "
                 f"{k6_runs['loaded']} (live {k6_runs['live']}), K7 launches "
                 f"{k7_runs['loaded']} (live {k7_runs['live']}), K8 launches "
-                f"{k8_runs['loaded']} (live {k8_runs['live']})")
+                f"{k8_runs['loaded']} (live {k8_runs['live']}), K10 launches "
+                f"{k10_runs['loaded']} (live {k10_runs['live']})")
             log(f"timing: export ({label}): replayed median live "
                 f"{med['live']:.3f} ms, loaded {med['loaded']:.3f} ms a "
                 f"step in this call; {card}")
@@ -2465,17 +2695,19 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
     each routed through its custom op, as a trace is (their ``tracing``
     patched to say so), in the order direct, op, op, direct. Every
     FrameResult field, the final stores and the K1 and K6 launches are
-    equal across the runs, K7's and K8's too; prints each run's median and
-    the two routes' (the dispatcher's host cost on the eager step)."""
+    equal across the runs, K7's, K8's and K10's too; prints each run's
+    median and the two routes' (the dispatcher's host cost on the eager
+    step)."""
     import contextlib
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, nms
+    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import host
 
     cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
     k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
+    k10 = hierarchy.greedy_scan_cuda
     cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
@@ -2489,21 +2721,21 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
                     stack.enter_context(
                         mock.patch.object(m, "tracing", lambda: True))
             cuda.launches = cuda.batched_launches = k6.launches = 0
-            k7.launches = k8.launches = 0
+            k7.launches = k8.launches = k10.launches = 0
             rows = drive(torch, pipe, frames, lambda: cuda.launches)
         runs.append((route, rows, pipe.store,
                      (cuda.launches, cuda.batched_launches, k6.launches,
-                      k7.launches, k8.launches)))
+                      k7.launches, k8.launches, k10.launches)))
     _, rows0, store0, launches0 = runs[0]
     for route, rows, store, launches in runs[1:]:
         same_results(torch, host, rows0, rows, store0, store,
                      f"oproute: the {route} route's run differs")
         if launches != launches0:
-            raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8) "
-                                 f"{launches} against {launches0}")
+            raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8, "
+                                 f"K10) {launches} against {launches0}")
     if launches0[0] < len(frames) or launches0[1] or launches0[2] < 1 or \
-            launches0[3] < len(frames) or launches0[4] < len(frames):
-        raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8) "
+            min(launches0[3:]) < len(frames):
+        raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8, K10) "
                              f"{launches0}")
     med = {}
     for route, rows, _, _ in runs:
@@ -2516,7 +2748,7 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
         f"point, kernels called directly and through torch.ops."
         f"botsort_tpu_torch, runs in the order direct, op, op, direct: "
         f"every FrameResult field, the final stores and the launches equal "
-        f"(K1, K2, K6, K7, K8 per run: {launches0})")
+        f"(K1, K2, K6, K7, K8, K10 per run: {launches0})")
     log(f"timing: oproute: eager one-stream step median {d:.3f} ms direct, "
         f"{o:.3f} ms through the custom ops ({o - d:+.3f} ms, "
         f"{1e3 * (o - d) / calls:+.1f} us a kernel call over {calls:.1f} "
@@ -2908,6 +3140,7 @@ def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
     from botsort_tpu_torch.models.common import cast_compute
     from botsort_tpu_torch.models.facereid import FaceReID
     from botsort_tpu_torch.models.fastreid import FastReIDSBS
+    from botsort_tpu_torch.ops import hierarchy
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline.frame_step import ModelBundle
     from botsort_tpu_torch.pipeline.host import BatchedBoTSORTPipeline
@@ -2937,12 +3170,13 @@ def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
     steps = [rng.integers(0, 255, (STREAMS,) + FRAME_HW + (3,), dtype=np.uint8)
              for _ in range(6)]
     k4, k5 = fastreid_fused.stem_stage1_cuda, facereid_dw.dw_conv3x3_cuda
-    cuda = assignment_cuda.cascade_solve_cuda
-    k4.launches = k5.launches = 0
+    cuda, k10 = assignment_cuda.cascade_solve_cuda, hierarchy.greedy_scan_cuda
+    k4.launches = k5.launches = k10.launches = 0
     cuda.launches = cuda.batched_launches = 0
     rows = drive(torch, pipeline, steps,
                  lambda: np.array([k4.launches, k5.launches,
-                                   cuda.batched_launches]), force_at=3)
+                                   cuda.batched_launches, k10.launches]),
+                 force_at=3)
     k4_launches, k5_launches = k4.launches, k5.launches
     if cuda.launches:
         raise AssertionError("the lowered 8-stream path launched K1")
@@ -2951,16 +3185,18 @@ def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
         want = (expected_launches(r, ran=lambda b: b[0] is None or b[0] > 0),
                 expected_launches(r, n_dw,
                                   ran=lambda b: b[1] is None or b[1] > 0),
-                expected_launches(r))
+                expected_launches(r), expected_launches(r))
         table.append(dict(runs=r["runs"], k4=int(r["launches"][0]),
                           k5=int(r["launches"][1]),
                           k2=int(r["launches"][2]),
+                          k10=int(r["launches"][3]),
                           tracks=sum(len(t) for t in r["tracks"])))
         if tuple(r["launches"]) != want:
             raise AssertionError(
-                f"lowered: a step launched K4, K5, K2 {tuple(r['launches'])} "
-                f"times, expected {want} (K4 once and K5 {n_dw} times per "
-                f"step run with crops, K2 once per step run): {r['runs']}")
+                f"lowered: a step launched K4, K5, K2, K10 "
+                f"{tuple(r['launches'])} times, expected {want} (K4 once and "
+                f"K5 {n_dw} times per step run with crops, K2 and K10 once "
+                f"per step run): {r['runs']}")
     log(f"lowered: per step {json.dumps(table)}")
     if min(t["k4"] for t in table) < 1 or min(t["k5"] for t in table) < 1:
         raise AssertionError("a lowered step ran without K4 or K5")
@@ -3671,7 +3907,8 @@ def main() -> int:
     from botsort_tpu_torch.models import (bn_act, facereid_dw, fastreid,
                                           fastreid_fused)
     from botsort_tpu_torch.models.common import cast_compute
-    from botsort_tpu_torch.ops import assignment, assignment_cuda, crop, nms
+    from botsort_tpu_torch.ops import (assignment, assignment_cuda, crop,
+                                       hierarchy, nms)
     from botsort_tpu_torch.ops.boxes import iou_matrix
     from botsort_tpu_torch.pipeline import switch
     from botsort_tpu_torch.runtime import assets, kernels
@@ -3722,13 +3959,13 @@ def main() -> int:
                    for p in m.parameters())
     log(f"bundle: full width, bfloat16, {n_params} parameters")
     done("bundle")
-    (k1_launches, k7_launches, k8_launches, main_pipe, main_frame, main_cfgs,
-     main_cascades) = phase_main(torch, bundle, assignment, assignment_cuda,
-                                 card)
+    (k1_launches, k7_launches, k8_launches, k10_launches, main_pipe,
+     main_frame, main_cfgs, main_cascades) = phase_main(
+         torch, bundle, assignment, assignment_cuda, card)
     done("main")
-    (k2_launches, k6_launches, k7_multi, k8_multi, unlowered, multi_pipe,
-     multi_frames, multi_cfgs) = phase_multi(torch, bundle, assignment,
-                                             assignment_cuda, bn_act, card)
+    (k2_launches, k6_launches, k7_multi, k8_multi, k10_multi, unlowered,
+     multi_pipe, multi_frames, multi_cfgs) = phase_multi(
+         torch, bundle, assignment, assignment_cuda, bn_act, card)
     done("multi")
     phase_nosync(torch, bundle, main_pipe, main_frame, main_cfgs, multi_pipe,
                  multi_frames)
@@ -3755,9 +3992,15 @@ def main() -> int:
         f"inside a graphed step, {k9_times[0] / floor:.2f} x the floor; "
         f"{card}")
     done("switch")
-    k2_temporal, k7_temporal = phase_temporal(torch, bundle, assignment_cuda,
-                                              card, unlowered)
+    k2_temporal, k7_temporal, k10_temporal, temporal_frames = phase_temporal(
+        torch, bundle, assignment_cuda, card, unlowered)
     done("temporal")
+    k10_err, k10_times = phase_k10(torch, bundle, main_frame, multi_frames,
+                                   temporal_frames, main_cfgs, multi_cfgs,
+                                   card, floor)
+    del temporal_frames
+    torch.cuda.empty_cache()
+    done("K10")
     phase_checkpoint(torch, assets, bundle)
     done("checkpoint")
     phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card)
@@ -3783,6 +4026,7 @@ def main() -> int:
     times["K7"] = k7_times
     times["K8"] = k8_times
     times["K9"] = k9_times
+    times["K10"] = k10_times
     done("timings")
     phase_export(torch, bundle, assignment_cuda, bn_act, card)
     done("export")
@@ -3791,7 +4035,7 @@ def main() -> int:
     phase_store(torch, bundle)
     done("store")
     phase_oproute(torch, bundle, assignment_cuda, bn_act,
-                  (assignment, bn_act, crop, nms, facereid_dw,
+                  (assignment, bn_act, crop, nms, hierarchy, facereid_dw,
                    fastreid_fused), card)
     done("oproute")
     torch.cuda.empty_cache()
@@ -3814,6 +4058,9 @@ def main() -> int:
         f"path {k7_multi}, the temporal path {k7_temporal}")
     log(f"K8: launches on the main path {k8_launches}, the {STREAMS}-stream "
         f"path {k8_multi}; K9: launches on the switch path {k9_launches}")
+    log(f"K10: launches on the main path {k10_launches}, the "
+        f"{STREAMS}-stream path {k10_multi}, the temporal path "
+        f"{k10_temporal}")
     log(f"phases (s): {json.dumps(seconds)}, total "
         f"{sum(seconds.values()):.1f}")
     log(card)
@@ -3845,6 +4092,8 @@ def main() -> int:
               "K8"),
         entry("graph_cond", K9_SOURCE, K9_REPLACES, k9_launches, k9_err,
               "K9"),
+        entry("hierarchy_scan", K10_SOURCE, K10_REPLACES, k10_launches,
+              k10_err, "K10"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Kernels K1-K9 on the card, against their plain PyTorch versions, and
+"""Kernels K1-K10 on the card, against their plain PyTorch versions, and
 the frame step replayed from a CUDA graph against the eager step (also
 with the encoders' bucket switch as conditional graph nodes).
 
@@ -22,15 +22,17 @@ from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
 from botsort_tpu_torch.models import bn_act, facereid, facereid_dw, fastreid
 from botsort_tpu_torch.models import fastreid_fused
 from botsort_tpu_torch.models.common import cast_compute
-from botsort_tpu_torch.ops import assignment, assignment_cuda, crop, nms
+from botsort_tpu_torch.ops import (assignment, assignment_cuda, crop,
+                                   hierarchy, nms)
 from botsort_tpu_torch.pipeline import frame_step as fs
 from botsort_tpu_torch.pipeline import graphed, host, switch
 from botsort_tpu_torch.runtime import assets, kernels
 from botsort_tpu_torch.track.state import empty_stores
 # By its own name (pytest puts this directory on the path): a site package
 # named ``tests`` would shadow the directory as ``tests.torch_scenes``.
-from torch_scenes import (LIVE, REGIMES, WIDTH, TorchCountDetector,
-                          boundary_boxes, level_frames)
+from torch_scenes import (HIER_KINDS, LIVE, REGIMES, WIDTH,
+                          TorchCountDetector, boundary_boxes,
+                          hierarchy_case, hierarchy_problems, level_frames)
 
 pytestmark = pytest.mark.cuda
 
@@ -1170,3 +1172,111 @@ def test_mini_eager_switch_zeroes_beyond_the_branch_without_waiting(dev):
             assert bool(p.body_feats[:, :LIVE[regime]].abs().sum(-1)
                         .gt(0).all())
 
+
+
+# --- K10: the hierarchy's greedy claims ------------------------------------
+
+
+def _k10_args(problems, n_bases, n_targets, kind, dev, seed=0):
+    case = hierarchy_case(np.random.default_rng(seed), problems, n_bases,
+                          n_targets, kind)
+    return hierarchy.scan_inputs(hierarchy_problems(
+        case, lambda a: torch.from_numpy(a).to(dev)))
+
+
+@pytest.mark.parametrize("problems,n_bases,n_targets,kind",
+                         [(3, 50, 50, k) for k in HIER_KINDS]
+                         + [(24, 50, 50, k) for k in HIER_KINDS]
+                         + [(48, 50, 50, "dupes"), (1, 50, 50, "grid"),
+                            (5, 37, 45, "random"), (6, 20, 70, "grid"),
+                            (4, 16, 300, "dupes"), (2, 8, 1024, "random"),
+                            (9, 1, 1, "random")])
+def test_k10_equals_plain(dev, problems, n_bases, n_targets, kind):
+    """K10 against greedy_scan_plain on the card, bit for bit (one launch,
+    counted): b = T = 50 at one frame's (3), eight frames' (24) and the
+    temporal step's (48) problems with rounds (1, 1, 2), duplicate boxes
+    and grid boxes (IoU and distance ties: the lowest index wins), invalid
+    bases and targets and all-invalid problems, and T at every slot count
+    a lane can hold (1 to 32 targets a lane)."""
+    args = _k10_args(problems, n_bases, n_targets, kind, dev,
+                     seed=problems + n_targets)
+    before = hierarchy.greedy_scan_cuda.launches
+    got = hierarchy.greedy_scan_cuda(*args)
+    assert hierarchy.greedy_scan_cuda.launches == before + 1
+    want = hierarchy.greedy_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(hierarchy.greedy_scan(*args), want)
+
+
+def test_k10_nan_follows_the_plain_version(dev):
+    """A NaN IoU in a row claims nothing; a NaN distance among the
+    candidates is the argmin (torch's rule), on the card as in the plain
+    version."""
+    iou, dist, used0, active = _k10_args(3, 40, 40, "random", dev, seed=3)
+    iou[0, 3, 5] = float("nan")
+    dist[1, 2, :] = float("nan")
+    dist[2, 7, 9] = float("nan")
+    assert torch.equal(hierarchy.greedy_scan_cuda(iou, dist, used0, active),
+                       hierarchy.greedy_scan_plain(iou, dist, used0, active))
+
+
+def test_k10_captured_without_synchronising(dev):
+    """K10 captured in a CUDA graph by pipeline/graphed.py::GraphCache (a
+    capture fails on any wait), then launched eagerly and replayed under
+    set_sync_debug_mode("error") on two inputs: equal to each other and to
+    the plain version, and the launches count as chip_smoke counts them
+    (the capture's warm-up calls, then one a replay)."""
+    inputs = [list(_k10_args(24, 50, 50, kind, dev, seed=7))
+              for kind in ("dupes", "grid")]
+    cache = graphed.GraphCache(dev)
+
+    def step(*args):
+        return [hierarchy.greedy_scan(*args)]
+
+    before = hierarchy.greedy_scan_cuda.launches
+    got, = cache.run(("k10",), step, inputs[0])   # the capture
+    for args in inputs + inputs:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = hierarchy.greedy_scan_cuda(*args)
+            got, = cache.run(("k10",), step, args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager)
+        assert torch.equal(got, hierarchy.greedy_scan_plain(*args))
+    assert cache.captures == 1 and cache.replays == 5
+    assert hierarchy.greedy_scan_cuda.launches - before == \
+        cache.warmups + 5 + 4
+
+
+def test_k10_reached_once_a_step_and_through_its_op(dev):
+    """The step's hierarchy (fs.attach_hierarchy_batched, 3B problems)
+    launches K10 once; the op on the card (the kernel, counted) equals its
+    CPU implementation; the wrapper refuses what it does not take."""
+    boxes = torch.from_numpy(np.stack([hierarchy_case(
+        np.random.default_rng(s), 4, 50, 50, "dupes")[0] for s in range(3)]))
+    valid = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (3, 4, 50)) < 0.8)
+    before = hierarchy.greedy_scan_cuda.launches
+    on_card = fs.attach_hierarchy_batched(boxes.to(dev), valid.to(dev))
+    assert hierarchy.greedy_scan_cuda.launches == before + 1
+    for g, w in zip(on_card, fs.attach_hierarchy_batched(boxes, valid)):
+        assert torch.equal(g.cpu(), w)
+    args = list(_k10_args(6, 50, 50, "grid", torch.device("cpu"), seed=4))
+    got, want = _op_pair(torch.ops.botsort_tpu_torch.hierarchy_scan, args,
+                         dev)
+    assert hierarchy.greedy_scan_cuda.launches == before + 2
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    iou, dist, used0, active = (a.to(dev) for a in args)
+    with pytest.raises(ValueError, match="at most"):
+        hierarchy.greedy_scan_cuda(
+            torch.zeros(1, 2, 1025, device=dev),
+            torch.zeros(1, 2, 1025, device=dev),
+            torch.zeros(1, 1025, dtype=torch.bool, device=dev), active[:1])
+    with pytest.raises(ValueError, match="float32"):
+        hierarchy.greedy_scan_cuda(iou.double(), dist, used0, active)
+    with pytest.raises(ValueError, match="float32"):
+        hierarchy.greedy_scan_cuda(iou, dist, used0[:, :-1], active)

@@ -176,17 +176,18 @@ def test_a_manifest_without_the_crop_fields_reads_as_float32(export_dir,
 @pytest.mark.parametrize("streams", [0, 2])
 def test_programs_call_the_kernels_as_custom_ops(export_dir, programs,
                                                  streams):
-    """The loaded graph calls K1/K2, K6, K7 and K8 as
+    """The loaded graph calls K1/K2, K6, K7, K8 and K10 as
     torch.ops.botsort_tpu_torch ops (one cascade solve, one norm per
     BatchNorm module, three crops: the detector input, body and face, in
-    int8 mode, one NMS fixpoint), derives no batch-norm constant and holds
-    no weight."""
+    int8 mode, one NMS fixpoint, one hierarchy scan), derives no
+    batch-norm constant and holds no weight."""
     _, bundle, _, _ = export_dir
     ep = programs.exported_program(streams, SRC_HW, BUCKET, BUCKET)
     targets = [str(n.target) for n in ep.graph.nodes
                if n.op == "call_function"]
     assert targets.count("botsort_tpu_torch.cascade_solve.default") == 1
     assert targets.count("botsort_tpu_torch.nms_fixpoint.default") == 1
+    assert targets.count("botsort_tpu_torch.hierarchy_scan.default") == 1
     n_norms = sum(isinstance(m, BatchNorm) for net in exported.NETS
                   for m in getattr(bundle, net).modules())
     assert targets.count("botsort_tpu_torch.bn_act.default") == n_norms

@@ -130,3 +130,57 @@ def boundary_boxes(thr, pairs=2, seed=0):
                 ious.append(target)
                 found += 1
     return np.stack(out), np.asarray(ious, np.float32)
+
+
+# The hierarchy's rounds pattern: each frame's faces -> heads and heads ->
+# bodies claim once, hands -> bodies twice (pipeline/frame_step.py).
+HIER_ROUNDS = (1, 1, 2)
+HIER_KINDS = ("random", "dupes", "grid", "invalid")
+
+
+def hierarchy_case(rng, problems, n_bases, n_targets, kind):
+    """Greedy-hierarchy problems in numpy: (base [P, B, 4], base_valid
+    [P, B], target [P, T, 4], target_valid [P, T], rounds [P]) with rounds
+    (1, 1, 2) repeated. Kinds: "random" (targets jittered copies of bases,
+    15% invalid); "dupes" (every second target and base a copy of the one
+    before: IoU and distance ties between them); "grid" (corners on an
+    8-pixel grid, sides 16, 24 or 32: exact IoU and distance ties
+    everywhere); "invalid" (60% invalid, every third problem without a
+    valid base or target, one with valid bases and no valid target)."""
+    if kind == "grid":
+        tl = rng.integers(0, 12, (problems, n_bases + n_targets, 2)) * 8.0
+        wh = rng.choice([16.0, 24.0, 32.0], (problems, n_bases + n_targets,
+                                             2))
+        boxes = np.concatenate([tl, tl + wh], -1).astype(np.float32)
+        base, target = boxes[:, :n_bases], boxes[:, n_bases:]
+    else:
+        tl = rng.uniform(0, 300, (problems, n_bases, 2))
+        base = np.concatenate([tl, tl + rng.uniform(20, 80, tl.shape)],
+                              -1).astype(np.float32)
+        pick = rng.integers(0, n_bases, (problems, n_targets))
+        target = (np.take_along_axis(base, pick[..., None], 1)
+                  + rng.uniform(-10, 10, (problems, n_targets, 4))
+                  ).astype(np.float32)
+    if kind == "dupes":
+        base[:, 1::2] = base[:, 0::2][:, :n_bases // 2]
+        target[:, 1::2] = target[:, 0::2][:, :n_targets // 2]
+    p_valid = 0.4 if kind == "invalid" else 0.85
+    base_valid = rng.uniform(0, 1, (problems, n_bases)) < p_valid
+    target_valid = rng.uniform(0, 1, (problems, n_targets)) < p_valid
+    if kind == "invalid":
+        base_valid[::3] = False
+        target_valid[::3] = False
+        if problems > 1:
+            base_valid[1] = True
+            target_valid[1] = False
+    rounds = tuple(HIER_ROUNDS[i % 3] for i in range(problems))
+    return base, base_valid, target, target_valid, rounds
+
+
+def hierarchy_problems(case, to_tensor):
+    """``hierarchy_case``'s arrays as ``greedy_assign_batch``'s problem
+    list, each array through ``to_tensor``."""
+    base, base_valid, target, target_valid, rounds = case
+    return [(to_tensor(base[i]), to_tensor(base_valid[i]),
+             to_tensor(target[i]), to_tensor(target_valid[i]), r)
+            for i, r in enumerate(rounds)]
