@@ -9,8 +9,10 @@ package's ``lax.scan`` does inside its jitted step.
 The IoU and the distances are PyTorch ops (``scan_inputs``), as the JAX
 package computes them outside its scan. The sequential claims are
 ``greedy_scan``: on the card kernel K10 (csrc/hierarchy_scan.cu,
-``greedy_scan_cuda``), one warp a problem for every problem in one launch;
-on the CPU ``greedy_scan_plain``, the claims as a loop of tensor ops.
+``greedy_scan_cuda``), every problem in one launch, one warp a problem up
+to WARP_TARGETS targets and a block a problem above; on the CPU
+``greedy_scan_plain``, the claims as a loop of tensor ops. Both take any
+number of bases, targets and rounds.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ from botsort_tpu_torch.ops.boxes import iou_matrix
 from botsort_tpu_torch.runtime import kernels
 from botsort_tpu_torch.utils.consts import const, tracing
 
-# K10's limits: a lane keeps the used bits of its targets (lane, lane + 32,
-# ...) in one 32-bit word, and the rounds' activity in another.
-MAX_TARGETS = 1024
-MAX_ROUNDS = 32
+# The most targets of K10's warp-a-problem form: a lane keeps the used
+# bits of its targets (lane, lane + 32, ...) in one 32-bit word and their
+# keys in registers. Above, a block of 1,024 threads takes a problem, with
+# the keys and used bits in a scratch buffer the wrapper allocates.
+WARP_TARGETS = 1024
 
 
 def scan_inputs(problems: Sequence[tuple]):
@@ -89,9 +92,11 @@ def _lib() -> ctypes.CDLL:
     lib = kernels.load("hierarchy_scan")
     fn = lib.hierarchy_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.hierarchy_scan_scratch_bytes.argtypes = [ctypes.c_int] * 2
+        lib.hierarchy_scan_scratch_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -99,10 +104,13 @@ def greedy_scan_cuda(iou: torch.Tensor, dist: torch.Tensor,
                      used0: torch.Tensor,
                      round_active: torch.Tensor) -> torch.Tensor:
     """K10: ``greedy_scan_plain`` on the card, one launch on the current
-    stream for every problem (a warp each); nothing is synchronised.
-    iou, dist [P, B, T] float32, used0 [P, T] bool, round_active [P, R]
-    bool on one CUDA device; T <= MAX_TARGETS, R <= MAX_ROUNDS.
-    ``launches`` counts launches."""
+    stream for every problem (a warp each, a block each above
+    WARP_TARGETS targets); nothing is synchronised. iou, dist [P, B, T]
+    float32, used0 [P, T] bool, round_active [P, R] bool on one CUDA
+    device, any B, T and R; above WARP_TARGETS the keys and used bits go
+    to a scratch tensor (``torch.empty`` on the current stream, so a graph
+    capture takes it from the graph's pool). ``launches`` counts
+    launches."""
     if not iou.is_cuda:
         raise ValueError("greedy_scan_cuda takes CUDA tensors; the plain "
                          "version is greedy_scan_plain")
@@ -121,10 +129,6 @@ def greedy_scan_cuda(iou: torch.Tensor, dist: torch.Tensor,
             f"{tuple(round_active.shape)} {round_active.dtype}")
     p, b, t = iou.shape
     rounds = round_active.shape[1]
-    if t > MAX_TARGETS or rounds > MAX_ROUNDS:
-        raise ValueError(f"K10 takes at most {MAX_TARGETS} targets and "
-                         f"{MAX_ROUNDS} rounds a problem, got {t} and "
-                         f"{rounds}")
     picks = torch.empty((b, p, rounds), dtype=torch.int32,
                         device=iou.device)
     if picks.numel() == 0:
@@ -132,10 +136,15 @@ def greedy_scan_cuda(iou: torch.Tensor, dist: torch.Tensor,
     iou, dist = iou.contiguous(), dist.contiguous()
     used0, round_active = used0.contiguous(), round_active.contiguous()
     with torch.cuda.device(iou.device):
-        rc = _lib().hierarchy_scan_launch(
+        lib = _lib()
+        n_scratch = lib.hierarchy_scan_scratch_bytes(p, t)
+        scratch = torch.empty(n_scratch, dtype=torch.uint8,
+                              device=iou.device) if n_scratch else None
+        rc = lib.hierarchy_scan_launch(
             iou.data_ptr(), dist.data_ptr(), used0.data_ptr(),
-            round_active.data_ptr(), picks.data_ptr(), p, b, t, rounds,
-            kernels.current_stream(iou.device))
+            round_active.data_ptr(), picks.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), p, b, t,
+            rounds, kernels.current_stream(iou.device))
     if rc != 0:
         raise RuntimeError(f"hierarchy_scan launch failed: CUDA error {rc}")
     greedy_scan_cuda.launches += 1

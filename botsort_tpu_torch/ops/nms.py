@@ -10,10 +10,11 @@ The fixpoint runs until nothing changes, as the JAX package's
 ``lax.while_loop`` does, and never asks the host whether it is done: on
 the card it is kernel K8 (csrc/nms_fixpoint.cu, ``nms_fixpoint_cuda``),
 one thread-block cluster per (frame, class) problem whose blocks compute
-its IoUs themselves, gather the dominance bits in the leader block and
-leave it to iterate (``cluster_size`` picks the cluster); on the CPU it
-is ``nms_fixpoint_plain``. The stable sort, the gathers and the
-compaction stay in PyTorch. The fixpoint is unique, so
+its IoUs themselves, gather the dominance bits in the leader block (in a
+device scratch buffer above SMEM_CANDIDATES candidates) and leave it to
+iterate (``cluster_size`` picks the cluster); on the CPU it is
+``nms_fixpoint_plain``. Both take any candidate count. The stable sort,
+the gathers and the compaction stay in PyTorch. The fixpoint is unique, so
 ``Detections.converged`` is true by construction (the field keeps the
 FrameResult's layout).
 """
@@ -30,9 +31,11 @@ from botsort_tpu_torch.ops.boxes import iou_matrix
 from botsort_tpu_torch.runtime import kernels
 from botsort_tpu_torch.utils.consts import tracing
 
-# The largest candidate count K8 takes: its dominance bits are P x P / 8
-# bytes of shared memory (128 KB at 1024).
-MAX_CANDIDATES = 1024
+# The most candidates whose dominance bits (P x P / 8 bytes: 128 KB at
+# 1024) K8 gathers in the leader block's shared memory; above, they go to
+# a scratch buffer the wrapper allocates on the current stream
+# (``nms_fixpoint_scratch_bytes``: 4.96 MB a problem at 6,300).
+SMEM_CANDIDATES = 1024
 # K8's largest cluster (16 blocks: a non-portable size, which the H100
 # schedules) and its block size, the one the card ran fastest at the
 # steps' candidates with ``cluster_size``'s clusters (chip_smoke.py's K8
@@ -82,12 +85,14 @@ def _lib() -> ctypes.CDLL:
     lib = kernels.load("nms_fixpoint")
     fn = lib.nms_fixpoint_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.nms_fixpoint_smem_bytes.argtypes = [ctypes.c_int]
         lib.nms_fixpoint_smem_bytes.restype = ctypes.c_size_t
+        lib.nms_fixpoint_scratch_bytes.argtypes = [ctypes.c_int] * 2
+        lib.nms_fixpoint_scratch_bytes.restype = ctypes.c_size_t
         lib.nms_fixpoint_max_active_clusters.argtypes = [
             ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
         lib.nms_fixpoint_max_active_clusters.restype = ctypes.c_int
@@ -146,8 +151,10 @@ def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
     stream for every problem of the leading dimensions (a cluster of
     ``launch_shape`` blocks of THREADS threads each); nothing is
     synchronised. top_boxes [..., P, 4] float32 and top_valid [..., P]
-    bool on one CUDA device, P <= MAX_CANDIDATES. ``launches`` counts
-    launches."""
+    bool on one CUDA device, any P; above SMEM_CANDIDATES the dominance
+    words go to a scratch tensor (``torch.empty`` on the current stream,
+    so a graph capture takes it from the graph's pool). ``launches``
+    counts launches."""
     if not top_boxes.is_cuda:
         raise ValueError("nms_fixpoint_cuda takes CUDA tensors; the plain "
                          "version is nms_fixpoint_plain")
@@ -160,9 +167,6 @@ def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
             f"expected float32 boxes [..., P, 4] and bool valid [..., P] on "
             f"one device, got {tuple(top_boxes.shape)} {top_boxes.dtype}, "
             f"{tuple(top_valid.shape)} {top_valid.dtype}")
-    if p > MAX_CANDIDATES:
-        raise ValueError(f"K8 takes at most {MAX_CANDIDATES} candidates a "
-                         f"problem, got {p}")
     keep = torch.empty_like(top_valid)
     problems = top_valid.numel() // max(p, 1)
     if keep.numel() == 0:
@@ -171,8 +175,13 @@ def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
     valid = top_valid.contiguous()
     with torch.cuda.device(boxes.device):
         cluster = launch_shape(problems, p, boxes.device)
-        rc = _lib().nms_fixpoint_launch(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), problems, p,
+        lib = _lib()
+        n_scratch = lib.nms_fixpoint_scratch_bytes(problems, p)
+        scratch = torch.empty(n_scratch, dtype=torch.uint8,
+                              device=boxes.device) if n_scratch else None
+        rc = lib.nms_fixpoint_launch(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), problems, p,
             float(np.float32(iou_threshold)), cluster, THREADS,
             kernels.current_stream(boxes.device))
     if rc != 0:

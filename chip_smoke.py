@@ -1353,9 +1353,13 @@ def k8_direct(torch, nms, boxes, valid, thr, cluster, threads):
 
     def run():
         keep = torch.empty_like(valid)
+        n_scratch = lib.nms_fixpoint_scratch_bytes(problems, p)
+        scratch = torch.empty(n_scratch, dtype=torch.uint8,
+                              device=valid.device) if n_scratch else None
         rc = lib.nms_fixpoint_launch(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), problems,
-            p, float(np.float32(thr)), cluster, threads,
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), problems, p,
+            float(np.float32(thr)), cluster, threads,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"K8 at cluster size {cluster}, {threads} "
@@ -1465,7 +1469,72 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
         max_err = max(max_err, err)
     log(f"K8: equal to the plain version bit for bit on all "
         f"{len(cases)} inputs at every block size and cluster size")
+    max_err = max(max_err, k8_large(torch, nms, iou_matrix, bundle,
+                                    main_frame, cfgs, card))
     return max_err, first, floor
+
+
+# K8 above the candidates whose dominance words fit the leader's shared
+# memory: every anchor of the 480x640 detector input, and a chain.
+K8_LARGE_TOP_K = 6300
+K8_LARGE_CHAIN = 2048
+
+
+def k8_large(torch, nms, iou_matrix, bundle, main_frame, cfgs, card):
+    """K8 with its dominance words in the scratch buffer (P above
+    nms.SMEM_CANDIDATES) against nms_fixpoint_plain, bit for bit: the
+    loaded one-stream frame's candidates at pre_nms_top_k = 6,300 and a
+    chain of 2,048 in each of 4 classes; iterations, cluster size, scratch
+    bytes, CUDA-event, graph and plain times and the bound. Returns the
+    largest element difference (0)."""
+    import dataclasses
+
+    trk, nms_cfg, pipe_cfg = cfgs
+    thr = nms_cfg.iou_threshold
+    dev = bundle.device
+    wide = (trk, dataclasses.replace(nms_cfg, pre_nms_top_k=K8_LARGE_TOP_K),
+            pipe_cfg)
+    cases = ((f"loaded one stream at pre_nms_top_k={K8_LARGE_TOP_K}",)
+             + k8_inputs(torch, nms, bundle,
+                         torch.from_numpy(main_frame)[None].to(dev), wide),
+             (f"chain of {K8_LARGE_CHAIN}",)
+             + k8_chain(torch, K8_LARGE_CHAIN, dev))
+    for label, boxes, valid in cases:
+        problems, p = valid.shape[0] * valid.shape[1], valid.shape[-1]
+        if p <= nms.SMEM_CANDIDATES:
+            raise AssertionError(f"K8 {label}: {p} candidates, not above "
+                                 f"{nms.SMEM_CANDIDATES}")
+        want = nms.nms_fixpoint_plain(boxes, valid, thr)
+        got = nms.nms_fixpoint_cuda(boxes, valid, thr)
+        torch.cuda.synchronize()
+        err = int((got != want).sum())
+        if err:
+            raise AssertionError(f"K8 != plain on {label}: {err} of "
+                                 f"{got.numel()} differ")
+        cluster = nms.launch_shape(problems, p, dev)
+        scratch = nms._lib().nms_fixpoint_scratch_bytes(problems, p)
+        iters = fixpoint_iterations(torch, iou_matrix, boxes, valid, thr)
+        run = lambda b=boxes, v=valid: nms.nms_fixpoint_cuda(  # noqa: E731
+            b, v, thr)
+        ms = event_ms(torch, run, 10)
+        ms_graph = graph_ms(torch, run, calls=5, replays=4)
+        plain = event_ms(torch, lambda b=boxes, v=valid:
+                         nms.nms_fixpoint_plain(b, v, thr), 1)
+        n_valid = valid.reshape(problems, p).sum(-1).double()
+        pairs = float((n_valid * (n_valid - 1) / 2).sum())
+        nbytes = problems * p * 18
+        b_ms, b_by = bound(nbytes, 12 * pairs, F32_FLOPS)
+        log(f"timing: K8 {label}: [{valid.shape[0]}, {valid.shape[1]}, "
+            f"{p}], {int(n_valid.sum())} valid candidates, {iters} "
+            f"iterations to the fixpoint; {problems} clusters of {cluster} "
+            f"blocks of {nms.THREADS} threads, dominance words in a "
+            f"{scratch} B scratch buffer; kernel {ms:.4f} ms eager, "
+            f"{ms_graph:.4f} ms graph; plain {plain:.4f} ms; bound "
+            f"{b_ms:.6f} ms by {b_by} ({nbytes} B, {pairs:.0f} IoU pairs); "
+            f"library: none; {card}")
+    log(f"K8: equal to the plain version bit for bit above "
+        f"{nms.SMEM_CANDIDATES} candidates on all {len(cases)} inputs")
+    return 0
 
 
 def phase_k9(torch, switch, dev):
@@ -1893,35 +1962,83 @@ def k10_inputs(torch, hierarchy, bundle, frames_dev, cfgs):
     return rec.calls[0]
 
 
-def k10_ties(torch, hierarchy, dev, n=50):
+def k10_ties(torch, hierarchy, dev, n=50, targets=None, rounds=2):
     """Adversarial inputs for K10, made by ops/hierarchy.py::scan_inputs:
-    3 x STREAMS problems of n bases x n targets with rounds (1, 1, 2), a
-    quarter each of duplicated boxes (every box twice: IoU and distance
-    ties, the lowest index wins), boxes on an 8-pixel grid with sides 16,
-    24 or 32 (exact ties everywhere), 60% invalid bases and targets, and
-    no valid box at all."""
+    3 x STREAMS problems of n bases x ``targets`` (n) targets with rounds
+    (1, 1, ``rounds``), a quarter each of duplicated boxes (every box
+    twice: IoU and distance ties, the lowest index wins), boxes on an
+    8-pixel grid with sides 16, 24 or 32 (exact ties everywhere), 60%
+    invalid bases and targets, and no valid box at all."""
+    t = n if targets is None else targets
     rng = np.random.default_rng(15)
     problems = []
     for i in range(3 * STREAMS):
         kind = i % 4
         if kind == 1:
-            tl = rng.integers(0, 12, (2 * n, 2)) * 8.0
+            tl = rng.integers(0, 12, (n + t, 2)) * 8.0
             boxes = np.concatenate(
-                [tl, tl + rng.choice([16.0, 24.0, 32.0], (2 * n, 2))], -1)
+                [tl, tl + rng.choice([16.0, 24.0, 32.0], (n + t, 2))], -1)
         else:
             tl = rng.uniform(0, 300, (n, 2))
             base = np.concatenate([tl, tl + rng.uniform(20, 80, (n, 2))], -1)
-            boxes = np.concatenate([base, base[rng.integers(0, n, n)]
-                                    + rng.uniform(-10, 10, (n, 4))])
+            boxes = np.concatenate([base, base[rng.integers(0, n, t)]
+                                    + rng.uniform(-10, 10, (t, 4))])
         if kind == 0:
-            boxes[1::2] = boxes[0::2]
-        valid = rng.uniform(0, 1, 2 * n) < (0.4 if kind == 2 else 0.9)
+            boxes[1::2] = boxes[0::2][:len(boxes) // 2]
+        valid = rng.uniform(0, 1, n + t) < (0.4 if kind == 2 else 0.9)
         if kind == 3:
             valid[:] = False
         b = torch.from_numpy(boxes.astype(np.float32)).to(dev)
         v = torch.from_numpy(valid).to(dev)
-        problems.append((b[:n], v[:n], b[n:], v[n:], 1 + (i % 3 == 2)))
+        problems.append((b[:n], v[:n], b[n:], v[n:],
+                         rounds if i % 3 == 2 else 1))
     return hierarchy.scan_inputs(problems)
+
+
+# K10 past the warp-a-problem form (a block a problem) and past one word
+# of rounds: (label, bases, targets, rounds) of k10_ties' adversarial
+# problems (R = 33 with few bases, each overlapping some 50 targets).
+K10_LARGE = (("ties T = 1025", 50, 1025, 2), ("ties T = 2048", 50, 2048, 2),
+             ("ties R = 33", 4, 200, 33))
+
+
+def k10_large(torch, hierarchy, dev, card):
+    """K10 against greedy_scan_plain, bit for bit, on k10_ties' problems
+    with 1,025 and 2,048 targets (a block a problem, keys and used bits in
+    the scratch buffer) and with 33 rounds; CUDA-event, graph and plain
+    times and the bound. Returns the largest index difference (0)."""
+    k10 = hierarchy.greedy_scan_cuda
+    max_err = 0
+    for label, bases, targets, rounds in K10_LARGE:
+        args = k10_ties(torch, hierarchy, dev, n=bases, targets=targets,
+                        rounds=rounds)
+        want = hierarchy.greedy_scan_plain(*args)
+        got = k10(*args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, index_err(torch, got, want,
+                                         f"K10 != plain on {label}"))
+        p, b, t = args[0].shape
+        r = args[3].shape[1]
+        scratch = hierarchy._lib().hierarchy_scan_scratch_bytes(p, t)
+        run = lambda a=args: k10(*a)  # noqa: E731
+        ms, ms_graph = event_ms(torch, run, 20), graph_ms(torch, run)
+        plain_ms = event_ms(torch, lambda a=args:
+                            hierarchy.greedy_scan_plain(*a), 1)
+        nbytes = p * b * t * 8 + p * t + p * r + b * p * r * 4
+        b_ms, b_by = bound(nbytes, 4 * b * r * p * t, F32_FLOPS)
+        late = int((want[:, :, 32:] >= 0).sum()) if r > 32 else 0
+        form = "a block" if t > hierarchy.WARP_TARGETS else "a warp"
+        log(f"timing: K10 {label}: [{p}, {b}, {t}], {r} rounds, "
+            f"{int((want >= 0).sum())} claims of {b * p * r} ({late} past "
+            f"round 32), {form} a problem, scratch {scratch} B; kernel "
+            f"{ms:.4f} ms eager, "
+            f"{ms_graph:.4f} ms graph; plain {plain_ms:.4f} ms eager; bound "
+            f"{b_ms:.6f} ms by {b_by} ({nbytes} B); library: none; {card}")
+        if r > 32 and not late:
+            raise AssertionError(f"K10 {label}: no claim past round 32")
+    log(f"K10: equal to the plain version bit for bit on all "
+        f"{len(K10_LARGE)} inputs past 1,024 targets or 32 rounds")
+    return max_err
 
 
 def phase_k10(torch, bundle, main_frame, multi_frames, temporal_frames,
@@ -1991,6 +2108,7 @@ def phase_k10(torch, bundle, main_frame, multi_frames, temporal_frames,
             first = (ms, plain_ms, b_ms, b_by, None)
     log(f"K10: equal to the plain version bit for bit on all {len(cases)} "
         "inputs")
+    max_err = max(max_err, k10_large(torch, hierarchy, dev, card))
 
     def plain_on_card(*args):
         return hierarchy.greedy_scan_plain(*args)

@@ -30,7 +30,7 @@ from botsort_tpu_torch.runtime import assets, kernels
 from botsort_tpu_torch.track.state import empty_stores
 # By its own name (pytest puts this directory on the path): a site package
 # named ``tests`` would shadow the directory as ``tests.torch_scenes``.
-from torch_scenes import (HIER_KINDS, LIVE, REGIMES, WIDTH,
+from torch_scenes import (HIER_KINDS, HIER_ROUNDS, LIVE, REGIMES, WIDTH,
                           TorchCountDetector, boundary_boxes,
                           hierarchy_case, hierarchy_problems, level_frames)
 
@@ -1001,14 +1001,18 @@ def _k8_case(rng, problems, p, kind):
     (32, 512, "random"), (4, 512, "dense"), (1, 512, "chain"),
     (2, 1024, "chain"), (8, 252, "tied"), (3, 33, "random"),
     ("c16", 512, "random"), ("c8", 512, "dense"), ("c4", 300, "tied"),
-    ("c2", 512, "random"), ("c1", 97, "random"), (6, 2, "boundary")])
+    ("c2", 512, "random"), ("c1", 97, "random"), (6, 2, "boundary"),
+    (2, 1025, "random"), (4, 2048, "random"), (2, 2048, "tied"),
+    (1, 2048, "chain"), (4, 6300, "random"), (32, 1100, "dense")])
 def test_k8_equals_plain(dev, problems, p, kind):
     """K8 against its plain version, bit for bit, at three thresholds
     (one launch each, counted), shaped [G, C, P] and flat. "cN": a problem
     count that takes cluster size N on the H100 (its SM count // N, or
     fewer where the card holds fewer clusters of N at once); "boundary":
     the pairs of tests/torch_scenes.py::boundary_boxes, whose IoU is each
-    threshold one ulp down, exactly and one ulp up."""
+    threshold one ulp down, exactly and one ulp up. P above 1,024: the
+    dominance words in the scratch buffer (a 2,048-chain at 0.3 and 0.5;
+    6,300, the anchors of a 480x640 input)."""
     if isinstance(problems, str):
         cluster = int(problems[1:])
         props = torch.cuda.get_device_properties(dev)
@@ -1036,26 +1040,32 @@ def test_k8_equals_plain(dev, problems, p, kind):
                            nms.nms_fixpoint_plain(tb, tv, 0.5))
 
 
-def test_k8_replayed_from_a_graph_equals_eager(dev):
+@pytest.mark.parametrize("problems,p,kinds,thr", [
+    (4, 512, ("dense", "random"), 0.8), (2, 1025, ("random", "dense"), 0.5),
+    (4, 2048, ("random", "tied"), 0.5), (1, 2048, ("chain", "dense"), 0.5),
+    (4, 6300, ("dense", "random"), 0.5)])
+def test_k8_replayed_from_a_graph_equals_eager(dev, problems, p, kinds, thr):
     """K8 captured in a CUDA graph by pipeline/graphed.py::GraphCache, as
     the facades capture a step, and replayed on two inputs: equal to the
     eager launch and to the plain version, and counted as chip_smoke counts
-    it (the capture's warm-up calls, then one a replay)."""
+    it (the capture's warm-up calls, then one a replay). Above 1,024
+    candidates the dominance words go to a scratch tensor the wrapper
+    allocates on the current stream (the graph's pool under capture)."""
     rng = np.random.default_rng(13)
     inputs = [[torch.from_numpy(a).to(dev)
-               for a in _k8_case(rng, 4, 512, kind)]
-              for kind in ("dense", "random")]
+               for a in _k8_case(rng, problems, p, kind)]
+              for kind in kinds]
     cache = graphed.GraphCache(dev)
 
     def step(boxes, valid):
-        return [nms.nms_fixpoint(boxes, valid, 0.8)]
+        return [nms.nms_fixpoint(boxes, valid, thr)]
 
     before = nms.nms_fixpoint_cuda.launches
     for tb, tv in inputs + inputs:
-        eager = nms.nms_fixpoint_cuda(tb, tv, 0.8)
+        eager = nms.nms_fixpoint_cuda(tb, tv, thr)
         got, = cache.run(("k8",), step, [tb, tv])
         assert torch.equal(got, eager)
-        assert torch.equal(got, nms.nms_fixpoint_plain(tb, tv, 0.8))
+        assert torch.equal(got, nms.nms_fixpoint_plain(tb, tv, thr))
     assert cache.captures == 1 and cache.replays == 4
     assert nms.nms_fixpoint_cuda.launches - before == 4 + cache.warmups + 4
 
@@ -1069,10 +1079,13 @@ def test_k8_wrapper_refuses_and_op_equals_its_cpu_implementation(dev):
                          [tb, tv, 0.5], dev)
     assert nms.nms_fixpoint_cuda.launches == before + 1
     assert got.is_cuda and torch.equal(got.cpu(), want)
-    with pytest.raises(ValueError, match="at most"):
-        nms.nms_fixpoint_cuda(torch.zeros(1, 1025, 4, device=dev),
-                              torch.ones(1, 1025, dtype=torch.bool,
-                                         device=dev), 0.5)
+    # No size is refused: 1,025 candidates, one above the shared-memory
+    # words, launch and equal the plain version.
+    big, big_valid = (torch.from_numpy(a).to(dev) for a in _k8_case(
+        rng, 1, 1025, "dense"))
+    assert torch.equal(nms.nms_fixpoint_cuda(big, big_valid, 0.5),
+                       nms.nms_fixpoint_plain(big, big_valid, 0.5))
+    assert nms.nms_fixpoint_cuda.launches == before + 2
     with pytest.raises(ValueError, match="float32"):
         nms.nms_fixpoint_cuda(tb.to(dev).double(), tv.to(dev), 0.5)
 
@@ -1177,9 +1190,10 @@ def test_mini_eager_switch_zeroes_beyond_the_branch_without_waiting(dev):
 # --- K10: the hierarchy's greedy claims ------------------------------------
 
 
-def _k10_args(problems, n_bases, n_targets, kind, dev, seed=0):
+def _k10_args(problems, n_bases, n_targets, kind, dev, seed=0,
+              pattern=HIER_ROUNDS):
     case = hierarchy_case(np.random.default_rng(seed), problems, n_bases,
-                          n_targets, kind)
+                          n_targets, kind, pattern)
     return hierarchy.scan_inputs(hierarchy_problems(
         case, lambda a: torch.from_numpy(a).to(dev)))
 
@@ -1190,14 +1204,17 @@ def _k10_args(problems, n_bases, n_targets, kind, dev, seed=0):
                          + [(48, 50, 50, "dupes"), (1, 50, 50, "grid"),
                             (5, 37, 45, "random"), (6, 20, 70, "grid"),
                             (4, 16, 300, "dupes"), (2, 8, 1024, "random"),
-                            (9, 1, 1, "random")])
+                            (9, 1, 1, "random"), (3, 4, 1025, "random"),
+                            (3, 6, 2048, "dupes"), (3, 4, 2048, "grid"),
+                            (24, 5, 1500, "invalid")])
 def test_k10_equals_plain(dev, problems, n_bases, n_targets, kind):
     """K10 against greedy_scan_plain on the card, bit for bit (one launch,
     counted): b = T = 50 at one frame's (3), eight frames' (24) and the
     temporal step's (48) problems with rounds (1, 1, 2), duplicate boxes
     and grid boxes (IoU and distance ties: the lowest index wins), invalid
-    bases and targets and all-invalid problems, and T at every slot count
-    a lane can hold (1 to 32 targets a lane)."""
+    bases and targets and all-invalid problems, T at every slot count a
+    lane can hold (1 to 32 targets a lane), and T above 1,024 (a block a
+    problem)."""
     args = _k10_args(problems, n_bases, n_targets, kind, dev,
                      seed=problems + n_targets)
     before = hierarchy.greedy_scan_cuda.launches
@@ -1221,14 +1238,25 @@ def test_k10_nan_follows_the_plain_version(dev):
                        hierarchy.greedy_scan_plain(iou, dist, used0, active))
 
 
-def test_k10_captured_without_synchronising(dev):
+@pytest.mark.parametrize("problems,n_bases,n_targets,kinds,pattern", [
+    (24, 50, 50, ("dupes", "grid"), HIER_ROUNDS),
+    (3, 6, 1025, ("random", "dupes"), HIER_ROUNDS),
+    (6, 4, 2048, ("dupes", "grid"), HIER_ROUNDS),
+    (6, 3, 120, ("dupes", "random"), (1, 1, 33)),
+    (3, 2, 1100, ("random", "dupes"), (1, 1, 33))])
+def test_k10_captured_without_synchronising(dev, problems, n_bases,
+                                            n_targets, kinds, pattern):
     """K10 captured in a CUDA graph by pipeline/graphed.py::GraphCache (a
     capture fails on any wait), then launched eagerly and replayed under
     set_sync_debug_mode("error") on two inputs: equal to each other and to
     the plain version, and the launches count as chip_smoke counts them
-    (the capture's warm-up calls, then one a replay)."""
-    inputs = [list(_k10_args(24, 50, 50, kind, dev, seed=7))
-              for kind in ("dupes", "grid")]
+    (the capture's warm-up calls, then one a replay). Also above 1,024
+    targets (a block a problem, its scratch tensor from the graph's pool
+    under capture; random boxes and ties) and at R = 33 (claims past round
+    32), in the warp and the block form."""
+    inputs = [list(_k10_args(problems, n_bases, n_targets, kind, dev,
+                             seed=7, pattern=pattern))
+              for kind in kinds]
     cache = graphed.GraphCache(dev)
 
     def step(*args):
@@ -1246,7 +1274,10 @@ def test_k10_captured_without_synchronising(dev):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         assert torch.equal(got, eager)
-        assert torch.equal(got, hierarchy.greedy_scan_plain(*args))
+        want = hierarchy.greedy_scan_plain(*args)
+        assert torch.equal(got, want) and (want >= 0).any()
+        if max(pattern) > 32:
+            assert (want[:, :, 32:] >= 0).any()
     assert cache.captures == 1 and cache.replays == 5
     assert hierarchy.greedy_scan_cuda.launches - before == \
         cache.warmups + 5 + 4
@@ -1271,12 +1302,53 @@ def test_k10_reached_once_a_step_and_through_its_op(dev):
     assert hierarchy.greedy_scan_cuda.launches == before + 2
     assert got.is_cuda and torch.equal(got.cpu(), want)
     iou, dist, used0, active = (a.to(dev) for a in args)
-    with pytest.raises(ValueError, match="at most"):
-        hierarchy.greedy_scan_cuda(
-            torch.zeros(1, 2, 1025, device=dev),
-            torch.zeros(1, 2, 1025, device=dev),
-            torch.zeros(1, 1025, dtype=torch.bool, device=dev), active[:1])
+    # No size is refused: 1,025 targets (a block a problem) launch and
+    # equal the plain version.
+    big = _k10_args(1, 2, 1025, "dupes", dev, seed=9)
+    assert torch.equal(hierarchy.greedy_scan_cuda(*big),
+                       hierarchy.greedy_scan_plain(*big))
+    assert hierarchy.greedy_scan_cuda.launches == before + 3
     with pytest.raises(ValueError, match="float32"):
         hierarchy.greedy_scan_cuda(iou.double(), dist, used0, active)
     with pytest.raises(ValueError, match="float32"):
         hierarchy.greedy_scan_cuda(iou, dist, used0[:, :-1], active)
+
+
+def test_mini_graphed_step_at_6300_candidates_equals_the_plain_nms(dev):
+    """NMSConfig(pre_nms_top_k=6300) at a 480x640 detector input (6,300
+    anchors, all candidates: K8 with its dominance words in the scratch
+    buffer): the graphed one-stream facade equals the eager facade with
+    nms_fixpoint_plain patched in for K8, on every FrameResult field of 3
+    frames and the final stores."""
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    nms_cfg = dataclasses.replace(MINI_NMS, pre_nms_top_k=6300)
+    pipe_cfg = dataclasses.replace(MINI_PIPE, detector_input_hw=(480, 640))
+    widths = []
+    real = nms.nms_fixpoint
+
+    def recorded(boxes, valid, thr):
+        widths.append(valid.shape[-1])
+        return real(boxes, valid, thr)
+
+    def plain(boxes, valid, thr):
+        return nms.nms_fixpoint_plain(boxes, valid, thr)
+
+    graphed_pipe = host.BoTSORTPipeline(bundle, MINI_TRK, nms_cfg, pipe_cfg,
+                                        graphs=True)
+    reference = host.BoTSORTPipeline(bundle, MINI_TRK, nms_cfg, pipe_cfg,
+                                     graphs=False)
+    before = nms.nms_fixpoint_cuda.launches
+    for frames in _mini_frames(3, 1, 9):
+        with mock.patch.object(nms, "nms_fixpoint", recorded):
+            graphed_pipe.update(frames[0])
+        with mock.patch.object(nms, "nms_fixpoint", plain):
+            reference.update(frames[0])
+        torch.cuda.synchronize()
+        _same_result(reference.last_result, graphed_pipe.last_result)
+        assert graphed_pipe.last_result.det_valid.any()
+    assert widths and set(widths) == {6300}
+    assert nms.nms_fixpoint_cuda.launches - before >= 3
+    for x, y in zip(host._store_tensors(reference.store),
+                    host._store_tensors(graphed_pipe.store)):
+        assert (x is None and y is None) or torch.equal(x, y)

@@ -211,22 +211,33 @@ def _nms_case(case):
         return boxes, scores, 128
     if case == "chain40":
         return (*_chain_boxes(40), 128)
+    if case == "random1100":  # more candidates than K8 keeps in shared memory
+        tl = rng.uniform(0, 600, (1300, 2))
+        boxes = np.concatenate([tl, tl + rng.uniform(10, 60, (1300, 2))],
+                               -1).astype(np.float32)
+        return boxes, rng.uniform(0.1, 1, 1300).astype(np.float32), 1100
     return (*_chain_boxes(128), 128)  # a chain as long as P
 
 
 @pytest.mark.parametrize("form", ["single", "multiclass", "batched"])
-@pytest.mark.parametrize("case", ["random", "tied", "chain40", "chainP"])
+@pytest.mark.parametrize("case", ["random", "tied", "chain40", "chainP",
+                                  "random1100"])
 def test_nms_fixpoint_equals_jax_while_loop(case, form):
     """The port's NMS (the fixpoint run to its end, no re-run) against the
     JAX ``lax.while_loop`` NMS: kept slots exactly, boxes and scores to
     1e-4, ``converged`` set. The chains need more iterations than the 16
-    the step ran before; chainP needs P."""
+    the step ran before; chainP needs P. random1100: P = 1,100 of 1,300
+    boxes, above the 1,024 candidates whose dominance words K8 keeps in
+    shared memory, more above the score threshold than P (clipped)."""
     boxes, scores, top_k = _nms_case(case)
     iters = _fixpoint_iterations(boxes, scores, 0.5, 0.2)
     if case.startswith("chain"):
         assert iters > 16
     if case == "chainP":
         assert len(scores) == top_k and iters >= top_k
+    if case == "random1100":
+        assert len(scores) > top_k > tnms.SMEM_CANDIDATES
+        assert (scores > 0.2).sum() > top_k and iters > 2
     if form == "single":
         valid = np.ones(len(scores), bool)
         args = (boxes, scores, valid)

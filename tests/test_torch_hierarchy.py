@@ -18,7 +18,8 @@ import torch
 
 from botsort_tpu.ops import hierarchy as jhier
 from botsort_tpu_torch.ops import hierarchy as thier
-from torch_scenes import HIER_KINDS, hierarchy_case, hierarchy_problems
+from torch_scenes import (HIER_KINDS, HIER_ROUNDS, hierarchy_case,
+                          hierarchy_problems)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,20 +53,35 @@ def _port_picks(case):
                         for i in range(len(res))], 1)
 
 
-CASES = [(3, 50, 50, kind) for kind in HIER_KINDS] + \
-    [(24, 50, 50, kind) for kind in HIER_KINDS] + \
-    [(3, 37, 45, "random"), (6, 20, 70, "grid"), (1, 50, 50, "dupes")]
+# (problems, bases, targets, kind, rounds pattern); the step's (1, 1, 2)
+# pattern keeps the cases' earlier names.
+CASES = [(3, 50, 50, kind, HIER_ROUNDS) for kind in HIER_KINDS] + \
+    [(24, 50, 50, kind, HIER_ROUNDS) for kind in HIER_KINDS] + \
+    [(3, 37, 45, "random", HIER_ROUNDS), (6, 20, 70, "grid", HIER_ROUNDS),
+     (1, 50, 50, "dupes", HIER_ROUNDS),
+     (3, 4, 1100, "random", HIER_ROUNDS), (3, 6, 1100, "grid", HIER_ROUNDS),
+     (3, 2, 100, "random", (1, 1, 33)), (6, 3, 120, "dupes", (1, 1, 33))]
 
 
-@pytest.mark.parametrize("problems,n_bases,n_targets,kind", CASES)
-def test_greedy_scan_plain_equals_jax(problems, n_bases, n_targets, kind):
+def _case_id(case):
+    problems, n_bases, n_targets, kind, pattern = case
+    name = f"{problems}-{n_bases}-{n_targets}-{kind}"
+    return name if pattern == HIER_ROUNDS else f"{name}-R{max(pattern)}"
+
+
+@pytest.mark.parametrize("problems,n_bases,n_targets,kind,pattern", CASES,
+                         ids=[_case_id(c) for c in CASES])
+def test_greedy_scan_plain_equals_jax(problems, n_bases, n_targets, kind,
+                                      pattern):
     """b = T = 50 at P = 3 and 24 (one frame's and eight frames' problems)
-    with rounds (1, 1, 2), and odd sizes (T across the warp's 32 lanes):
-    the port's picks through greedy_assign_batch (greedy_scan_plain on the
-    CPU) equal the jitted JAX scan's, bit for bit."""
+    with rounds (1, 1, 2), odd sizes (T across the warp's 32 lanes), T =
+    1,100 (above the 1,024 targets of K10's warp-a-problem form) and R =
+    33 (above one 32-bit word of rounds): the port's picks through
+    greedy_assign_batch (greedy_scan_plain on the CPU) equal the jitted
+    JAX scan's, bit for bit."""
     rng = np.random.default_rng(1000 * problems + n_targets
                                 + HIER_KINDS.index(kind))
-    case = hierarchy_case(rng, problems, n_bases, n_targets, kind)
+    case = hierarchy_case(rng, problems, n_bases, n_targets, kind, pattern)
     want = np.asarray(_jax_picks(*(jnp.asarray(a) for a in case[:4]),
                                  case[4]))
     got = _port_picks(case).numpy()
@@ -78,6 +94,8 @@ def test_greedy_scan_plain_equals_jax(problems, n_bases, n_targets, kind):
         assert claimed > problems * min(n_bases, n_targets) // 4
     if problems > 2:
         assert (got[:, 0::3, 1] == -1).all()   # one-round problems
+    if max(pattern) > 32:                      # claims past round 32
+        assert got.shape[2] == max(pattern) and (got[:, :, 32:] >= 0).any()
 
 
 def _scan_args(problems, n, kind, seed):
@@ -132,3 +150,115 @@ def test_greedy_scan_routes():
         thier.greedy_scan(*(a.to("meta") for a in args))
     with pytest.raises(ValueError, match="CUDA tensors"):
         thier.greedy_scan_cuda(*args)
+
+
+# --- K10's order-preserving keys, mirrored in torch integer ops ------------
+
+_U32 = 0xFFFFFFFF
+_ZERO_KEY, _NAN_KEY, _INF_KEY = 0x80000000, 0xFFFFFFFF, 0xFF800000
+
+
+def _bits(x):
+    """float32 bits as int64 in [0, 2^32)."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & _U32
+
+
+def _order_key(u):
+    """csrc/hierarchy_scan.cu's monotone map of float32 bits: -0 taken as
+    +0, negatives complemented, positives above them."""
+    u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
+    return torch.where((u & 0x80000000) != 0, u ^ _U32, u | 0x80000000)
+
+
+def _iou_key(x):
+    """iou_key: NaN above every number."""
+    u = _bits(x)
+    return torch.where((u & 0x7FFFFFFF) > 0x7F800000,
+                       torch.full_like(u, _NAN_KEY), _order_key(u))
+
+
+def _dist_key(x):
+    """dist_key: NaN below every number."""
+    u = _bits(x)
+    return torch.where((u & 0x7FFFFFFF) > 0x7F800000, torch.zeros_like(u),
+                       _order_key(u))
+
+
+def _claims_by_keys(iou, dist, used0, round_active):
+    """K10's claim as csrc/hierarchy_scan.cu makes it: keys once a row, a
+    used target at 0's key; best = max of the IoU keys; d = min of the
+    distance keys of the targets at best (+inf's key elsewhere); idx = the
+    least index whose key is d; found = best above 0's key, not NaN's, and
+    the round active. Returns the picks [B, P, R] and how often a row's
+    best was NaN, a pick's distance was NaN and a pick had a tied rival."""
+    p, b, t = iou.shape
+    t_idx = torch.arange(t)[None, :]
+    ik, dk = _iou_key(iou), _dist_key(dist)
+    used = used0.clone()
+    picks = torch.empty((b, p, round_active.shape[1]), dtype=torch.int32)
+    seen = dict(nan_best=0, nan_dist=0, tie=0)
+    for bi in range(b):
+        for r in range(round_active.shape[1]):
+            row = torch.where(used, _ZERO_KEY, ik[:, bi])
+            best = row.amax(-1)
+            found = (best > _ZERO_KEY) & (best != _NAN_KEY) & \
+                round_active[:, r]
+            d = torch.where(row == best[:, None], dk[:, bi], _INF_KEY)
+            least = d.amin(-1)
+            at_least = d == least[:, None]
+            idx = torch.where(at_least, t_idx, t).amin(-1)
+            picks[bi, :, r] = torch.where(found, idx, -1).to(torch.int32)
+            used = used | ((t_idx == idx[:, None]) & found[:, None])
+            seen["nan_best"] += int(((best == _NAN_KEY)
+                                     & round_active[:, r]).sum())
+            seen["nan_dist"] += int((found & (least == 0)).sum())
+            seen["tie"] += int((found & (at_least.sum(-1) > 1)).sum())
+    return picks, seen
+
+
+_NAN_BITS = np.array([0x7FC00000, 0xFFC00000, 0x7F800001],
+                     np.uint32).view(np.float32)
+# IoU and distance values around every edge of the order: NaNs (quiet,
+# negative, signalling), +-0, +-inf, subnormals and repeated values.
+_IOU_POOL = np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 1e-40,
+                      0.5, 0.5, 0.75, 1.0, -0.25, 3.4e38], np.float32)
+_DIST_POOL = np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45, 2.5, 2.5,
+                       7.0, -3.0, 1e-40], np.float32)
+
+
+def _adversarial(rng, problems, n_bases, n_targets, pattern):
+    """Rows drawn from the pools, each problem with its own NaN rate (none,
+    rare, frequent) for IoU and for distance; 20% of targets used from the
+    start; rounds ``pattern`` repeated."""
+    def draw(pool, nan_rate):
+        vals = rng.choice(pool, (problems, n_bases, n_targets))
+        nan = rng.uniform(0, 1, vals.shape) < nan_rate[:, None, None]
+        return np.where(nan, rng.choice(_NAN_BITS, vals.shape), vals)
+
+    rates = np.array([0.0, 0.004, 0.05])
+    iou = draw(_IOU_POOL, rates[np.arange(problems) % 3])
+    dist = draw(_DIST_POOL, rates[(np.arange(problems) // 3) % 3])
+    used0 = rng.uniform(0, 1, (problems, n_targets)) < 0.2
+    rounds = [pattern[i % len(pattern)] for i in range(problems)]
+    active = np.arange(max(pattern))[None, :] < np.array(rounds)[:, None]
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (iou, dist, used0, active)]
+
+
+@pytest.mark.parametrize("problems,n_bases,n_targets,pattern", [
+    (18, 12, 7, HIER_ROUNDS), (9, 10, 40, HIER_ROUNDS),
+    (9, 6, 70, (1, 1, 33))])
+def test_claims_by_keys_equal_the_plain_version(problems, n_bases,
+                                                n_targets, pattern):
+    """The claims K10 makes by its 32-bit keys (mirrored here in torch
+    integer ops) pick what greedy_scan_plain picks with float compares, on
+    rows of NaN IoU and distance, +-0, +-inf, subnormals and exact ties;
+    the rows reach each of those cases."""
+    rng = np.random.default_rng(problems * 100 + n_targets)
+    args = _adversarial(rng, problems, n_bases, n_targets, pattern)
+    got, seen = _claims_by_keys(*args)
+    want = thier.greedy_scan_plain(*args)
+    assert torch.equal(got, want)
+    assert (want >= 0).sum() > problems * n_bases // 2
+    assert seen["nan_best"] > 0 and seen["nan_dist"] > 0 and seen["tie"] > 0
+    assert (want == -1).sum() > 0

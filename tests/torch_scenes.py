@@ -138,15 +138,17 @@ HIER_ROUNDS = (1, 1, 2)
 HIER_KINDS = ("random", "dupes", "grid", "invalid")
 
 
-def hierarchy_case(rng, problems, n_bases, n_targets, kind):
+def hierarchy_case(rng, problems, n_bases, n_targets, kind,
+                   pattern=HIER_ROUNDS):
     """Greedy-hierarchy problems in numpy: (base [P, B, 4], base_valid
     [P, B], target [P, T, 4], target_valid [P, T], rounds [P]) with rounds
-    (1, 1, 2) repeated. Kinds: "random" (targets jittered copies of bases,
-    15% invalid); "dupes" (every second target and base a copy of the one
-    before: IoU and distance ties between them); "grid" (corners on an
-    8-pixel grid, sides 16, 24 or 32: exact IoU and distance ties
-    everywhere); "invalid" (60% invalid, every third problem without a
-    valid base or target, one with valid bases and no valid target)."""
+    ``pattern`` (the step's (1, 1, 2)) repeated. Kinds: "random" (targets
+    jittered copies of bases, 15% invalid); "dupes" (every second target
+    and base a copy of the one before: IoU and distance ties between
+    them); "grid" (corners on an 8-pixel grid, sides 16, 24 or 32: exact
+    IoU and distance ties everywhere); "invalid" (60% invalid, every third
+    problem without a valid base or target, one with valid bases and no
+    valid target)."""
     if kind == "grid":
         tl = rng.integers(0, 12, (problems, n_bases + n_targets, 2)) * 8.0
         wh = rng.choice([16.0, 24.0, 32.0], (problems, n_bases + n_targets,
@@ -173,7 +175,7 @@ def hierarchy_case(rng, problems, n_bases, n_targets, kind):
         if problems > 1:
             base_valid[1] = True
             target_valid[1] = False
-    rounds = tuple(HIER_ROUNDS[i % 3] for i in range(problems))
+    rounds = tuple(pattern[i % len(pattern)] for i in range(problems))
     return base, base_valid, target, target_valid, rounds
 
 
