@@ -75,8 +75,9 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--int8_calib_frames", type=int, default=4,
                         help="Frames read for int8 calibration.")
     parser.add_argument("--profile", action="store_true",
-                        help="Print per-stage timing averages at exit "
-                             "(every stage then waits for the card).")
+                        help="Trace every update and print at exit each "
+                             "span's host self time and the step's five "
+                             "stage device times (a update, averaged).")
     return parser
 
 
@@ -145,7 +146,7 @@ def main(argv=None):
     if args.int8:
         bundle = int8_bundle(args, bundle, pipe_cfg)
     pipeline = BoTSORTPipeline(bundle, tracker_cfg, NMSConfig(), pipe_cfg,
-                               profile=args.profile)
+                               trace=args.profile)
 
     cap = PrefetchingCapture(args.video)
     writer = None
@@ -175,8 +176,7 @@ def main(argv=None):
         cap.release()
     print(f"processed {n} frames")
     if args.profile:
-        for stage, ms in sorted(pipeline.timers.report().items()):
-            print(f"  {stage}: {ms:.2f} ms avg")
+        print("\n".join(pipeline.timers.summary_lines()))
     return 0
 
 

@@ -87,8 +87,9 @@ def build_parser() -> ArgumentParser:
                              "T - 1 frames of added latency for a higher "
                              "frame rate.")
     parser.add_argument("--profile", action="store_true",
-                        help="Print per-stage timing averages at exit "
-                             "(every stage then waits for the card).")
+                        help="Trace every update and print at exit each "
+                             "span's host self time and the step's five "
+                             "stage device times (a update, averaged).")
     return parser
 
 
@@ -181,13 +182,13 @@ def main(argv=None):
         from botsort_tpu_torch.runtime.exported import load_batched_pipeline
 
         pipeline = load_batched_pipeline(args.artifact_dir, bundle, b,
-                                         profile=args.profile)
+                                         trace=args.profile)
     elif t_batch > 1:
         print(f"temporal batching: {t_batch} frames per stream per step "
               f"({t_batch - 1} frame(s) of added latency)")
         pipeline = TemporalBatchedBoTSORTPipeline(
             bundle, b, t_batch, tracker_cfg, NMSConfig(), pipe_cfg,
-            profile=args.profile)
+            trace=args.profile)
     elif chips > 1:
         from botsort_tpu_torch.parallel.streams import make_mesh
         from botsort_tpu_torch.pipeline.host import (
@@ -199,11 +200,11 @@ def main(argv=None):
         pipeline = MeshBatchedBoTSORTPipeline(
             bundle, b, mesh=make_mesh(chips, device.type),
             tracker_cfg=tracker_cfg, nms_cfg=NMSConfig(), pipe_cfg=pipe_cfg,
-            profile=args.profile)
+            trace=args.profile)
     else:
         pipeline = BatchedBoTSORTPipeline(bundle, b, tracker_cfg,
                                           NMSConfig(), pipe_cfg,
-                                          profile=args.profile)
+                                          trace=args.profile)
 
     caps = [cv2.VideoCapture(p) for p in args.videos]
     writers = [None] * b
@@ -296,8 +297,7 @@ def main(argv=None):
     print(f"processed {n} steps x {b} streams ({agg:.1f} frames/s "
           "aggregate over live streams after the first step)")
     if args.profile:
-        for stage, ms in sorted(pipeline.timers.report().items()):
-            print(f"  {stage}: {ms:.2f} ms avg")
+        print("\n".join(pipeline.timers.summary_lines()))
     return 0
 
 

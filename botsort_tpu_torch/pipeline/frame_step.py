@@ -22,6 +22,11 @@ re-running a step that overflows its bucket); or, with None buckets
 (``PipelineConfig.host_bucket_dispatch=False``), at the bucket the live
 count picks on the device, as the JAX package's ``lax.switch`` does
 (pipeline/switch.py: conditional graph nodes on the card).
+
+The stages call ``utils/profiling.py::stage_mark`` at their boundaries
+(the step's start, then after detect, nms, hierarchy, embed and track),
+outside any switch branch; the marks record timing events only while a
+traced facade enqueues the step, and are no-ops otherwise.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from botsort_tpu_torch.track.cascade import (
 )
 from botsort_tpu_torch.track.state import TrackStore
 from botsort_tpu_torch.utils.consts import const
+from botsort_tpu_torch.utils.profiling import stage_mark
 
 BODIES, HEADS, HANDS, FACES = 0, 1, 2, 3
 
@@ -352,18 +358,23 @@ def _perception_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
     src_hw = (frames_bgr.shape[1], frames_bgr.shape[2])
     if face_bucket is None:
         face_bucket = reid_bucket
+    stage_mark("start")
     full = const((0.0, 0.0, float(src_hw[1]), float(src_hw[0])),
                  torch.float32, frames_bgr.device).expand(g, 1, 4)
     det_in = _crop(frames_bgr, full, pipe_cfg.detector_input_hw,
                    pipe_cfg)[:, 0]
     cand_boxes, cand_scores = bundle.detector(det_in)
+    stage_mark("detect")
     dets, det_boxes, det_valid = postprocess_detections_batched(
         cand_boxes, cand_scores, src_hw, tracker_cfg, nms_cfg, pipe_cfg)
+    stage_mark("nms")
     face_for_head, head_for_body, hand1_for_body, hand2_for_body = \
         attach_hierarchy_batched(det_boxes, det_valid)
+    stage_mark("hierarchy")
     body_feats, face_feats = embed_batched(
         bundle, frames_bgr, det_boxes, face_for_head, head_for_body,
         tracker_cfg, nms_cfg, pipe_cfg, reid_bucket, face_bucket, det_valid)
+    stage_mark("embed")
     return Perception(dets, det_boxes, det_valid, face_for_head,
                       head_for_body, hand1_for_body, hand2_for_body,
                       body_feats, face_feats)
@@ -448,7 +459,9 @@ def frame_step_batched(bundle: ModelBundle, stores: TrackStore,
         stores, p.det_boxes[:, BODIES, :d], p.dets.scores[:, BODIES, :d],
         p.det_valid[:, BODIES, :d], p.body_feats, p.face_feats, tracker_cfg,
         gmc_affines)
-    return stores, _frame_result(p, tracks)
+    result = _frame_result(p, tracks)
+    stage_mark("track")
+    return stores, result
 
 
 def frame_step(bundle: ModelBundle, store: TrackStore,
@@ -505,7 +518,9 @@ def frame_step_batched_temporal(bundle: ModelBundle, stores: TrackStore,
             None if gmc_affines is None else gmc_affines[:, tt])
         outs.append(tracks)
     tracks = TrackOutputs(*(torch.stack(xs, dim=1) for xs in zip(*outs)))
-    return stores, _frame_result(p, tracks, (b, t))
+    result = _frame_result(p, tracks, (b, t))
+    stage_mark("track")
+    return stores, result
 
 
 def frame_step_temporal(bundle: ModelBundle, store: TrackStore,

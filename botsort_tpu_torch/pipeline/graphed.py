@@ -45,6 +45,14 @@ enqueued (``LAUNCH_COUNTERS``) and adds them per replay, so the counts stay
 the number of times each kernel really ran. A switch's branches are
 counted apart: only the host knows which one ran, once it has read the
 step's result, and tells the cache with ``count_branches``.
+
+A traced facade enqueues its step under ``utils/profiling.py::recording``.
+The cache then captures the step's stage marks as event-record nodes,
+keeps them with the entry, and hands them to the caller's marks after each
+replay, which it spans as ``graph.launch``. A mark inside a switch branch
+is refused (a conditional node's body takes no event-record node); the
+warm-up calls and the replay itself record none. A step captured untraced
+has no marks and holds no event-record node.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch
 from botsort_tpu_torch.models import bn_act, facereid_dw, fastreid_fused
 from botsort_tpu_torch.ops import assignment_cuda, crop, hierarchy, nms
 from botsort_tpu_torch.pipeline import switch
+from botsort_tpu_torch.utils import profiling
 
 WARMUP_CALLS = 1
 
@@ -100,17 +109,20 @@ def _add_counts(counts: Sequence[int]) -> None:
 class _Entry:
     """One captured step: its replay, its output buffers, the kernel
     launches one replay stands for outside any switch, per switch its
-    branches and each branch's launches, and what the replay needs kept
-    alive (the segments' graphs)."""
+    branches and each branch's launches, what the replay needs kept alive
+    (the segments' graphs) and its stage marks (None: captured
+    untraced)."""
 
     def __init__(self, replay: Callable[[], None],
                  outputs: List[torch.Tensor], launches: List[int],
-                 switches: List[tuple], keep: object):
+                 switches: List[tuple], keep: object,
+                 marks: Optional[profiling.Marks] = None):
         self.replay = replay
         self.outputs = outputs
         self.launches = launches
         self.switches = switches
         self.keep = keep
+        self.marks = marks
 
 
 class GraphCache:
@@ -202,7 +214,8 @@ class GraphCache:
             for b in branches:
                 token = self._begin()
                 try:
-                    b.run(*inputs, out)
+                    with profiling.recording(profiling.NO_MARKS_IN_BRANCH):
+                        b.run(*inputs, out)
                 finally:
                     graphs.append(self._end(token))
                 counts.append(since_mark())
@@ -233,20 +246,31 @@ class GraphCache:
         function of its inputs on every call with one key. Returns fresh
         tensors. The launches of a switch's branches are not counted here
         (``count_branches``)."""
+        marks = profiling.current_marks()
         static_in = self._static_inputs(inputs)
         for dst, src in zip(static_in, inputs):
             if dst is not None:
                 dst.copy_(src)
         entry = self._entries.get(key)
         if entry is None:
-            with switch.runner(switch.run_every_branch):
+            with switch.runner(switch.run_every_branch), \
+                    profiling.recording(None):
                 for _ in range(WARMUP_CALLS):
                     fn(*static_in)
                     self.warmups += 1
-            entry = _Entry(*self._capture(fn, static_in))
+            captured = (None if marks is None
+                        else profiling.Marks(marks.tracer, self.device))
+            with profiling.recording(captured):
+                entry = _Entry(*self._capture(fn, static_in), captured)
             self._entries[key] = entry
             self.captures += 1
-        entry.replay()
+        if marks is None:
+            entry.replay()
+        else:
+            with marks.tracer.span("graph.launch"), \
+                    profiling.recording(None):
+                entry.replay()
+            marks.take(entry.marks)
         self.replays += 1
         _add_counts(entry.launches)
         return [None if o is None else o.clone() for o in entry.outputs]

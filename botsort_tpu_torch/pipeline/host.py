@@ -23,6 +23,7 @@ come back in one copy, the step's only synchronisation.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import time
@@ -53,7 +54,15 @@ from botsort_tpu_torch.track.state import (
     empty_stores,
 )
 from botsort_tpu_torch.utils.consts import const
-from botsort_tpu_torch.utils.profiling import StageTimers
+from botsort_tpu_torch.utils.profiling import (
+    Marks,
+    StageTimers,
+    recording,
+    stage_mark,
+)
+
+
+_NULL = contextlib.nullcontext()
 
 
 def face_bucket_need(n_face: int, n_live: int) -> int:
@@ -93,11 +102,18 @@ class PackedResult(NamedTuple):
     holds the fields back to back (each starting on an 8-byte boundary),
     ``layout`` their (shape, dtype) in field order; ``on_host``, where
     given, is called with the host FrameResult (the graph cache counts a
-    switch's branch launches from it)."""
+    switch's branch launches from it). A traced facade's step also gives
+    its stage ``marks`` and ``done``, an event recorded after the step's
+    last work (None on a device other than CUDA)."""
 
     packed: torch.Tensor
     layout: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
     on_host: Optional[Any] = None
+    marks: Optional[Marks] = None
+    done: Optional[Any] = None
+
+    def runs(self) -> Tuple["PackedResult", ...]:
+        return (self,)
 
     def to_host(self) -> FrameResult:
         """The FrameResult as numpy arrays: one device-to-host copy, which
@@ -188,7 +204,7 @@ class _Facade:
 
     def __init__(self, bundle: ModelBundle, tracker_cfg: TrackerConfig,
                  nms_cfg: NMSConfig, pipe_cfg: PipelineConfig, graphs: bool,
-                 profile: bool, graph_cache: Optional[GraphCache] = None):
+                 trace: bool, graph_cache: Optional[GraphCache] = None):
         _check_dispatch(pipe_cfg)
         self.bundle = bundle
         self.tracker_cfg = tracker_cfg
@@ -196,11 +212,10 @@ class _Facade:
         self.pipe_cfg = pipe_cfg
         self.device = bundle.device
         self.frame_id = 0
-        # Stage times are host-clock times; with ``profile`` every stage
-        # ends in a device synchronisation, so that it covers the device
-        # work it enqueued. Without it no stage waits for the card.
-        self.timers = StageTimers(
-            cuda_sync=profile and self.device.type == "cuda")
+        # Stage times are host-clock times: no stage waits for the card.
+        # ``trace`` also keeps the update's spans and the step's stage
+        # device times (utils/profiling.py).
+        self.timers = StageTimers(trace=trace)
         self._buckets = reid_bucket_set(tracker_cfg, nms_cfg, pipe_cfg)
         self._det_width = _det_width(tracker_cfg, nms_cfg)
         # Captured steps (CUDA devices only; None runs every step eagerly).
@@ -267,18 +282,23 @@ class _Facade:
                 _store_from(store_fields), frames, gmc_t, reid_bucket,
                 face_bucket)
             packed = pack_result(result)
+            stage_mark("pack")
             layout[:] = [packed.layout]
             return [packed.packed, *_store_tensors(new)]
 
         inputs = [frames_dev, gmc, *_store_tensors(stores)]
-        on_host = None
-        if self._graphs is None:
-            out = run(*inputs)
-        else:
-            cache = self._graphs
-            key = step_key(self.kind, frames_dev.shape, reid_bucket,
-                           face_bucket, gmc is not None)
-            out = cache.run(key, run, inputs)
+        on_host = done = None
+        marks = (Marks(self.timers, self.device) if self.timers.tracing
+                 else None)
+        with recording(marks) if marks is not None else _NULL:
+            if self._graphs is None:
+                out = run(*inputs)
+            else:
+                cache = self._graphs
+                key = step_key(self.kind, frames_dev.shape, reid_bucket,
+                               face_bucket, gmc is not None)
+                out = cache.run(key, run, inputs)
+        if self._graphs is not None:
             # A replay does not run the function: the key's first use
             # did, and left its layout.
             if layout:
@@ -289,8 +309,11 @@ class _Facade:
                 cfgs = (self.tracker_cfg, self.nms_cfg, self.pipe_cfg)
                 on_host = lambda res: cache.count_branches(  # noqa: E731
                     key, switch_values(res, *cfgs))
+        if marks is not None and marks.timed:
+            done = torch.cuda.Event()
+            done.record()
         return _store_from(out[1:]), PackedResult(out[0], layout[0],
-                                                  on_host)
+                                                  on_host, marks, done)
 
     def save_session(self, path: str) -> None:
         """Write the tracking session: the stores (runtime/checkpoint.py),
@@ -330,6 +353,22 @@ class _Facade:
         frames of a host FrameResult."""
         raise NotImplementedError
 
+    def _read(self, packed) -> FrameResult:
+        """A step's host FrameResult. Traced: the wait for the step's last
+        work (span "readback.wait"), the copy, then its stage device
+        times."""
+        if not self.timers.tracing:
+            return packed.to_host()
+        runs = packed.runs()
+        with self.timers.span("readback.wait"):
+            for p in runs:
+                if p.done is not None:
+                    p.done.synchronize()
+        res = packed.to_host()
+        for p in runs:
+            self.timers.add_step(p.marks)
+        return res
+
     def _settle(self, backup, frames_dev, gmc, step, buckets):
         """Read a step back and re-run it from ``backup``, the pre-step
         stores, at larger buckets while its counts overflow the picked
@@ -338,7 +377,7 @@ class _Facade:
         stores, packed = step
         bucket, fbucket, check = buckets
         while True:
-            res = packed.to_host()
+            res = self._read(packed)
             if not check:
                 return stores, res, None
             counts = self._counts(res)
@@ -347,17 +386,18 @@ class _Facade:
                 return stores, res, counts
             bucket = self._pick_bucket(counts[0])
             fbucket = self._pick_bucket(need)
-            stores, packed = self._step(backup, frames_dev, bucket, fbucket,
-                                        gmc)
+            with self.timers.span("device_step"):
+                stores, packed = self._step(backup, frames_dev, bucket,
+                                            fbucket, gmc)
 
 
 class BoTSORTPipeline(_Facade):
     """End-to-end tracker over one video stream on the bundle's device.
 
     graphs: replay the step from a CUDA graph (CUDA devices; False runs it
-    eagerly). profile: synchronise at the end of every timed stage.
-    graph_cache: a GraphCache shared with other facades of the same bundle
-    and configuration.
+    eagerly). trace: keep each update's spans and the step's stage device
+    times (``timers.export()``). graph_cache: a GraphCache shared with
+    other facades of the same bundle and configuration.
     """
 
     kind = "frame"
@@ -366,10 +406,10 @@ class BoTSORTPipeline(_Facade):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False,
+                 graphs: bool = True, trace: bool = False,
                  graph_cache: Optional[GraphCache] = None):
         super().__init__(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
-                         profile, graph_cache)
+                         trace, graph_cache)
         self.store = empty_store(tracker_cfg, self.device)
         self.gmc = None
         if pipe_cfg.enable_gmc:
@@ -408,6 +448,7 @@ class BoTSORTPipeline(_Facade):
 
     def update(self, frame_bgr: np.ndarray) -> List[STrackView]:
         """One frame. frame_bgr: [H, W, 3] uint8 (OpenCV layout)."""
+        self.timers.begin_update()
         self.frame_id += 1
         gmc_affine = None
         if self.gmc is not None:
@@ -425,14 +466,17 @@ class BoTSORTPipeline(_Facade):
             backup = self.store
             step = self._step(backup, frame_dev, buckets[0], buckets[1],
                               gmc_affine)
+        with self.timers.stage("readback"):
             self.store, res, counts = self._settle(
                 backup, frame_dev, gmc_affine, step, buckets)
             if counts is not None:
                 self._last_n_live, self._last_n_face = counts
         self.last_result = res
         with self.timers.stage("assemble"):
-            return assemble_tracks(res, self.tracker_cfg, self.nms_cfg,
-                                   self.pipe_cfg, warn_state=self)
+            tracks = assemble_tracks(res, self.tracker_cfg, self.nms_cfg,
+                                     self.pipe_cfg, warn_state=self)
+        self.timers.end_update()
+        return tracks
 
 
 class BatchedBoTSORTPipeline(_Facade):
@@ -449,9 +493,10 @@ class BatchedBoTSORTPipeline(_Facade):
     batched facades refuse that option instead of ignoring it.
 
     graphs: replay the step from a CUDA graph (CUDA devices; False runs it
-    eagerly). profile: synchronise at the end of every timed stage.
-    graph_cache: a GraphCache shared with other facades of the same bundle
-    and configuration.
+    eagerly). trace: keep each update's spans (the root from
+    ``update_async`` to ``result()``'s return) and the step's stage device
+    times (``timers.export()``). graph_cache: a GraphCache shared with
+    other facades of the same bundle and configuration.
     """
 
     kind = "batched"
@@ -460,10 +505,10 @@ class BatchedBoTSORTPipeline(_Facade):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False,
+                 graphs: bool = True, trace: bool = False,
                  graph_cache: Optional[GraphCache] = None):
         super().__init__(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
-                         profile, graph_cache)
+                         trace, graph_cache)
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         if pipe_cfg.enable_gmc:
@@ -532,6 +577,7 @@ class BatchedBoTSORTPipeline(_Facade):
         frames = frames_bgr if isinstance(frames_bgr, np.ndarray) \
             else np.stack(frames_bgr)
         self._check_frames(frames)
+        self.timers.begin_update()
         self.frame_id += 1
         with self.timers.stage("upload"):
             frames_dev = self._upload("frames", frames)
@@ -554,7 +600,9 @@ class BatchedBoTSORTPipeline(_Facade):
                 self._last_max_live, self._last_max_face = counts
         self.last_result = res
         with self.timers.stage("assemble"):
-            return self._assemble(res)
+            tracks = self._assemble(res)
+        self.timers.end_update()
+        return tracks
 
     def _assemble(self, res: FrameResult) -> List[List[STrackView]]:
         return [assemble_tracks(r, self.tracker_cfg, self.nms_cfg,
@@ -581,10 +629,10 @@ class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False,
+                 graphs: bool = True, trace: bool = False,
                  graph_cache: Optional[GraphCache] = None):
         super().__init__(bundle, n_streams, tracker_cfg, nms_cfg, pipe_cfg,
-                         graphs, profile, graph_cache)
+                         graphs, trace, graph_cache)
         if t_batch < 1:
             raise ValueError(f"t_batch must be >= 1, got {t_batch}")
         self.t_batch = t_batch
@@ -617,6 +665,9 @@ class _MeshPacked(NamedTuple):
 
     parts: Tuple[PackedResult, ...]
 
+    def runs(self) -> Tuple[PackedResult, ...]:
+        return self.parts
+
     def to_host(self) -> FrameResult:
         """One FrameResult over all streams: each slice read back in one
         copy (every slice's step was enqueued before the first read)."""
@@ -641,7 +692,10 @@ class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
     of stream 0 (their state evolves, their outputs are dropped); callers
     see exactly n_streams track lists. ``mesh`` is a tuple of devices
     (default: ``make_mesh(n_chips)`` of the bundle's device type); with one
-    device it steps exactly as ``BatchedBoTSORTPipeline``.
+    device it steps exactly as ``BatchedBoTSORTPipeline``. The slices share
+    the facade's ``timers``: a traced update holds one ``graph.launch`` and
+    one step run's stage times a slice (slices on one device replay one
+    graph, whose marks then read the last slice's run).
     """
 
     def __init__(self, bundle: ModelBundle, n_streams: int, mesh=None,
@@ -649,7 +703,7 @@ class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
                  tracker_cfg: TrackerConfig = TrackerConfig(),
                  nms_cfg: NMSConfig = NMSConfig(),
                  pipe_cfg: PipelineConfig = PipelineConfig(),
-                 graphs: bool = True, profile: bool = False):
+                 graphs: bool = True, trace: bool = False):
         from botsort_tpu_torch.parallel.streams import (
             make_mesh,
             replicate_bundle,
@@ -661,7 +715,7 @@ class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
         self.n_chips = len(self.mesh)
         pad = (-n_streams) % self.n_chips
         super().__init__(bundle, n_streams + pad, tracker_cfg, nms_cfg,
-                         pipe_cfg, graphs=False, profile=profile)
+                         pipe_cfg, graphs=False, trace=trace)
         self.real_streams = n_streams
         per = self.n_streams // self.n_chips
         caches = {}
@@ -674,6 +728,7 @@ class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
             self._slices.append(BatchedBoTSORTPipeline(
                 rep, per, tracker_cfg, nms_cfg, pipe_cfg, graphs=False,
                 graph_cache=caches[dev]))
+            self._slices[-1].timers = self.timers
         self.stores = [sl.stores for sl in self._slices]
 
     def reset(self):

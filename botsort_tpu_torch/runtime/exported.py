@@ -469,7 +469,7 @@ class Programs:
 
 
 def load_pipeline(artifact_dir: str, bundle: ModelBundle,
-                  graphs: bool = True, profile: bool = False,
+                  graphs: bool = True, trace: bool = False,
                   programs: Optional[Programs] = None,
                   graph_cache=None) -> host.BoTSORTPipeline:
     """A ``BoTSORTPipeline`` whose step is the exported program of each
@@ -498,7 +498,7 @@ def load_pipeline(artifact_dir: str, bundle: ModelBundle,
                                 face_bucket)
 
     pipe = ExportedPipeline(bundle, tracker_cfg, nms_cfg, pipe_cfg, graphs,
-                            profile, graph_cache=graph_cache)
+                            trace, graph_cache=graph_cache)
     pipe._buckets = programs.buckets
     pipe.programs = programs
     return pipe
@@ -506,7 +506,7 @@ def load_pipeline(artifact_dir: str, bundle: ModelBundle,
 
 def load_batched_pipeline(artifact_dir: str, bundle: ModelBundle,
                           n_streams: int, graphs: bool = True,
-                          profile: bool = False,
+                          trace: bool = False,
                           programs: Optional[Programs] = None
                           ) -> host.BatchedBoTSORTPipeline:
     """A ``BatchedBoTSORTPipeline`` of ``n_streams`` streams served from
@@ -527,7 +527,7 @@ def load_batched_pipeline(artifact_dir: str, bundle: ModelBundle,
                                 face_bucket)
 
     pipe = ExportedBatchedPipeline(bundle, n_streams, tracker_cfg, nms_cfg,
-                                   pipe_cfg, graphs, profile)
+                                   pipe_cfg, graphs, trace)
     pipe._buckets = programs.buckets
     pipe.programs = programs
     return pipe

@@ -1,0 +1,11 @@
+"""step.detect_device_ms: device ms a update of the step's detect stage,
+the detector input's resize (K7) and YOLOX: from the step's start mark to its "detect" mark. The program's stage marks (events recorded inside the captured
+step), summed over each update's step runs, mean over the unprofiled
+window (portbench/program_trace.py)."""
+
+from portbench import program_trace
+
+
+def read(rec):
+    part = program_trace.window(rec)
+    return None if part is None else program_trace.stage_ms(part, "detect")

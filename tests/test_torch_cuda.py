@@ -1186,6 +1186,82 @@ def test_mini_eager_switch_zeroes_beyond_the_branch_without_waiting(dev):
                         .gt(0).all())
 
 
+# --- the tracer's stage marks inside a captured step ------------------------
+
+
+def _event_record_nodes(graph) -> int:
+    """Event-record nodes (``cudaGraphNodeTypeEventRecord``, 7) of a
+    ``torch.cuda.CUDAGraph`` captured with ``keep_graph=True``."""
+    import ctypes
+    import glob
+
+    try:
+        rt = ctypes.CDLL("libcudart.so")
+    except OSError:
+        rt = ctypes.CDLL(sorted(glob.glob(
+            "/usr/local/cuda/lib64/libcudart.so*"))[0])
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(0)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return kinds.count(7)
+
+
+@pytest.mark.parametrize("switched,graphs", [(False, True), (True, True),
+                                             (False, False)],
+                         ids=["static", "switch", "eager"])
+def test_traced_graph_times_five_stages_untraced_has_no_event_nodes(
+        dev, switched, graphs):
+    """A step captured with tracing on holds one event-record node a stage
+    mark, none in a switch branch, and every replay reads five positive
+    stage times whose sum is at most the update's wall time; captured with
+    tracing off it holds no event-record node. Both give the same
+    results. Without graphs the marks are plain events, timed alike."""
+    import time
+
+    from botsort_tpu_torch.utils.profiling import MARKS
+
+    bundle = _count_bundle(dev) if switched else assets.build_bundle(
+        mini=True, seed=2, device=dev, dtype=torch.bfloat16)
+    cfg = dataclasses.replace(MINI_PIPE, host_bucket_dispatch=not switched)
+    plain = host.BoTSORTPipeline(bundle, MINI_TRK, MINI_NMS, cfg,
+                                 graphs=graphs)
+    traced = host.BoTSORTPipeline(bundle, MINI_TRK, MINI_NMS, cfg,
+                                  graphs=graphs, trace=True)
+    frames = (level_frames([REGIMES[r] for r in ("chunk", "full", "none",
+                                                 "full")], seed=11)
+              if switched else [f[0] for f in _mini_frames(4, 1, 7)])
+    for frame in frames:
+        plain.update(frame)
+        t0 = time.perf_counter()
+        traced.update(frame)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        _same_result(plain.last_result, traced.last_result)
+        u = traced.timers.update
+        runs = [dict(st) for v, st in traced.timers.export()["stages"]
+                if v == u]
+        assert runs and all(list(r) == list(MARKS[1:]) for r in runs)
+        stage_ms = [sum(r[s] for r in runs) for s in MARKS[1:]]
+        assert all(ms > 0 for ms in stage_ms[:5]), stage_ms
+        assert sum(stage_ms) <= wall_ms, (stage_ms, wall_ms)
+    if not graphs:
+        return
+    for pipe, want in ((traced, len(MARKS)), (plain, 0)):
+        for entry in pipe._graphs._entries.values():
+            segments = [it[1] for it in entry.keep if it[0] == "segment"]
+            assert sum(_event_record_nodes(g) for g in segments) == want
+            for it in entry.keep:
+                if it[0] == "switch":
+                    assert all(_event_record_nodes(g) == 0 for g in it[3])
+
+
 
 # --- K10: the hierarchy's greedy claims ------------------------------------
 

@@ -752,5 +752,6 @@ def test_graphs_argument_and_dispatch_override(bundles):
     assert pipe.dispatched >= 2
     profiled = thost.BoTSORTPipeline(tb, T_TRK, T_NMSC,
                                      dataclasses.replace(T_PIPE),
-                                     profile=True)
-    assert profiled.timers.cuda_sync is False  # nothing to wait for here
+                                     trace=True)
+    assert profiled.timers.tracing and profiled.timers.export() == {
+        "spans": [], "stages": []}  # nothing traced before an update
