@@ -14,8 +14,12 @@ streams split over several devices), and
 per step through ``frame_step_batched_temporal``.
 
 Between a step's upload and its readback the host only enqueues work. The
-upload goes through a pinned staging buffer without waiting; on a CUDA
-device the step is a CUDA graph replayed from pipeline/graphed.py
+upload goes through a pinned staging buffer without waiting: a large one
+is copied there in bands by a shared pool of worker threads, and each
+band's H2D is enqueued as soon as it has landed (pipeline/upload.py); a
+list of frames is copied into the buffer frame by frame, never stacked
+first. On a CUDA device the step is a CUDA graph replayed from
+pipeline/graphed.py
 (``graphs=False`` runs it eagerly, as every device other than CUDA does);
 the FrameResult's fields are packed into one buffer on the device and
 come back in one copy, the step's only synchronisation.
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
+from botsort_tpu_torch.pipeline import upload
 from botsort_tpu_torch.pipeline.boxes import Body, Face, Hand, Head, make_box
 from botsort_tpu_torch.pipeline.frame_step import (
     FrameResult,
@@ -225,29 +230,57 @@ class _Facade:
         if graph_cache is None and graphs and self.device.type == "cuda":
             self._graphs = GraphCache(self.device)
         self._staging = {}
+        self._reset_upload_counts()
         # The host FrameResult of the latest step (numpy arrays).
         self.last_result: Optional[FrameResult] = None
 
     def _pick_bucket(self, n: int) -> int:
         return _pick_bucket(self._buckets, n)
 
-    def _upload(self, name: str, array: np.ndarray) -> torch.Tensor:
-        """``array`` on the device. On a CUDA device it goes through a
-        pinned staging buffer kept per ``name`` and the copy is not waited
-        for; the buffer is rewritten by the next upload of that name, after
-        the step that read it has been read back."""
+    def _reset_upload_counts(self):
+        # Totals, for checks: uploads, those split into bands, and the
+        # bands of those (each band one H2D on a CUDA device).
+        self.uploads = 0
+        self.uploads_split = 0
+        self.upload_chunks = 0
+
+    def _upload(self, name: str, array) -> torch.Tensor:
+        """``array`` (an array, or a list of arrays that make up its
+        leading axis: ``upload.as_batch``) on the device. On a CUDA device
+        it goes through a pinned staging buffer kept per ``name`` and the
+        copy is not waited for: from ``upload.SPLIT_BYTES`` on, a pool of
+        worker threads copies it there in bands and each band's H2D is
+        enqueued as soon as it has landed, into one device tensor; below,
+        one copy and one H2D. The buffer is rewritten by the next upload of
+        that name, after the step that read it has been read back. Every
+        upload copies its bytes."""
+        shape, dtype = upload.batch_shape(array)
+        dtype = upload.torch_dtype(dtype)
+        self.uploads += 1
         if self.device.type != "cuda":
-            return torch.from_numpy(np.ascontiguousarray(array)).to(
-                self.device)
+            out = torch.empty(shape, dtype=dtype)
+            self._stage(out, array)
+            return out.to(self.device)
         stage = self._staging.get(name)
-        if stage is None or stage[0].shape != array.shape or \
-                stage[0].dtype != array.dtype:
-            pinned = torch.empty(array.shape, dtype=torch.from_numpy(
-                np.empty(0, array.dtype)).dtype, pin_memory=True)
-            stage = (pinned.numpy(), pinned)
+        if stage is None or stage.shape != shape or stage.dtype != dtype:
+            stage = torch.empty(shape, dtype=dtype, pin_memory=True)
             self._staging[name] = stage
-        np.copyto(stage[0], array)
-        return stage[1].to(self.device, non_blocking=True)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        src = stage.view(-1).view(torch.uint8)
+        dst = out.view(-1).view(torch.uint8)
+
+        def h2d(a, b):
+            dst[a:b].copy_(src[a:b], non_blocking=True)
+
+        self._stage(stage, array, h2d)
+        return out
+
+    def _stage(self, dst: torch.Tensor, array, on_chunk=None):
+        with self.timers.span("upload.copy"):
+            bands = upload.stage(dst, array, on_chunk)
+        if bands:
+            self.uploads_split += 1
+            self.upload_chunks += bands
 
     def _first_buckets(self, last_live: Optional[int], last_face: int):
         """(reid bucket, face bucket, whether they can overflow) for the
@@ -426,6 +459,7 @@ class BoTSORTPipeline(_Facade):
         self._last_n_face = 0
         self.last_result = None
         self.timers.reset()
+        self._reset_upload_counts()
         if self.gmc is not None:
             self.gmc.reset()
 
@@ -531,6 +565,7 @@ class BatchedBoTSORTPipeline(_Facade):
         self._last_max_face = 0
         self.last_result = None
         self.timers.reset()
+        self._reset_upload_counts()
 
     def _dispatch(self, stores, frames_dev, gmc_affines, reid_bucket,
                   face_bucket):
@@ -555,10 +590,10 @@ class BatchedBoTSORTPipeline(_Facade):
         self.stores, self._last_max_live, self._last_max_face = (
             stores, last_live, last_face)
 
-    def _check_frames(self, frames: np.ndarray):
-        if frames.shape[0] != self.n_streams:
+    def _check_frames(self, shape: Tuple[int, ...]):
+        if shape[0] != self.n_streams:
             raise ValueError(
-                f"expected {self.n_streams} frames, got {frames.shape[0]}")
+                f"expected {self.n_streams} frames, got {shape[0]}")
 
     def update(self, frames_bgr, gmc_affines=None):
         """frames_bgr: [B, H, W, 3] uint8 (an array or a list of B frames,
@@ -574,9 +609,8 @@ class BatchedBoTSORTPipeline(_Facade):
         handle before the next ``update_async``: the overflow check may
         replace the stores, and the next upload reuses the staging
         buffer."""
-        frames = frames_bgr if isinstance(frames_bgr, np.ndarray) \
-            else np.stack(frames_bgr)
-        self._check_frames(frames)
+        frames = upload.as_batch(frames_bgr)
+        self._check_frames(upload.batch_shape(frames)[0])
         self.timers.begin_update()
         self.frame_id += 1
         with self.timers.stage("upload"):
@@ -644,11 +678,11 @@ class TemporalBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
             self.pipe_cfg, gmc_affines, reid_bucket=reid_bucket,
             face_bucket=face_bucket)
 
-    def _check_frames(self, frames: np.ndarray):
-        if frames.shape[:2] != (self.n_streams, self.t_batch):
+    def _check_frames(self, shape: Tuple[int, ...]):
+        if shape[:2] != (self.n_streams, self.t_batch):
             raise ValueError(
                 f"expected [B={self.n_streams}, T={self.t_batch}, H, W, 3] "
-                f"frames, got {frames.shape}")
+                f"frames, got {shape}")
 
     def _frame_results(self, res: FrameResult):
         return [(s, stream_result(stream_result(res, s), t))
@@ -737,10 +771,16 @@ class MeshBatchedBoTSORTPipeline(BatchedBoTSORTPipeline):
             sl.reset()
         self.stores = [sl.stores for sl in self._slices]
 
-    def _upload(self, name: str, array: np.ndarray):
-        """Frames and affines go to the slices' devices, a part each."""
-        return [sl._upload(name, part) for sl, part in zip(
-            self._slices, np.split(np.asarray(array), self.n_chips))]
+    def _upload(self, name: str, array):
+        """Frames and affines go to the slices' devices, a part each; the
+        facade's upload counts are the slices' sums."""
+        per = len(array) // self.n_chips
+        out = [sl._upload(name, array[k * per:(k + 1) * per])
+               for k, sl in enumerate(self._slices)]
+        for count in ("uploads", "uploads_split", "upload_chunks"):
+            setattr(self, count, sum(getattr(sl, count)
+                                     for sl in self._slices))
+        return out
 
     def _step(self, stores, frames_dev, reid_bucket, face_bucket, gmc=None):
         steps = [sl._step(st, fr, reid_bucket, face_bucket,

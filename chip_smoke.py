@@ -1115,7 +1115,7 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
         raise AssertionError("no live tracks on any frame")
     report_point(torch, "BoTSORTPipeline.update (loaded, one stream)",
                  "frame", pipes, rows, 1, card, frames[-1])
-    staged = pipes["graphed"]._staging["frame"][1].dtype
+    staged = pipes["graphed"]._staging["frame"].dtype
     if staged != torch.uint8:
         raise AssertionError(f"main: the staged frames are {staged}")
     log(f"main: K7 launches in the replayed run {k7_launches} (a step run's "

@@ -874,6 +874,69 @@ def test_mini_step_never_synchronises(dev):
     assert len(handle.result()) == 2
 
 
+def _full_hd_pools(seed, pools=2, per_pool=3, streams=8):
+    """Frame pools of 1080p frames: noise under _mini_frames' bars."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(pools):
+        pool = rng.integers(0, 255, (per_pool, streams, 1080, 1920, 3),
+                            dtype=np.uint8)
+        for t in range(per_pool):
+            for k in range(3):
+                x = 250 + 700 * k + 30 * t
+                pool[t, :, 270:900, x:x + 220] = (40 + 70 * k, 200, 120)
+        out.append(pool)
+    return out
+
+
+def test_banded_upload_lands_every_frame_on_the_card(dev):
+    """20 graphed 8-stream 1080p updates with affines, drawing from two
+    frame pools in turn (the staging buffer rewritten with other bytes
+    every update): the frames on the card equal the input bytes on every
+    update, every frame upload is split into bands and no affine upload
+    is, and each FrameResult equals the same run's with the frames handed
+    as a list. Once the staging buffers exist, no upload synchronises."""
+    from botsort_tpu_torch.pipeline import upload
+
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    pools = _full_hd_pools(21)
+    gmc = np.tile(np.eye(2, 3, dtype=np.float32), (8, 1, 1))
+    as_array, as_list = (host.BatchedBoTSORTPipeline(
+        bundle, 8, MINI_TRK, MINI_NMS, MINI_PIPE) for _ in range(2))
+    on_card, strict = [], []
+    real = host._Facade._upload
+
+    def kept(self, name, array):
+        if strict:  # once the staging buffers exist
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, name, array)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if name == "frames":  # after the H2Ds, on the same stream
+            on_card.append(out.clone())
+        return out
+
+    n = 20
+    with mock.patch.object(host._Facade, "_upload", kept):
+        for u in range(n):
+            frames = pools[u % 2][(u // 2) % len(pools[0])]
+            strict[:] = [True] * (u >= 2)
+            as_array.update(frames, gmc)
+            assert np.array_equal(on_card[-1].cpu().numpy(), frames), u
+            as_list.update(list(frames), gmc)
+            assert np.array_equal(on_card[-1].cpu().numpy(), frames), u
+            _same_result(as_array.last_result, as_list.last_result)
+    bands = len(upload._bands(frames.nbytes))
+    assert (as_array.uploads, as_array.uploads_split,
+            as_array.upload_chunks) == (2 * n, n, n * bands)
+    per_frame = len(upload._bands(frames[0].nbytes))
+    assert (as_list.uploads, as_list.uploads_split,
+            as_list.upload_chunks) == (2 * n, n, n * 8 * per_frame)
+    assert as_array._graphs.replays >= n
+
+
 # --- K1-K6 as custom ops; an exported step replayed from a graph ----------
 
 

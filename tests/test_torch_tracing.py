@@ -104,7 +104,8 @@ def _check_tree(spans):
         assert [s[0] for s in kids] == CHILDREN, (u, kids)
         for s in group:
             assert root[1] <= s[1] <= s[2] <= root[2], s
-        for name, parent in (("graph.launch", "device_step"),
+        for name, parent in (("upload.copy", "upload"),
+                             ("graph.launch", "device_step"),
                              ("readback.wait", "readback")):
             for child in (s for s in group if s[0] == name):
                 assert child[3] == parent
@@ -145,7 +146,7 @@ def test_every_update_has_one_root_and_the_same_children(bundle, kind):
     assert set(pipe.timers.report()) == set(CHILDREN)
     summary = pipe.timers.summary()
     assert set(summary["self_ms"]) == set(CHILDREN) | {
-        ROOT, "graph.launch", "readback.wait"}
+        ROOT, "upload.copy", "graph.launch", "readback.wait"}
     assert summary["device_ms"] == {}  # no device time off CUDA
     pipe.reset()
     assert pipe.timers.export() == {"spans": [], "stages": []}
@@ -157,8 +158,8 @@ def test_update_async_root_spans_to_the_result(bundle):
     pipe, arg, _ = _facade("batched", bundle, trace=True)
     handle = pipe.update_async(arg(_frames(1, 2)[0]))
     open_spans = pipe.timers.export()["spans"]
-    assert [s[0] for s in open_spans] == ["upload", "graph.launch",
-                                          "device_step"]
+    assert [s[0] for s in open_spans] == ["upload.copy", "upload",
+                                          "graph.launch", "device_step"]
     handle.result()
     spans = pipe.timers.export()["spans"]
     assert spans[-1][0] == ROOT and spans[-1][1] < open_spans[0][1]
