@@ -50,13 +50,12 @@ def control_readings(workload: str, seed: int, updates: int,
     cfg = registry.config(cell["config"])
     traffic = registry.traffic(cell["traffic"])
     s = run.settings_of(cfg, traffic)
-    arch = cfg.get("arch", "full")
     dev = torch.device(device)
     streams = traffic["streams"]
     pool = gen.frame_pool(seed, traffic["frame_pool"], streams,
                           tuple(traffic["frame_hw"]), dev)
     frame0 = torch.from_numpy(pool[0, 0]).to(dev)
-    nets_low = gen.reference_networks(arch, seed, dev, frame0, s, precision)
+    nets_low = gen.reference_networks(cfg, seed, dev, frame0, s, precision)
     store = pipeline.tracker.empty_stores(s, streams, dev)
     sampler = run.Sampler(seed, traffic["sample_updates"])
     t0 = time.perf_counter()
@@ -71,7 +70,7 @@ def control_readings(workload: str, seed: int, updates: int,
     run_s = time.perf_counter() - t0
     del nets_low
     gc.collect()
-    networks = gen.reference_networks(arch, seed, dev, frame0, s)
+    networks = gen.reference_networks(cfg, seed, dev, frame0, s)
     readings = []
     with torch.no_grad():
         for smp in sampler.samples():

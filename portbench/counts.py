@@ -1,28 +1,35 @@
-"""Analytic work of the three networks, from a walk of the plain
-reference architectures (portbench/reference/nets.py) on the meta device:
-nothing is allocated or computed, only shapes.
+"""Analytic work of the three networks, from a walk of the reference
+classes a configuration's ``models`` entries name (portbench/networks.py)
+on the meta device: nothing is allocated or computed, only shapes.
 
 - ``flops``: 2 x multiply-accumulates of every convolution and dense
-  layer (the convention of YOLOX's published GFLOPs);
+  layer (the convention of YOLOX's published GFLOPs), plus what each
+  module with a ``counted_flops(inputs, output)`` returns: a family's
+  products of two activations (attention's QK^T and PV), which no
+  convolution or dense layer sees;
 - ``params``: parameters, norms included;
-- ``norm_bytes``: what the norms (kernel K6 in the port) must move at
-  least: each norm's input read once and output written once, in the dtype
-  the port runs it (bfloat16 after a bfloat16 convolution or dense layer;
-  float32 for the body encoder's last norm, which follows the float32 GeM
-  pool), plus its three float32 parameter vectors (mean, scale, bias).
+- ``norm_bytes``: what the batch norms (``nets.BatchNorm``, kernel K6 in
+  the port) must move at least: each norm's input read once and output
+  written once, in the dtype the port runs it (bfloat16 after a bfloat16
+  convolution or dense layer; float32 for the norms the entry lists under
+  ``float32_norms``, such as the body encoder's last norm, which follows
+  the float32 GeM pool), plus its three float32 parameter vectors (mean,
+  scale, bias).
 
 All counts are per image at the given input size. They depend on the
-published architectures alone, not on the program that runs them.
+published networks alone, not on the program that runs them.
 """
 
 from __future__ import annotations
 
 import functools
+import json
 from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
+from portbench import networks
 from portbench.reference import nets
 
 # Peaks of one NVIDIA H100 SXM (data sheet, dense): bfloat16 tensor-core
@@ -30,17 +37,19 @@ from portbench.reference import nets
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_S = 3.35e12
 
-NETWORKS = ("detector", "body", "face")
-# Norms the port runs on float32 inputs: (network, module path).
-FLOAT32_NORMS = {("body", "BatchNorm_0")}
+
+def network_counts(entry: Dict, input_hw: Tuple[int, int]
+                   ) -> Dict[str, float]:
+    """{"flops", "params", "norm_bytes"} of one image through the network
+    of a configuration's ``models`` entry."""
+    return _counts(json.dumps(entry, sort_keys=True), tuple(input_hw))
 
 
 @functools.lru_cache(maxsize=None)
-def network_counts(arch: str, network: str, input_hw: Tuple[int, int]
-                   ) -> Dict[str, float]:
-    """{"flops", "params", "norm_bytes"} of one image through ``network``
-    ("detector", "body" or "face") of ``arch`` ("full" or "mini")."""
-    model = dict(zip(NETWORKS, nets.build(arch)))[network]
+def _counts(entry_json: str, input_hw: Tuple[int, int]) -> Dict[str, float]:
+    entry = json.loads(entry_json)
+    float32_norms = set(entry.get("float32_norms", ()))
+    model = networks.reference_network(entry)
     totals = {"flops": 0.0, "norm_bytes": 0.0}
     hooks = []
 
@@ -52,14 +61,19 @@ def network_counts(arch: str, network: str, input_hw: Tuple[int, int]
         totals["flops"] += 2.0 * out.numel() * m.in_features
 
     def norm_hook(path):
-        width = 4 if (network, path) in FLOAT32_NORMS else 2
+        width = 4 if path in float32_norms else 2
 
         def hook(m, inputs, out):
             totals["norm_bytes"] += (2 * width * inputs[0].numel()
                                      + 3 * 4 * m.weight.numel())
         return hook
 
+    def counted_hook(m, inputs, out):
+        totals["flops"] += float(m.counted_flops(inputs, out))
+
     for path, m in model.named_modules():
+        if hasattr(m, "counted_flops"):
+            hooks.append(m.register_forward_hook(counted_hook))
         if isinstance(m, nn.Conv2d):
             hooks.append(m.register_forward_hook(conv_hook))
         elif isinstance(m, nn.Linear):
@@ -77,11 +91,11 @@ def network_counts(arch: str, network: str, input_hw: Tuple[int, int]
 
 def cell_counts(cfg: Dict) -> Dict[str, Dict[str, float]]:
     """network -> counts per image, at the configuration's input sizes."""
-    arch = cfg.get("arch", "full")
     sizes = {"detector": cfg["detector_input_hw"],
              "body": cfg["body_reid_input_hw"],
              "face": cfg["face_reid_input_hw"]}
-    return {n: network_counts(arch, n, tuple(sizes[n])) for n in NETWORKS}
+    return {n: network_counts(cfg["models"][n], sizes[n])
+            for n in networks.NETWORKS}
 
 
 def useful_flops(counts, frames: int, bodies: int, faces: int) -> float:

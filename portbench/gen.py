@@ -2,22 +2,26 @@
 
 No trained weights are in the repository, so every weight is drawn from
 the seed, on the device, by one ``torch.Generator`` in one call a
-network: every convolution and dense kernel normal x fan_in^-1/2, norm
-scales 1, biases 0, means 0, variances 1, GeM's exponent 3 (the recipe of
-the port's and the JAX package's test bundles). Then the detector's norms
-are calibrated (``calibrate_``): each norm's running mean and variance
-are set to its input's on the first frame, and its scale to
-DETECTOR_GAIN. Uncalibrated, the detector's activations grow or die with
-the draw through its hundred-odd layers, so that one seed's detector
-reports 50 bodies a frame and another's none; calibrated at a small gain,
-every seed's detector scores its anchors near 0.25 and sizes its boxes
-near its strides, so every seed gives a cell the same load, and it stays
-close to linear, so rounding does not grow through its depth (at a gain
-of 1 the calibrated network is chaotic: bfloat16 and float32 disagree on
-boxes as much as float8 does). The encoders keep the recipe's identity
-norms: their work does not depend on their outputs, and their rounding
-stays small. The state dicts are float32, keyed as the port's and the
-reference's modules are.
+network: every convolution and dense kernel normal x fan_in^-1/2, biases
+0, and for the modules the recipe knows, norm scales 1, biases 0, means
+0, variances 1, GeM's exponent 3 (the recipe of the port's and the JAX
+package's test bundles). A module of another family that holds other
+tensors (a LayerNorm, a class token, a position table) seeds them in its
+own ``seed_(generator)``, called after the draw; a tensor that neither
+writes is an error. Then the detector's norms are calibrated
+(``calibrate_``): each norm's running mean and variance are set to its
+input's on the first frame, and its scale to DETECTOR_GAIN. Uncalibrated,
+the detector's activations grow or die with the draw through its
+hundred-odd layers, so that one seed's detector reports 50 bodies a frame
+and another's none; calibrated at a small gain, every seed's detector
+scores its anchors near 0.25 and sizes its boxes near its strides, so
+every seed gives a cell the same load, and it stays close to linear, so
+rounding does not grow through its depth (at a gain of 1 the calibrated
+network is chaotic: bfloat16 and float32 disagree on boxes as much as
+float8 does). The encoders keep the recipe's identity norms: their work
+does not depend on their outputs, and their rounding stays small. The
+state dicts are float32, keyed as the port's and the reference's modules
+are.
 
 Frames are 1080p uint8 BGR noise (the frames of the port's chip smoke
 test), drawn on the device in one call and copied to the host once.
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from portbench import networks
 from portbench.reference import nets
 
 # Streams of one seed: weights and frames draw from generators seeded
@@ -48,10 +53,19 @@ def generator(seed: int, stream: int, device) -> torch.Generator:
 
 def init_weights(models, seed: int, device) -> None:
     """Materialise the meta-device ``models`` on ``device`` with the
-    seeded recipe (norm statistics left at 0 and 1 for ``calibrate_``)."""
+    seeded recipe (norm statistics left at 0 and 1 for ``calibrate_``),
+    then each module's ``seed_(generator)``, in ``modules()`` order.
+    Raises ValueError naming every parameter or buffer left unwritten."""
     g = generator(seed, WEIGHTS, device)
     for model in models:
         model.to_empty(device=device)
+        tensors = dict(model.named_parameters())
+        tensors.update(model.named_buffers())
+        with torch.no_grad():
+            for t in tensors.values():
+                if t.is_floating_point():
+                    t.fill_(math.nan)
+        versions = {k: t._version for k, t in tensors.items()}
         kernels = [m.weight for m in model.modules()
                    if isinstance(m, (nn.Conv2d, nn.Linear))]
         draw = torch.randn(sum(w.numel() for w in kernels), generator=g,
@@ -74,8 +88,27 @@ def init_weights(models, seed: int, device) -> None:
                     m.running_var.fill_(1.0)
                 elif isinstance(m, nets.GeMPool):
                     m.p.fill_(3.0)
+            for m in model.modules():
+                if hasattr(m, "seed_"):
+                    m.seed_(g)
         del draw
+        unwritten(model, tensors, versions)
         model.eval().requires_grad_(False)
+
+
+def unwritten(model, tensors, versions) -> None:
+    """Raise ValueError naming the tensors of ``model`` that still hold
+    the NaN they were filled with (or, not floating, were never written
+    since ``versions``)."""
+    floats = [k for k, t in tensors.items() if t.is_floating_point()]
+    nan = (torch.stack([tensors[k].isnan().any() for k in floats]).cpu()
+           if floats else [])
+    bad = [k for k, hit in zip(floats, nan) if hit]
+    bad += [k for k, t in tensors.items() if not t.is_floating_point()
+            and t._version == versions[k]]
+    if bad:
+        raise ValueError(f"{type(model).__name__}: no rule of the seeded "
+                         f"recipe and no seed_ writes {sorted(bad)}")
 
 
 @torch.no_grad()
@@ -105,12 +138,12 @@ def calibrate_(detector, frame: torch.Tensor, s) -> None:
         h.remove()
 
 
-def reference_networks(arch: str, seed: int, device, frame, s,
+def reference_networks(cfg, seed: int, device, frame, s,
                        precision="float32"):
-    """The reference's (detector, body encoder, face encoder) from the
-    seed, the detector calibrated on ``frame`` (``calibrate_``),
-    convolutions at ``precision``."""
-    models = nets.build(arch)
+    """The reference's (detector, body encoder, face encoder) of the
+    configuration ``cfg`` from the seed, the detector calibrated on
+    ``frame`` (``calibrate_``), at ``precision`` (nets.set_precision)."""
+    models = networks.reference(cfg)
     init_weights(models, seed, device)
     calibrate_(models[0], frame, s)
     for m in models:

@@ -1,23 +1,24 @@
 """The system under test: the port's facade, built for one cell.
 
 The only file of the benchmark that imports ``botsort_tpu_torch``. It
-builds the three networks at the configuration's architecture, loads the
-seeded float32 state dicts through ``load_state_dict``, casts them to the
-configuration's dtype as the port's own bundles are, and wraps them in
-the facade the traffic names, with every threshold and size the
-benchmark's ``Settings`` holds.
+builds the port's class of each network the configuration's ``models``
+entry names (``program``, imported by name under ``botsort_tpu_torch.``,
+with the entry's ``args``), loads the seeded float32 state dicts through
+``load_state_dict``, casts them to the configuration's dtype as the
+port's own bundles are, and wraps them in the facade the traffic names,
+with every threshold and size the benchmark's ``Settings`` holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from portbench import trace
-from portbench.reference import nets
+from portbench import networks, trace
 from portbench.reference.pipeline import Settings
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -31,23 +32,25 @@ def load_kernels() -> None:
     kernels.load_all()
 
 
-def bundle(states: List[Dict[str, torch.Tensor]], arch: str, dtype: str,
+def bundle(states: List[Dict[str, torch.Tensor]], cfg: Dict, dtype: str,
            device):
-    """The port's ModelBundle holding ``states`` (detector, body, face)."""
+    """The port's ModelBundle of the configuration's networks, holding
+    ``states`` (detector, body, face)."""
     from botsort_tpu_torch.models.common import cast_compute
-    from botsort_tpu_torch.models.facereid import FaceReID
-    from botsort_tpu_torch.models.fastreid import FastReIDSBS
-    from botsort_tpu_torch.models.yolox import YOLOX
     from botsort_tpu_torch.pipeline.frame_step import ModelBundle
 
-    a = nets.ARCH[arch]
-    with torch.device("meta"):
-        models = (YOLOX(**a["detector"]), FastReIDSBS(**a["body"]),
-                  FaceReID(**a["face"]))
-    for model, state in zip(models, states):
+    models = []
+    for name, state in zip(networks.NETWORKS, states):
+        entry = cfg["models"][name]
+        module, cls_name = networks.split(entry["program"],
+                                          networks.PROGRAM)
+        cls = getattr(importlib.import_module(module), cls_name)
+        with torch.device("meta"):
+            model = cls(**networks.args_of(entry))
         model.to_empty(device=device)
         model.load_state_dict(state)
-        cast_compute(model, DTYPES[dtype]).eval().requires_grad_(False)
+        models.append(cast_compute(model, DTYPES[dtype]).eval()
+                      .requires_grad_(False))
     return ModelBundle(*models)
 
 

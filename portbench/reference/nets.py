@@ -1,14 +1,17 @@
-"""The three networks in plain PyTorch: YOLOX-X, FastReID SBS-S50 and the
-MobileNetV2 face encoder, float32 throughout.
+"""The plain PyTorch classes of the port's networks: YOLOX, FastReID SBS
+(ResNeSt trunk) and the MobileNetV2 face encoder, float32 throughout.
 
-A frozen copy of the architectures the port runs (its model files, with
-their Flax-style child names, so that one state dict loads into both),
-with every norm a plain float32 batch norm and no kernel, fused stem or
-cache. Each convolution and dense layer is a ``QConv2d`` / ``QLinear``:
-at ``precision = "float32"`` (the default) a plain layer; at ``"fp8"``
-its input, weight and output are rounded to float8 e4m3 with one scale
-per tensor around the float32 product, which is the benchmark's control
-(``set_precision``).
+A frozen copy of the port's model files, with their Flax-style child
+names, so that one state dict loads into both, with every norm a plain
+float32 batch norm and no kernel, fused stem or cache. A configuration's
+``models`` entry names the class and its arguments (portbench/networks.py);
+nothing here lists architectures. Each convolution and dense layer is a
+``QConv2d`` / ``QLinear``: at ``precision = "float32"`` (the default) a
+plain layer; at ``"fp8"`` its input, weight and output are rounded to
+float8 e4m3 with one scale per tensor around the float32 product, which is
+the benchmark's control (``set_precision``). A family of its own in
+another file of this folder uses these layers, and puts any product of
+two activations in a module with a ``precision`` attribute of its own.
 """
 
 from __future__ import annotations
@@ -51,10 +54,13 @@ class QLinear(nn.Linear):
 
 
 def set_precision(model: nn.Module, precision: str) -> nn.Module:
+    """``precision`` on every module of ``model`` that has the attribute:
+    QConv2d, QLinear, and any module of another family that rounds its
+    products of two activations under it."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r} not in {PRECISIONS}")
     for m in model.modules():
-        if isinstance(m, (QConv2d, QLinear)):
+        if hasattr(m, "precision"):
             m.precision = precision
     return model
 
@@ -411,6 +417,9 @@ class FastReIDSBS(nn.Module):
     def __init__(self, feature_dim=2048, stage_blocks=(3, 4, 6, 3),
                  stage_widths=(64, 128, 256, 512), stem_width=32):
         super().__init__()
+        # The published network's width, whatever ``feature_dim`` says, as
+        # in the port's class.
+        self.feature_dim = stage_widths[-1] * 4
         self.ResNeSt50_0 = ResNeSt50(stage_blocks, stage_widths, stem_width)
         self.GeMPool_0 = GeMPool()
         self.BatchNorm_0 = BatchNorm(stage_widths[-1] * 4, 1e-5)
@@ -477,6 +486,7 @@ class FaceReID(nn.Module):
     def __init__(self, feature_dim=256, layout=MOBILENETV2_LAYOUT,
                  head_width=1280):
         super().__init__()
+        self.feature_dim = feature_dim
         self._ConvBNRelu6_0 = _ConvBNRelu6(3, 32, 3, 2)
         cin = 32
         idx = 0
@@ -498,23 +508,3 @@ class FaceReID(nn.Module):
         feat = self.Dense_0(x)
         return feat / torch.clamp(torch.linalg.norm(feat, dim=-1,
                                                     keepdim=True), min=1e-12)
-
-
-# Architectures: the published ones, and miniatures for the CPU tests.
-ARCH = {
-    "full": {"detector": dict(num_classes=4, depth=1.33, width=1.25),
-             "body": {}, "face": {}},
-    "mini": {"detector": dict(num_classes=4, depth=0.33, width=0.25),
-             "body": dict(stage_blocks=(1, 1, 1, 1),
-                          stage_widths=(8, 16, 32, 64), stem_width=8),
-             "face": dict(layout=((1, 8, 1, 1), (6, 16, 1, 2),
-                                  (6, 32, 1, 2)), head_width=64)},
-}
-
-
-def build(arch: str = "full"):
-    """(detector, body encoder, face encoder) on the meta device."""
-    a = ARCH[arch]
-    with torch.device("meta"):
-        return (YOLOX(**a["detector"]), FastReIDSBS(**a["body"]),
-                FaceReID(**a["face"]))

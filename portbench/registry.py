@@ -3,7 +3,8 @@
 Every configuration, traffic mix, per-layer metric and set of output
 limits is a file of its own, found by name:
 
-- ``configs/<config>.json``: the networks, their input sizes and dtype;
+- ``configs/<config>.json``: the networks (their ``models`` entries, see
+  networks.py), their input sizes and dtype;
 - ``traffic/<traffic>.json``: the facade, streams, thresholds, buckets,
   frames, the load guard and the correctness sample;
 - ``metrics/<metric>.py``: a reader with ``read(records) -> float | None``;

@@ -69,9 +69,18 @@ def forbidden_modules(modules=None):
 
 
 def settings_of(cfg, traffic):
+    """The pipeline Settings of a configuration and a traffic mix: the
+    embedding widths from the configuration's encoders, which the traffic
+    may not set too."""
+    from portbench import networks
     from portbench.reference.pipeline import Settings
 
-    return Settings(**traffic["tracker"], **traffic.get("nms", {}),
+    dims = networks.feature_dims(cfg)
+    both = sorted(set(dims) & set(traffic["tracker"]))
+    if both:
+        raise ValueError(f"the traffic sets {', '.join(both)}, which the "
+                         f"configuration's encoders give")
+    return Settings(**traffic["tracker"], **dims, **traffic.get("nms", {}),
                     detector_input_hw=tuple(cfg["detector_input_hw"]),
                     body_reid_input_hw=tuple(cfg["body_reid_input_hw"]),
                     face_reid_input_hw=tuple(cfg["face_reid_input_hw"]),
@@ -197,22 +206,25 @@ def run(args, device_kind: str = "cuda") -> dict:
     # only contend with it.
     torch.set_num_threads(1)
     dev = torch.device(device_kind)
-    s = settings_of(cfg, traffic)
+    try:
+        s = settings_of(cfg, traffic)
+    except ValueError as exc:
+        raise ValueError(f"configs/{cell['config']}.json and traffic/"
+                         f"{cell['traffic']}.json: {exc}") from None
     if traffic["loop"] != "closed":
         raise ValueError(f"traffic loop {traffic['loop']!r}: only the closed "
                          "loop is measured")
     single = traffic["facade"] == "BoTSORTPipeline"
     streams = traffic["streams"]
-    arch = cfg.get("arch", "full")
 
     # Set-up: frames and weights from the seed, the facade, its warm-up.
     parts["kernels"] = time.perf_counter()
     pool = gen.frame_pool(args.seed, traffic["frame_pool"], streams,
                           tuple(traffic["frame_hw"]), dev)
     parts["frames"] = time.perf_counter()
-    ref_nets = gen.reference_networks(arch, args.seed, dev,
+    ref_nets = gen.reference_networks(cfg, args.seed, dev,
                                       torch.from_numpy(pool[0, 0]).to(dev), s)
-    bundle = program.bundle([m.state_dict() for m in ref_nets], arch,
+    bundle = program.bundle([m.state_dict() for m in ref_nets], cfg,
                             cfg["dtype"], dev)
     del ref_nets
     parts["weights"] = time.perf_counter()
@@ -334,7 +346,7 @@ def run(args, device_kind: str = "cuda") -> dict:
     if device_kind == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    networks = gen.reference_networks(arch, args.seed, dev,
+    networks = gen.reference_networks(cfg, args.seed, dev,
                                       torch.from_numpy(pool[0, 0]).to(dev), s)
     readings = []
     with torch.no_grad():
@@ -382,7 +394,11 @@ def run(args, device_kind: str = "cuda") -> dict:
                    "load": dict(load,
                                 mean_bodies=useful[1] / max(useful[0], 1),
                                 mean_faces=useful[2] / max(useful[0], 1)),
-                   "graph_replays": record["graph_replays"]}
+                   "graph_replays": record["graph_replays"],
+                   "stages_ms": record["timers"],
+                   "latency_ms": {
+                       f"p{q}": percentile(latencies, q) * 1e3
+                       for q in (5, 25, 75, 99, 100)}}
     out["checks"] = {name: {"value": value, "limit": lim}
                      for name, value, lim in rows}
     # Last, once nothing more is loaded: no JAX, no JAX package.

@@ -82,21 +82,39 @@ def test_each_cell_resolves_its_files_by_name(cell):
 
 def test_new_files_are_found_without_editing_any(tmp_path, monkeypatch):
     """A configuration, a traffic mix, limits and a metric dropped into a
-    copy of the folder are found by name, every old file unchanged."""
+    copy of the folder are found by name, every old file unchanged; the
+    configuration's ``models`` entries alone choose its networks: here
+    ResNeSt-101's body (FastReIDSBS at 3, 4, 23, 3 blocks, deep stem 64),
+    built, counted and sized with no list of architectures edited."""
+    from portbench import counts, networks, run
+
     here = tmp_path / "portbench"
     shutil.copytree(registry.HERE, here,
                     ignore=shutil.ignore_patterns("__pycache__"))
     before = {p: p.read_bytes() for p in here.rglob("*") if p.is_file()}
-    (here / "configs" / "new_cfg.json").write_text(
-        json.dumps({"dtype": "bfloat16", "arch": "full"}))
-    (here / "traffic" / "new_mix.json").write_text(json.dumps({"streams": 2}))
+    cfg = registry.config("yolox_x-mot17_sbs_s50_256")
+    cfg["models"]["body"] = dict(
+        cfg["models"]["body"],
+        args={"stage_blocks": [3, 4, 23, 3], "stem_width": 64})
+    (here / "configs" / "new_cfg.json").write_text(json.dumps(cfg))
+    (here / "traffic" / "new_mix.json").write_text(json.dumps(
+        {"streams": 2, "tracker": {"max_dets": 50}}))
     (here / "limits" / "new.cell.json").write_text(
         json.dumps({"limits": {"det_gap": 0.1}}))
     (here / "metrics" / "new.metric_ms.py").write_text(
         "def read(rec):\n    return rec['x'] * 2\n")
     monkeypatch.setattr(registry, "HERE", str(here))
-    assert registry.config("new_cfg")["arch"] == "full"
-    assert registry.traffic("new_mix")["streams"] == 2
+    new_cfg = registry.config("new_cfg")
+    body = networks.reference(new_cfg)[1]
+    assert body.ResNeSt50_0.n_blocks == 33
+    assert body.ResNeSt50_0._ConvBN_2.Conv_0.out_channels == 128
+    old_body = counts.cell_counts(
+        registry.config("yolox_x-mot17_sbs_s50_256"))["body"]
+    new_body = counts.cell_counts(new_cfg)["body"]
+    assert new_body["flops"] > 1.5 * old_body["flops"]
+    traffic = registry.traffic("new_mix")
+    assert traffic["streams"] == 2
+    assert run.settings_of(new_cfg, traffic).body_feature_dim == 2048
     assert registry.limits("new.cell")["limits"] == {"det_gap": 0.1}
     assert registry.metric_reader("new.metric_ms")({"x": 3}) == 6
     assert all(p.read_bytes() == b for p, b in before.items())
