@@ -71,7 +71,7 @@ def main(argv=None):
         track_target_classes=tuple(args.track_target_classes),
         disable_reid=args.no_reid)
     tracker_cfg = TrackerConfig(
-        body_feature_dim=2048 if not args.mini else 256,
+        body_feature_dim=bundle.body_encoder.feature_dim,
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
     if args.int8:

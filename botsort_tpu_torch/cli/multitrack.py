@@ -157,7 +157,7 @@ def main(argv=None):
         detector_input_hw=(96, 128), body_reid_input_hw=(64, 32),
         face_reid_input_hw=(32, 32), max_reid_batch=4)
     tracker_cfg = TrackerConfig(
-        body_feature_dim=2048 if not args.mini else 256,
+        body_feature_dim=bundle.body_encoder.feature_dim,
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
     b = len(args.videos)

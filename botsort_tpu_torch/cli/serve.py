@@ -176,7 +176,7 @@ def build_pipeline_factory(args):
               file=sys.stderr)
         bundle = quantize_bundle(bundle, pipe_cfg=pipe_cfg)
     tracker_cfg = TrackerConfig(
-        body_feature_dim=2048 if not args.mini else 256,
+        body_feature_dim=bundle.body_encoder.feature_dim,
         face_feature_dim=256,
         max_dets=TrackerConfig().max_dets if not args.mini else 8)
 

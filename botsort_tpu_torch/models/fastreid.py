@@ -199,6 +199,9 @@ class FastReIDSBS(nn.Module):
                  stage_widths=(64, 128, 256, 512), stem_width: int = 32,
                  fused_stem: bool = False):
         super().__init__()
+        # The embedding's width (the trunk's, whatever ``feature_dim``
+        # says): the tracker's ``body_feature_dim``.
+        self.feature_dim = stage_widths[-1] * 4
         self.ResNeSt50_0 = ResNeSt50(stage_blocks, stage_widths, stem_width,
                                      fused_stem)
         self.GeMPool_0 = GeMPool()

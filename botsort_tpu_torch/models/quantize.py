@@ -277,14 +277,18 @@ def quantize_bundle(bundle, frames: Optional[Any] = None,
     encoder stays in its compute dtype.
 
     which: the networks to quantize ("detector", "body"); the body encoder
-    alone by default, as in the JAX package. scope: "mid" quantizes the
-    mid-network convolutions only (``_mid_scope_body`` /
-    ``_mid_scope_detector``), "full" every calibrated one.
+    alone by default, as in the JAX package; a TransReID body is refused
+    (NotImplementedError). scope: "mid" quantizes the mid-network
+    convolutions only (``_mid_scope_body`` / ``_mid_scope_detector``),
+    "full" every calibrated one.
     """
     from botsort_tpu_torch.config import PipelineConfig
     from botsort_tpu_torch.models.fastreid import preprocess
+    from botsort_tpu_torch.models.transreid import refuse
     from botsort_tpu_torch.pipeline.frame_step import ModelBundle
 
+    if "body" in which:
+        refuse(bundle.body_encoder, "quantize_bundle's int8 body encoder")
     pipe_cfg = pipe_cfg or PipelineConfig()
     rng = np.random.default_rng(0)
     if frames is None:

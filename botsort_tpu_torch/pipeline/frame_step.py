@@ -25,8 +25,9 @@ count picks on the device, as the JAX package's ``lax.switch`` does
 
 The stages call ``utils/profiling.py::stage_mark`` at their boundaries
 (the step's start, then after detect, nms, hierarchy, embed and track),
-outside any switch branch; the marks record timing events only while a
-traced facade enqueues the step, and are no-ops otherwise.
+and ``part_mark("body_encoder")`` before and after the body crops and the
+body encoder, outside any switch branch; the marks record timing events
+only while a traced facade enqueues the step, and are no-ops otherwise.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from botsort_tpu_torch.config import NMSConfig, PipelineConfig, TrackerConfig
 from botsort_tpu_torch.models.facereid import FaceReID
-from botsort_tpu_torch.models.fastreid import FastReIDSBS, preprocess
+from botsort_tpu_torch.models.fastreid import preprocess
 from botsort_tpu_torch.models.yolox import YOLOX
 from botsort_tpu_torch.ops import hierarchy, nms
 from botsort_tpu_torch.ops.crop import _crop
@@ -52,7 +54,7 @@ from botsort_tpu_torch.track.cascade import (
 )
 from botsort_tpu_torch.track.state import TrackStore
 from botsort_tpu_torch.utils.consts import const
-from botsort_tpu_torch.utils.profiling import stage_mark
+from botsort_tpu_torch.utils.profiling import part_mark, stage_mark
 
 BODIES, HEADS, HANDS, FACES = 0, 1, 2, 3
 
@@ -78,10 +80,13 @@ class FrameResult(NamedTuple):
 
 @dataclasses.dataclass
 class ModelBundle:
-    """The three networks (eval mode, on one device)."""
+    """The three networks (eval mode, on one device). The body encoder is
+    any of the body families (models/fastreid.py::FastReIDSBS,
+    models/transreid.py::TransReID): crops [N, H, W, 3] as ``preprocess``
+    makes them -> [N, feature_dim] L2-normalised."""
 
     detector: YOLOX
-    body_encoder: FastReIDSBS
+    body_encoder: nn.Module
     face_encoder: FaceReID
 
     @property
@@ -292,12 +297,14 @@ def embed_batched(bundle: ModelBundle, frames_bgr: torch.Tensor,
     encode_body = encoded(bundle.body_encoder, preprocess,
                           pipe_cfg.body_reid_input_hw)
     body_tlbr = _pad_slots(det_boxes[:, BODIES], dp)
+    part_mark("body_encoder")
     if reid_bucket is None:
         body_feats = _encode_switch(encode_body, body_tlbr, n_live, r,
                                     tracker_cfg.body_feature_dim)
     else:
         body_feats = _encode_bucket(encode_body, body_tlbr, reid_bucket,
                                     tracker_cfg.body_feature_dim)
+    part_mark("body_encoder")
     body_feats = body_feats[:, :d]
 
     hb = _pad_slots(head_for_body, dp, fill=-1).long()

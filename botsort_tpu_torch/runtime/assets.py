@@ -1,13 +1,17 @@
 """Model bundles (port of botsort_tpu/runtime/assets.py).
 
 ``build_bundle`` builds the three networks at the repo's architectures —
-YOLOX-X (depth 1.33, width 1.25, four classes), FastReID SBS-S50 and the
+YOLOX-X (depth 1.33, width 1.25, four classes), a body encoder and the
 MobileNetV2 face encoder — or at the JAX package's MINI presets, with a
 numpy-seeded random init drawn by the JAX package's ``fake_params``
 recipe: conv and dense kernels normal x fan_in^-1/2, norm scales and
 variances 1, biases and means 0 (GeM's exponent keeps its init, 3).
 Random weights give no tracking accuracy, but non-degenerate detections
-flow through every stage.
+flow through every stage. The body encoder's name picks its family
+(``body_encoder``): FastReID SBS-S50 (``<train>_sbs_S50_NMx3xHxW``, the
+default) or TransReID (``transreid_vit_base_s<stride>_<train>_NMx3xHxW``,
+models/transreid.py, whose class token, position table and camera rows
+the seeded init draws normal x 0.02, LayerNorms at scale 1).
 
 Checkpoints are torch's own format: ``{weights_dir}/{stem}.pt`` holds one
 network's ``state_dict`` as float32 tensors, ``stem`` being the model
@@ -37,6 +41,7 @@ from torch import nn
 from botsort_tpu_torch.models.common import BatchNorm, cast_compute
 from botsort_tpu_torch.models.facereid import FaceReID
 from botsort_tpu_torch.models.fastreid import FastReIDSBS
+from botsort_tpu_torch.models.transreid import TransReID
 from botsort_tpu_torch.models.yolox import YOLOX
 from botsort_tpu_torch.pipeline.frame_step import ModelBundle
 
@@ -45,6 +50,9 @@ from botsort_tpu_torch.pipeline.frame_step import ModelBundle
 DETECTOR_NAME_RE = re.compile(r"x(?P<h>\d+)x(?P<w>\d+)(?:_|\.)")
 REID_NAME_RE = re.compile(
     r"(?P<train>mot\d+)_sbs_S50_NMx3x(?P<h>\d+)x(?P<w>\d+)")
+TRANSREID_NAME_RE = re.compile(
+    r"transreid_vit_base_s(?P<stride>\d+)_(?P<train>[A-Za-z0-9]+)_"
+    r"NMx3x(?P<h>\d+)x(?P<w>\d+)")
 DEFAULT_DETECTOR = (
     "yolox_x_body_head_hand_face_0076_0.5228_post_1x3x480x640_"
     "score015_iou080_box050.onnx")
@@ -59,6 +67,7 @@ MINI = {
                  stem_width=8),
     "face": dict(layout=((1, 8, 1, 1), (6, 16, 1, 2), (6, 32, 1, 2)),
                  head_width=64),
+    "transreid": dict(embed_dim=64, depth=3, heads=4),
 }
 FULL = {
     "detector": dict(num_classes=4, depth=1.33, width=1.25),
@@ -73,8 +82,21 @@ def parse_detector_input_hw(name: str) -> Tuple[int, int]:
 
 
 def parse_body_reid_input_hw(name: str) -> Tuple[int, int]:
-    m = REID_NAME_RE.search(name)
+    m = TRANSREID_NAME_RE.search(name) or REID_NAME_RE.search(name)
     return (int(m.group("h")), int(m.group("w"))) if m else (256, 128)
+
+
+def body_encoder(name: str, mini: bool = False) -> nn.Module:
+    """The body encoder a model name selects: TransReID for a
+    ``transreid_vit_base_s<stride>_<train>_NMx3xHxW`` name, at the name's
+    patch stride and crop size, else FastReID SBS-S50; at published
+    widths or, with ``mini``, miniature ones (TransReID's at 64x32)."""
+    m = TRANSREID_NAME_RE.search(name)
+    if m is None:
+        return FastReIDSBS(**(MINI if mini else FULL)["body"])
+    hw = (64, 32) if mini else (int(m.group("h")), int(m.group("w")))
+    return TransReID(stride=int(m.group("stride")), input_hw=hw,
+                     **(MINI["transreid"] if mini else {}))
 
 
 def seeded_init_(module: nn.Module, rng: np.random.Generator) -> nn.Module:
@@ -86,6 +108,8 @@ def seeded_init_(module: nn.Module, rng: np.random.Generator) -> nn.Module:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+            elif isinstance(m, TransReID):
+                m.draw_tables_(rng)
             elif isinstance(m, (nn.Conv2d, nn.Linear)):
                 w = m.weight
                 fan_in = max(math.prod(w.shape[1:]), 1)
@@ -159,16 +183,18 @@ def build_bundle(detector_name: str = DEFAULT_DETECTOR,
     checkpoints ``{weights_dir}/{stem}.pt`` of the three model names where
     they exist. A network without a checkpoint keeps its seeded init
     (``seed``) and a warning on stderr says so. ``mini`` builds the
-    miniature architectures. The names' input sizes are
-    ``parse_detector_input_hw`` / ``parse_body_reid_input_hw`` of them: the
-    architectures are fully convolutional, so the sizes configure the
-    pipeline (``PipelineConfig``), not the networks."""
+    miniature architectures. The body encoder's family is the one its
+    name gives (``body_encoder``). The names' input sizes are
+    ``parse_detector_input_hw`` / ``parse_body_reid_input_hw`` of them:
+    the convolutional networks take any size, so the sizes configure the
+    pipeline (``PipelineConfig``); TransReID's position table is built for
+    its name's crop size."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_bundle: no CUDA device; pass device='cpu' "
                            "to build the networks on the CPU")
     arch = MINI if mini else FULL
-    models = (YOLOX(**arch["detector"]), FastReIDSBS(**arch["body"]),
+    models = (YOLOX(**arch["detector"]), body_encoder(body_reid_name, mini),
               FaceReID(**arch["face"]))
     rng = np.random.default_rng(seed)
     for model, name in zip(models, (detector_name, body_reid_name,

@@ -66,6 +66,7 @@ from botsort_tpu_torch.models.fastreid_fused import (
     fold_tensors,
     folded_from,
 )
+from botsort_tpu_torch.models.transreid import refuse
 from botsort_tpu_torch.pipeline import host
 from botsort_tpu_torch.pipeline.host import bucket_pairs
 from botsort_tpu_torch.pipeline.frame_step import (
@@ -189,6 +190,12 @@ class _Program(nn.Module):
                 (run, store, frames))
 
 
+def _check_bundle(bundle: ModelBundle) -> None:
+    """Exported programs bind the convolutional encoders' inference
+    constants: a TransReID body is refused by name."""
+    refuse(bundle.body_encoder, "exported frame-step programs")
+
+
 def _check_exportable(pipe_cfg: PipelineConfig) -> None:
     if pipe_cfg.enable_gmc:
         raise ValueError(
@@ -208,6 +215,7 @@ def export_frame_step(bundle: ModelBundle, tracker_cfg: TrackerConfig,
     """Trace one (resolution, bucket pair) step on the bundle's
     device into an ExportedProgram: ``frame_step`` (``streams`` = 0) or
     ``frame_step_batched`` over ``streams`` streams."""
+    _check_bundle(bundle)
     _check_exportable(pipe_cfg)
     dev = bundle.device
     h, w = frame_hw
@@ -294,6 +302,7 @@ def export_all(bundle: ModelBundle, tracker_cfg: TrackerConfig,
     stream (unless ``one_stream`` is False) and, with ``streams``, at that
     many streams; write the manifest. ``buckets``: the bucket set (default
     ``reid_bucket_set``'s). Returns the manifest."""
+    _check_bundle(bundle)
     _check_exportable(pipe_cfg)
     if buckets is None:
         buckets = reid_bucket_set(tracker_cfg, nms_cfg, pipe_cfg)
@@ -372,6 +381,7 @@ class Programs:
 
     def __init__(self, artifact_dir: str, bundle: ModelBundle,
                  manifest: Optional[Dict[str, Any]] = None):
+        _check_bundle(bundle)
         self.artifact_dir = artifact_dir
         self.manifest = manifest or read_manifest(artifact_dir)
         _check_exportable(manifest_configs(self.manifest)[2])

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from botsort_tpu_torch.models.common import BatchNorm
+from botsort_tpu_torch.models.transreid import refuse
 
 # optax.adamw's defaults.
 BETAS = (0.9, 0.999)
@@ -119,7 +120,10 @@ def make_trainer(model: nn.Module, mesh: Sequence[torch.device],
     the step count advanced, and the loss of the whole batch as a 0-d
     tensor on ``mesh[0]``. images [N, H, W, 3] and labels [N], N a multiple
     of ``len(mesh)``, on any device: each slice is copied to its replica's.
+    A TransReID encoder is refused (NotImplementedError): the trainer is
+    the JAX trainer's, written for the convolutional encoders.
     """
+    refuse(model, "make_trainer")
     mesh = tuple(torch.device(d) for d in mesh)
     if not mesh:
         raise ValueError("make_trainer needs at least one device")

@@ -18,9 +18,14 @@ card. With ``trace=True`` it is also the facades' tracer, and keeps:
   current stream (inside a CUDA-graph capture an event-record node, which
   every replay records again, so a replay times its stages without running
   Python); once the step's work is done, ``add_step`` keeps the device ms
-  between consecutive marks, named by the later mark.
+  between consecutive marks, named by the later mark;
+- device part times: a pair of ``part_mark(name)`` calls inside a stage
+  (the body encoder's call, ``PARTS``) records two more events the same
+  way, and ``add_step`` keeps the device ms between them as a row of that
+  part's own, apart from the stage rows, which read as they would
+  without it.
 
-``export()`` returns both as plain lists. With ``trace=False`` (the
+``export()`` returns them as plain lists. With ``trace=False`` (the
 default) a span is a shared no-op context, ``stage_mark`` records nothing
 and nothing is kept. ``device_trace(log_dir)`` is the counterpart of the
 JAX package's ``jax.profiler`` trace: a ``torch.profiler`` run over the
@@ -48,33 +53,45 @@ MARKS = ("start", "detect", "nms", "hierarchy", "embed", "track", "pack")
 # The five stages a step's device time is reported by; "track" includes
 # the packing of the result that follows it.
 STAGES = ("detect", "nms", "hierarchy", "embed", "track")
+# Parts of a stage timed on their own, by a pair of ``part_mark`` calls:
+# the body crops and the body encoder's call, inside "embed".
+PARTS = ("body_encoder",)
 
 _NULL = contextlib.nullcontext()
 
 
 class Marks:
     """The stage marks of one step run, in run order: their names and, on a
-    CUDA device, their timing events (None elsewhere: no device time)."""
+    CUDA device, their timing events (None elsewhere: no device time);
+    and the part marks, kept apart in ``parts`` as (name, event)."""
 
     def __init__(self, tracer: "StageTimers", device):
         self.tracer = tracer
         self.timed = torch.device(device).type == "cuda"
         self.names: List[str] = []
         self.events: List[Optional[torch.cuda.Event]] = []
+        self.parts: List[tuple] = []
+
+    def _event(self) -> Optional[torch.cuda.Event]:
+        if not self.timed:
+            return None
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        return event
 
     def mark(self, name: str) -> None:
-        event = None
-        if self.timed:
-            event = torch.cuda.Event(enable_timing=True, external=True)
-            event.record()
         self.names.append(name)
-        self.events.append(event)
+        self.events.append(self._event())
+
+    def part(self, name: str) -> None:
+        self.parts.append((name, self._event()))
 
     def take(self, other: Optional["Marks"]) -> None:
         """Adopt a capture's marks: a replay records its events again."""
         if other is not None:
             self.names.extend(other.names)
             self.events.extend(other.events)
+            self.parts.extend(other.parts)
 
 
 class _Refused:
@@ -83,6 +100,8 @@ class _Refused:
 
     def mark(self, name: str) -> None:
         raise RuntimeError(f"stage mark {name!r} inside a switch branch")
+
+    part = mark
 
 
 NO_MARKS_IN_BRANCH = _Refused()
@@ -96,6 +115,15 @@ def stage_mark(name: str) -> None:
     marks = _MARKS.get()
     if marks is not None:
         marks.mark(name)
+
+
+def part_mark(name: str) -> None:
+    """Mark the start, then the end, of a part of a stage (one of
+    ``PARTS``) of the step being recorded (no-op unless a traced facade is
+    enqueueing a step)."""
+    marks = _MARKS.get()
+    if marks is not None:
+        marks.part(name)
 
 
 def current_marks() -> Optional[Marks]:
@@ -127,6 +155,8 @@ class StageTimers:
         self._root: Optional[int] = None
         self._spans = deque(maxlen=self.CAPACITY) if trace else None
         self._steps = deque(maxlen=self.CAPACITY) if trace else None
+        self._parts = {p: deque(maxlen=self.CAPACITY) if trace else None
+                       for p in PARTS}
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -179,13 +209,17 @@ class StageTimers:
 
     def add_step(self, marks: Optional[Marks]) -> None:
         """Keep one step run's stage device times, once its work is done:
-        ``[update, [[stage, ms], ...]]`` (ms None off CUDA)."""
+        ``[update, [[stage, ms], ...]]`` (ms None off CUDA), and each
+        pair of its part marks' ``[update, ms]`` under the part's name."""
         if not self.tracing or marks is None or len(marks.names) < 2:
             return
         ev = marks.events
         ms = [ev[i].elapsed_time(ev[i + 1]) if marks.timed else None
               for i in range(len(ev) - 1)]
         self._steps.append((self.update, list(zip(marks.names[1:], ms))))
+        for (name, a), (_, b) in zip(marks.parts[0::2], marks.parts[1::2]):
+            self._parts[name].append(
+                (self.update, a.elapsed_time(b) if marks.timed else None))
 
     def report(self) -> Dict[str, float]:
         return {
@@ -195,18 +229,22 @@ class StageTimers:
 
     def export(self) -> Dict[str, list]:
         """{"spans": [[name, start_ns, end_ns, parent, update], ...],
-        "stages": [[update, [[stage, ms], ...]], ...]}, oldest first
-        (empty lists when not tracing)."""
+        "stages": [[update, [[stage, ms], ...]], ...], and for each of
+        ``PARTS`` its name: [[update, ms], ...]}, one stage row and one
+        row a part for each step run, oldest first (empty lists when not
+        tracing)."""
         if not self.tracing:
-            return {"spans": [], "stages": []}
+            return {"spans": [], "stages": [], **{p: [] for p in PARTS}}
         return {"spans": [list(s) for s in self._spans],
                 "stages": [[u, [list(p) for p in st]]
-                           for u, st in self._steps]}
+                           for u, st in self._steps],
+                **{p: [list(r) for r in rows]
+                   for p, rows in self._parts.items()}}
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         """Means a update over the kept trace: each span's self time (its
-        time less its children's) and each of ``STAGES``' device time, in
-        ms."""
+        time less its children's) and each of ``STAGES``' and ``PARTS``'
+        device time, in ms."""
         spans = list(self._spans or ())
         n = max(sum(1 for s in spans if s[0] == ROOT), 1)
         own: Dict[str, float] = defaultdict(float)
@@ -220,8 +258,12 @@ class StageTimers:
             for stage, ms in stages:
                 if ms is not None:
                     device["track" if stage == "pack" else stage] += ms
+        for part, rows in (self._parts.items() if self.tracing else ()):
+            for _, ms in rows:
+                if ms is not None:
+                    device[part] += ms
         return {"self_ms": {k: v / n for k, v in own.items()},
-                "device_ms": {k: device[k] / n for k in STAGES
+                "device_ms": {k: device[k] / n for k in STAGES + PARTS
                               if k in device}}
 
     def summary_lines(self) -> List[str]:
@@ -241,6 +283,8 @@ class StageTimers:
             self._root = None
             self._spans.clear()
             self._steps.clear()
+            for rows in self._parts.values():
+                rows.clear()
 
 
 @contextlib.contextmanager

@@ -1283,13 +1283,15 @@ def _event_record_nodes(graph) -> int:
 def test_traced_graph_times_five_stages_untraced_has_no_event_nodes(
         dev, switched, graphs):
     """A step captured with tracing on holds one event-record node a stage
-    mark, none in a switch branch, and every replay reads five positive
-    stage times whose sum is at most the update's wall time; captured with
-    tracing off it holds no event-record node. Both give the same
-    results. Without graphs the marks are plain events, timed alike."""
+    mark and two a part (the body encoder's), none in a switch branch, and
+    every replay reads five positive stage times whose sum is at most the
+    update's wall time and a body-encoder time within its embed stage's;
+    captured with tracing off it holds no event-record node. Both give the
+    same results. Without graphs the marks are plain events, timed
+    alike."""
     import time
 
-    from botsort_tpu_torch.utils.profiling import MARKS
+    from botsort_tpu_torch.utils.profiling import MARKS, PARTS
 
     bundle = _count_bundle(dev) if switched else assets.build_bundle(
         mini=True, seed=2, device=dev, dtype=torch.bfloat16)
@@ -1314,9 +1316,13 @@ def test_traced_graph_times_five_stages_untraced_has_no_event_nodes(
         stage_ms = [sum(r[s] for r in runs) for s in MARKS[1:]]
         assert all(ms > 0 for ms in stage_ms[:5]), stage_ms
         assert sum(stage_ms) <= wall_ms, (stage_ms, wall_ms)
+        body = [ms for v, ms in traced.timers.export()["body_encoder"]
+                if v == u]
+        assert len(body) == len(runs)
+        assert all(0 <= b <= r["embed"] for b, r in zip(body, runs))
     if not graphs:
         return
-    for pipe, want in ((traced, len(MARKS)), (plain, 0)):
+    for pipe, want in ((traced, len(MARKS) + 2 * len(PARTS)), (plain, 0)):
         for entry in pipe._graphs._entries.values():
             segments = [it[1] for it in entry.keep if it[0] == "segment"]
             assert sum(_event_record_nodes(g) for g in segments) == want

@@ -754,4 +754,5 @@ def test_graphs_argument_and_dispatch_override(bundles):
                                      dataclasses.replace(T_PIPE),
                                      trace=True)
     assert profiled.timers.tracing and profiled.timers.export() == {
-        "spans": [], "stages": []}  # nothing traced before an update
+        "spans": [], "stages": [],
+        "body_encoder": []}  # nothing traced before an update

@@ -121,7 +121,8 @@ def test_tracing_off_keeps_totals_and_records_nothing(bundle):
     assert not pipe.timers.tracing
     for f in _frames(2, 2):
         pipe.update(arg(f))
-    assert pipe.timers.export() == {"spans": [], "stages": []}
+    assert pipe.timers.export() == {"spans": [], "stages": [],
+                                    "body_encoder": []}
     assert pipe.timers._spans is None and pipe.timers._steps is None
     assert set(pipe.timers.report()) == set(CHILDREN)
     assert all(e.marks is None for e in cache._entries.values())
@@ -149,7 +150,8 @@ def test_every_update_has_one_root_and_the_same_children(bundle, kind):
         ROOT, "upload.copy", "graph.launch", "readback.wait"}
     assert summary["device_ms"] == {}  # no device time off CUDA
     pipe.reset()
-    assert pipe.timers.export() == {"spans": [], "stages": []}
+    assert pipe.timers.export() == {"spans": [], "stages": [],
+                                    "body_encoder": []}
     pipe.update(arg(_frames(1, 2, seed=9)[0]))
     assert {s[4] for s in pipe.timers.export()["spans"]} == {0}
 
