@@ -1,7 +1,7 @@
 """Inference batch norm + activation as one pass: kernel K6.
 
-``bn_act(x, mean, mul, bias, act)`` computes, per channel (dim 1 of a
-contiguous [N, C, ...] tensor, so also the last dim of [N, C]),
+``bn_act(x, mean, mul, bias, act)`` computes, per channel (dim 1 of an
+[N, C, ...] tensor, so also the last dim of [N, C]),
 
     y   = ((x.float() - mean) * mul + bias).to(x.dtype)
     out = act(y)                 # computed in float32, rounded to x.dtype
@@ -15,9 +15,15 @@ own, csrc/bn_act.cu: one read and one write of the activation.
 
 A CUDA tensor launches the kernel through ``bn_act_cuda``; a CPU tensor
 takes ``bn_act_plain``, the same float32 operations in the same order;
-any other device raises. The two are the CUDA and CPU implementations of
-the custom op ``torch.ops.botsort_tpu_torch.bn_act``, which is how a
-trace (``torch.export``) reaches them; eager calls skip the dispatcher.
+any other device raises. The output is laid out as x is. ``bn_act_cuda``
+takes the path from x's strides: a contiguous x with more than one
+element a plane (NCHW) takes ``bn_act_kernel``; an x whose channels are
+innermost (the channels-last activations the networks run on the card,
+and [N, C] or [N, C, 1, 1]) takes ``bn_act_kernel_cl``, a thread a
+column of channels (``bn_act_cl_plan``); anything else raises. The two
+are the CUDA and CPU implementations of the custom op
+``torch.ops.botsort_tpu_torch.bn_act``, which is how a trace
+(``torch.export``) reaches them; eager calls skip the dispatcher.
 none, ReLU and ReLU6 agree bit for bit. SiLU agrees to one unit in the
 last place of x's dtype on the card (two units between the card and the
 CPU, whose SiLU is ATen's CPU one): both compute
@@ -33,8 +39,9 @@ recomputed there, not saved. A call that needs a gradient (grad enabled and
 any input requiring one) goes through ``BnActFunction``, whose backward
 launches K6b on a CUDA tensor and the plain backward on a CPU tensor; the
 custom op ``bn_act`` has the same backward registered (through the op
-``bn_act_backward``), so a traced graph differentiates too. Inference calls
-keep the direct route.
+``bn_act_backward``), so a traced graph differentiates too; the gradient
+route hands K6 and K6b contiguous tensors. Inference calls keep the direct
+route, in x's own layout, as the custom op does.
 """
 
 from __future__ import annotations
@@ -66,6 +73,30 @@ def bn_act_plan(total: int, itemsize: int, aligned: bool = True):
     return vec, grid, THREADS
 
 
+# The channels-innermost launch covers the card with about this many blocks
+# (4 per SM of an H100); its threads then stride over the rows.
+CL_TARGET_BLOCKS = 4 * 132
+
+
+def bn_act_cl_plan(rows: int, channels: int, itemsize: int,
+                   aligned: bool = True):
+    """(vec, tile, per_block, grid) of K6's channels-innermost launch for x
+    [rows, channels]: a thread takes a column of ``vec`` channels (16 bytes
+    where ``channels`` is a whole number of 16-byte vectors and the pointers
+    are aligned, else one channel), a block ``per_block`` rows of ``tile``
+    columns, the grid (row blocks, tiles of columns)."""
+    vec = 16 // itemsize
+    if not aligned or channels % vec:
+        vec = 1
+    cols = channels // vec
+    tiles = -(-cols // THREADS)
+    tile = -(-cols // tiles)
+    per_block = THREADS // tile
+    row_blocks = -(-rows // per_block)
+    grid_x = min(row_blocks, max(1, CL_TARGET_BLOCKS // tiles))
+    return vec, tile, per_block, (grid_x, tiles)
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_params(total: int, channels: int, inner: int,
                    dtype: torch.dtype, act: str, aligned: bool):
@@ -77,14 +108,46 @@ def _launch_params(total: int, channels: int, inner: int,
     return (ctypes.c_int * len(values))(*values)
 
 
+@functools.lru_cache(maxsize=None)
+def _cl_launch_params(rows: int, channels: int, dtype: torch.dtype,
+                      act: str, aligned: bool):
+    """The channels-innermost entry point's parameter array; cached."""
+    vec, tile, per_block, grid = bn_act_cl_plan(rows, channels,
+                                                dtype.itemsize, aligned)
+    values = (rows, channels, _DTYPES[dtype], ACTS.index(act), vec, tile,
+              per_block, *grid)
+    return (ctypes.c_int * len(values))(*values)
+
+
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("bn_act")
-    fn = lib.bn_act_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn in (lib.bn_act_launch, lib.bn_act_cl_launch):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [
+                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
+
+
+def channels_innermost(x: torch.Tensor) -> bool:
+    """Whether x [N, C, ...] is dense with its channels innermost: a
+    channels-last [N, C, H, W], a contiguous [N, C] or [N, C, 1, 1]."""
+    if x.dim() == 4:  # the networks' case, without building a view
+        return x.is_contiguous(memory_format=torch.channels_last)
+    return x.movedim(1, -1).is_contiguous()
+
+
+def bn_act_path(x: torch.Tensor) -> str:
+    """K6's path for x [N, C, ...] by its strides: ``"contiguous"``
+    (``bn_act_kernel``) for a contiguous x with more than one element a
+    plane, ``"channels_last"`` (``bn_act_kernel_cl``) for one whose
+    channels are innermost; any other layout raises."""
+    if x.is_contiguous() and x.numel() > x.shape[0] * x.shape[1]:
+        return "contiguous"
+    if channels_innermost(x):
+        return "channels_last"
+    raise ValueError("x must be contiguous or have its channels innermost "
+                     "(channels-last)")
 
 
 def _check_act(act: str) -> None:
@@ -113,11 +176,14 @@ def bn_act_plain(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
 
 def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
                 bias: torch.Tensor, act: str = "none") -> torch.Tensor:
-    """x [N, C, ...] float32 or bfloat16, contiguous, and mean / mul / bias
-    [C] float32 contiguous, all on one CUDA device -> x's shape and dtype.
+    """x [N, C, ...] float32 or bfloat16, contiguous or with its channels
+    innermost (``channels_innermost``), and mean / mul / bias [C] float32
+    contiguous, all on one CUDA device -> x's shape, dtype and layout.
 
-    Launched on the current stream; nothing is synchronised.
-    ``bn_act_cuda.launches`` counts launches.
+    ``bn_act_path`` picks the kernel from x's strides. Launched on the
+    current stream; nothing is synchronised. ``bn_act_cuda.launches``
+    counts launches, ``bn_act_cuda.launches_channels_last`` those of the
+    channels-innermost kernel.
     """
     _check_act(act)
     if not x.is_cuda:
@@ -138,24 +204,32 @@ def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
             raise ValueError(
                 f"{name} must be a contiguous [{c}] float32 on {x.device}, "
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    out = torch.empty_like(x)
-    params = _launch_params(x.numel(), c, x.numel() // (x.shape[0] * c),
-                            x.dtype, act,
-                            (x.data_ptr() | out.data_ptr()) % 16 == 0)
+    path = bn_act_path(x)
+    out = torch.empty_like(x)  # keeps x's layout
+    if path == "contiguous":
+        params = _launch_params(x.numel(), c, x.numel() // (x.shape[0] * c),
+                                x.dtype, act,
+                                (x.data_ptr() | out.data_ptr()) % 16 == 0)
+        launch = _lib().bn_act_launch
+    else:
+        aligned = (x.data_ptr() | out.data_ptr() | mean.data_ptr()
+                   | mul.data_ptr() | bias.data_ptr()) % 16 == 0
+        params = _cl_launch_params(x.numel() // c, c, x.dtype, act, aligned)
+        launch = _lib().bn_act_cl_launch
     with torch.cuda.device(x.device):
-        rc = _lib().bn_act_launch(x.data_ptr(), mean.data_ptr(),
-                                  mul.data_ptr(), bias.data_ptr(),
-                                  out.data_ptr(), params,
-                                  kernels.current_stream(x.device))
+        rc = launch(x.data_ptr(), mean.data_ptr(), mul.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), params,
+                    kernels.current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"bn_act launch failed: CUDA error {rc}")
     bn_act_cuda.launches += 1
+    if path == "channels_last":
+        bn_act_cuda.launches_channels_last += 1
     return out
 
 
 bn_act_cuda.launches = 0
+bn_act_cuda.launches_channels_last = 0
 
 
 # K6b's launch: blocks per channel are chosen so that about this many
@@ -290,22 +364,30 @@ def bn_act_grads(mul: torch.Tensor, sum_gy: torch.Tensor,
                         device_types="cpu")
 def bn_act_op(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
               bias: torch.Tensor, act: str) -> torch.Tensor:
-    """K6 as a custom op: the plain version on the CPU (its output laid out
-    as x is), the kernel on the card (registered below; its output is
-    contiguous)."""
+    """K6 as a custom op: the plain version on the CPU, the kernel on the
+    card (registered below); either output is laid out as x is, so an
+    exported program runs the live networks' layouts."""
     return bn_act_plain(x, mean, mul, bias, act)
+
+
+def _k6_input(x: torch.Tensor) -> torch.Tensor:
+    """x as K6 reads it on the card: as it is where it is contiguous or
+    has its channels innermost, else a contiguous copy."""
+    if x.is_contiguous() or channels_innermost(x):
+        return x
+    return x.contiguous()  # neither layout K6 reads
 
 
 @bn_act_op.register_kernel("cuda")
 def _bn_act_op_cuda(x, mean, mul, bias, act):
-    return bn_act_cuda(x.contiguous(), mean, mul, bias, act)
+    return bn_act_cuda(_k6_input(x), mean, mul, bias, act)
 
 
 @bn_act_op.register_fake
 def _bn_act_op_fake(x, mean, mul, bias, act):
     _check_act(act)
     if x.device.type == "cuda":
-        return torch.empty_like(x, memory_format=torch.contiguous_format)
+        return torch.empty_like(_k6_input(x))
     return torch.empty_like(x)
 
 
@@ -382,9 +464,11 @@ class BnActFunction(torch.autograd.Function):
 
 def bn_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
            bias: torch.Tensor, act: str = "none") -> torch.Tensor:
-    """Batch norm + activation: CUDA tensors launch K6, CPU tensors take
-    the plain version, any other device raises. Under a trace, the custom
-    op; where a gradient is needed, ``BnActFunction``."""
+    """Batch norm + activation: CUDA tensors launch K6 in their own layout
+    (contiguous or channels-last; other strides are made contiguous
+    first), CPU tensors take the plain version, any other device raises.
+    Under a trace, the custom op; where a gradient is needed,
+    ``BnActFunction``."""
     if tracing():
         return bn_act_op(x, mean, mul, bias, act)
     if x.device.type not in ("cuda", "cpu"):
@@ -394,5 +478,5 @@ def bn_act(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
                                     or bias.requires_grad):
         return BnActFunction.apply(x, mean, mul, bias, act)
     if x.is_cuda:
-        return bn_act_cuda(x.contiguous(), mean, mul, bias, act)
+        return bn_act_cuda(_k6_input(x), mean, mul, bias, act)
     return bn_act_plain(x, mean, mul, bias, act)

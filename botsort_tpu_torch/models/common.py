@@ -1,7 +1,14 @@
 """Shared conv blocks of the detector (port of botsort_tpu/models/common.py).
 
 The public models take NHWC images, as the JAX package does; inside, the
-blocks run NCHW, PyTorch's convolution layout. Child modules carry the
+blocks take [N, C, H, W] tensors. On the card they are channels-last in
+memory from the first convolution to the last norm: ``cast_compute`` lays
+a CUDA module's convolution weights out channels-last, the first
+convolution sees the NHWC images through a permuted view, every
+convolution and norm (K6's channels-innermost path) keeps that layout, and
+so do the concatenations, pools, upsamplings and sums between them; so
+cuDNN runs its NHWC kernels with no transpose on the way in or out. On the
+CPU the weights stay as they are. Child modules carry the
 JAX package's Flax names (``ConvBN_0``, ``Conv_0``, ``BatchNorm_0``, ...)
 so that runtime/from_flax.py maps a Flax variable tree onto them by path.
 
@@ -93,10 +100,16 @@ def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
 
 def cast_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Convolution and dense weights to the compute dtype; norms and
-    other parameters stay float32 (the JAX package's cast_bundle_bf16)."""
+    other parameters stay float32 (the JAX package's cast_bundle_bf16).
+    On a CUDA device the convolution weights also go channels-last, so a
+    convolution given the channels-last view of NHWC images writes a
+    channels-last output and the activations keep that layout through the
+    network; call it after the module is on its device."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
+        if isinstance(m, nn.Conv2d) and m.weight.is_cuda:
+            m.to(memory_format=torch.channels_last)
     return module
 
 
@@ -153,19 +166,31 @@ class CSPLayer(nn.Module):
 
 
 class SPPBottleneck(nn.Module):
-    """Spatial pyramid pooling (kernel sizes 5/9/13, -inf padding)."""
+    """Spatial pyramid pooling (kernel sizes 5/9/13, -inf padding). Each
+    pool after the first is a pool of the one before it: at stride 1 the
+    max over a k-wide window is the max over a (k - j + 1)-wide window of
+    the j-wide pool's (borders clip alike), the same values in a third of
+    the reads, which matters in the channels-last layout, whose max-pool
+    kernel is several times slower on these 15x20 planes."""
 
     def __init__(self, cin: int, features: int,
                  kernels: Sequence[int] = (5, 9, 13)):
         super().__init__()
+        if any(k % 2 == 0 for k in kernels) or \
+                list(kernels) != sorted(set(kernels)):
+            raise ValueError(f"SPP kernels must be odd and increasing, got "
+                             f"{tuple(kernels)}")
         hidden = cin // 2
         self.ConvBN_0 = ConvBN(cin, hidden, 1, 1)
         self.kernels = tuple(kernels)
         self.ConvBN_1 = ConvBN(hidden * (len(kernels) + 1), features, 1, 1)
 
     def forward(self, x):
-        x = self.ConvBN_0(x)
-        pools = [x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.kernels]
+        pools, width = [self.ConvBN_0(x)], 1
+        for k in self.kernels:
+            step = k - width + 1
+            pools.append(F.max_pool2d(pools[-1], step, 1, step // 2))
+            width = k
         return self.ConvBN_1(torch.cat(pools, dim=1))
 
 

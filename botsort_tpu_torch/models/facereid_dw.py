@@ -1,11 +1,13 @@
 """The face encoder's stride-1 depthwise 3x3 as kernel K5 (port of
 botsort_tpu/models/facereid_pallas.py).
 
-``dw_conv3x3_same(x, kernel)`` takes the port's NCHW activations and the
-depthwise conv weight [C, 1, 3, 3] (the parameter ``nn.Conv2d(groups=C)``
-holds, so a state dict serves every lowering). A CUDA tensor launches K5,
-csrc/dw_conv3x3.cu, through ``dw_conv3x3_cuda``; a CPU tensor takes
-``dw_conv3x3_plain``; any other device raises. Both compute the nine taps
+``dw_conv3x3_same(x, kernel)`` takes NCHW activations (on the card a
+channels-last x, the networks' layout there, is first copied to NCHW)
+and the depthwise conv weight [C, 1, 3, 3] (the parameter
+``nn.Conv2d(groups=C)`` holds, so a state dict serves every lowering).
+A CUDA tensor launches K5, csrc/dw_conv3x3.cu, through
+``dw_conv3x3_cuda``; a CPU tensor takes ``dw_conv3x3_plain``; any other
+device raises. Both compute the nine taps
 in float32 from 0 in the TPU kernel's (dy, dx) order and store once in the
 input's type, so they agree bit for bit. The two are the CUDA and CPU
 implementations of the custom op ``torch.ops.botsort_tpu_torch.dw_conv3x3``

@@ -14,6 +14,7 @@ plain modules run. The state dict is the same in both modes.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -64,14 +65,18 @@ class SplAtConv(nn.Module):
 
     def forward(self, x):
         x = self._ConvBN_0(x)
-        b, _, h, w = x.shape
+        b = x.shape[0]
         r = self.radix
-        splits = x.view(b, r, -1, h, w)
-        gap = splits.sum(dim=1).mean(dim=(2, 3))                     # [B, C]
-        z = self.BatchNorm_0(self.Dense_0(gap), "relu")
+        splits = x.unflatten(1, (r, -1))                    # [B, r, C, H, W]
+        # Sums over the radix axis as adds of its slices, which keep x's
+        # layout (a sum over the axis writes NCHW); for two splits the
+        # same arithmetic, one float32 add rounded to x's dtype.
+        gap = functools.reduce(torch.add, splits.unbind(1))
+        z = self.BatchNorm_0(self.Dense_0(gap.mean(dim=(2, 3))), "relu")
         atten = self.Dense_1(z).view(b, r, -1)
         atten = torch.softmax(atten.float(), dim=1).to(x.dtype)      # rSoftmax
-        return (splits * atten[..., None, None]).sum(dim=1)
+        weighted = splits * atten[..., None, None]
+        return functools.reduce(torch.add, weighted.unbind(1))
 
 
 class SplAtBottleneck(nn.Module):

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from botsort_tpu_torch.models.common import (
@@ -57,8 +58,9 @@ class CSPDarknet(nn.Module):
 
 
 def _up(x: torch.Tensor) -> torch.Tensor:
-    """Nearest 2x upsampling (jnp.repeat on both spatial axes)."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest 2x upsampling (jnp.repeat on both spatial axes): a copy of
+    each element, in x's layout."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
 class PAFPN(nn.Module):
@@ -90,6 +92,22 @@ class PAFPN(nn.Module):
         return n3, n4, self.CSPLayer_3(x)
 
 
+class Predictor(nn.Conv2d):
+    """A head's 1x1 predictor with bias: an ``nn.Conv2d`` (its parameters,
+    names and int8 wrapping are a convolution's) computed as a product over
+    the channels of the NHWC view, so its output keeps the channels-last
+    layout whatever its width: cuDNN would write the one-channel
+    objectness map NCHW and transpose it."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__(cin, features, 1)
+
+    def forward(self, x):
+        y = F.linear(x.permute(0, 2, 3, 1), self.weight.flatten(1),
+                     self.bias)
+        return y.permute(0, 3, 1, 2)
+
+
 class DecoupledHead(nn.Module):
     """Per level: 1x1 stem, two 3x3 convs each for the class and the
     regression branch, then 1x1 predictors (cls, box, obj) with bias."""
@@ -104,13 +122,14 @@ class DecoupledHead(nn.Module):
             for k in range(1, 5):
                 self.add_module(f"ConvBN_{c + k}",
                                 ConvBN(hidden, hidden, 3, 1))
-            self.add_module(f"Conv_{p}", nn.Conv2d(hidden, num_classes, 1))
-            self.add_module(f"Conv_{p + 1}", nn.Conv2d(hidden, 4, 1))
-            self.add_module(f"Conv_{p + 2}", nn.Conv2d(hidden, 1, 1))
+            self.add_module(f"Conv_{p}", Predictor(hidden, num_classes))
+            self.add_module(f"Conv_{p + 1}", Predictor(hidden, 4))
+            self.add_module(f"Conv_{p + 2}", Predictor(hidden, 1))
 
     def forward(self, feats):
-        """NCHW features -> per-level raw maps [B, H, W, 5 + C] (NHWC,
-        the JAX layout ``decode_outputs`` flattens)."""
+        """[B, C, H, W] features -> per-level raw maps [B, H, W, 5 + C]
+        (NHWC, the JAX layout ``decode_outputs`` flattens), contiguous;
+        from channels-last predictions the permutes are free views."""
         m = lambda name: getattr(self, name)  # noqa: E731
         outs = []
         for lvl, f in enumerate(feats):
@@ -118,9 +137,10 @@ class DecoupledHead(nn.Module):
             x = m(f"ConvBN_{c}")(f)
             cls = m(f"ConvBN_{c + 2}")(m(f"ConvBN_{c + 1}")(x))
             reg = m(f"ConvBN_{c + 4}")(m(f"ConvBN_{c + 3}")(x))
-            out = torch.cat([m(f"Conv_{p + 1}")(reg), m(f"Conv_{p + 2}")(reg),
-                             m(f"Conv_{p}")(cls)], dim=1)
-            outs.append(out.permute(0, 2, 3, 1))
+            preds = (m(f"Conv_{p + 1}")(reg), m(f"Conv_{p + 2}")(reg),
+                     m(f"Conv_{p}")(cls))
+            outs.append(torch.cat([t.permute(0, 2, 3, 1) for t in preds],
+                                  dim=-1))
         return outs
 
 

@@ -77,6 +77,7 @@ LAUNCH_COUNTERS = (
     (fastreid_fused.stem_stage1_cuda, "launches"),
     (facereid_dw.dw_conv3x3_cuda, "launches"),
     (bn_act.bn_act_cuda, "launches"),
+    (bn_act.bn_act_cuda, "launches_channels_last"),
     (crop.crop_resize_cuda, "launches"),
     (nms.nms_fixpoint_cuda, "launches"),
     (hierarchy.greedy_scan_cuda, "launches"),

@@ -211,5 +211,5 @@ def build_bundle(detector_name: str = DEFAULT_DETECTOR,
                   "the reference's ONNX releases, "
                   "tools/convert_orbax_to_torch.py the JAX package's "
                   "checkpoints)", file=sys.stderr)
-        cast_compute(model, dtype).to(device).eval().requires_grad_(False)
+        cast_compute(model.to(device), dtype).eval().requires_grad_(False)
     return ModelBundle(*models)

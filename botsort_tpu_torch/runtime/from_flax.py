@@ -69,7 +69,8 @@ def load_flax_variables(module: nn.Module,
                     raise KeyError(f"{where}: no module {name!r} in "
                                    f"{type(sub).__name__}")
                 sub = sub._modules[name]
-            table = _LEAVES.get(type(sub), {})
+            table = next((_LEAVES[t] for t in type(sub).__mro__
+                          if t in _LEAVES), {})
             if leaf not in table:
                 raise KeyError(f"{where}: {type(sub).__name__} has no "
                                f"counterpart for {leaf!r}")

@@ -61,10 +61,14 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               (counted with mock.patch); result() makes one readback.
       K6      the batch norm + activation kernel against its plain version
               on every norm shape of an 8-stream step (recorded from the
-              three networks), and on odd shapes in float32 and bfloat16
-              with the four activations: bit for bit, SiLU within one unit
-              in the last place; timed against the plain version and the
-              eager chain it replaced, beside its bound.
+              three networks, every input channels-last) and of the
+              one-frame detector, and on odd shapes in float32 and bfloat16
+              with the four activations: its channels-innermost path bit
+              for bit (SiLU within one unit in the last place) and equal to
+              its NCHW path on the contiguous copy; both paths timed over
+              each step's norms against the plain version and the eager
+              chain it replaced, beside its bound. The multi phase checks
+              that every K6 launch of its replayed steps is channels-last.
       K8      the NMS fixpoint kernel against its plain version, bit for
               bit, on the candidates the loaded one-stream and the
               8-stream steps give it (recorded from their frames) and on a
@@ -1169,11 +1173,15 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
     k10 = hierarchy.greedy_scan_cuda
     cuda.launches = cuda.batched_launches = k6.launches = k7.launches = 0
-    k8.launches = k10.launches = 0
+    k6.launches_channels_last = k8.launches = k10.launches = 0
     rows["graphed"] = drive(torch, pipes["graphed"], steps,
                             lambda: cuda.batched_launches, force_at=4,
                             check=check)
     k2_launches, k6_launches = cuda.batched_launches, k6.launches
+    if k6.launches_channels_last != k6_launches:
+        raise AssertionError(
+            f"multi: {k6.launches_channels_last} of K6's {k6_launches} "
+            "launches on the channels-innermost path")
     k7_launches, k8_launches = k7.launches, k8.launches
     k10_launches = k10.launches
     for name, n in (("K8", k8_launches), ("K10", k10_launches)):
@@ -1207,7 +1215,8 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
         f"{[r['launches'] for r in rows['graphed']]} over runs "
         f"{[r['runs'] for r in rows['graphed']]}; {cache.captures} graphs "
         f"for buckets {buckets}, {cache.replays} replays; K6 launches in "
-        f"the replayed run {k6_launches}; live tracks per stream "
+        f"the replayed run {k6_launches}, all channels-last; live tracks "
+        f"per stream "
         f"{n_tracks[-1]}")
     if max(max(n) for n in n_tracks) < 1:
         raise AssertionError("no live tracks on any stream")
@@ -2881,6 +2890,8 @@ class NormRecorder:
 
     def __init__(self, bundle, BatchNorm, nets=None):
         self.calls = {}
+        # Calls whose input had its channels innermost (channels-last).
+        self.channels_last = 0
         nets = nets or (bundle.detector, bundle.body_encoder,
                         bundle.face_encoder)
         self.handles = [m.register_forward_pre_hook(self) for net in nets
@@ -2890,6 +2901,7 @@ class NormRecorder:
         act = args[1] if len(args) > 1 else "none"
         key = (tuple(args[0].shape), args[0].dtype, act)
         self.calls[key] = self.calls.get(key, 0) + 1
+        self.channels_last += int(args[0].movedim(1, -1).is_contiguous())
 
     def remove(self):
         for h in self.handles:
@@ -2922,103 +2934,129 @@ def ulp_apart(torch, got, want):
     return int((a - b).abs().max())
 
 
-def phase_k6(torch, F, bn_act, bundle, multi_pipe, frames, cfgs, card):
-    """K6 against bn_act_plain on every norm shape of an 8-stream step
-    (recorded from the networks) and on odd shapes, in float32 and
-    bfloat16 with the four activations; then its time over one step's norms
-    against the plain version, the eager chain it replaced and its bound.
-    Returns (max abs error, (ms, plain ms, bound ms, bound by, library
-    ms))."""
+def phase_k6(torch, F, bn_act, bundle, points, card):
+    """K6 on every norm shape of the steps ``points`` names ((label, frames
+    [B, H, W, 3], cfgs, networks or None for all three), recorded from the
+    networks at full buckets) and on odd shapes, in float32 and bfloat16
+    with the four activations: its channels-innermost path (the layout the
+    networks run on the card) against bn_act_plain and bit-equal to its
+    NCHW path on the contiguous copy. Then both paths' times over each
+    step's norms against the plain version, the eager chain K6 replaced and
+    its bound. Returns (max abs error, (ms, plain ms, bound ms, bound by,
+    library ms)) of the channels-last path over the first step."""
     from botsort_tpu_torch.models.common import BatchNorm
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
+    from botsort_tpu_torch.track.state import empty_stores
 
     dev = bundle.device
-    recorder = NormRecorder(bundle, BatchNorm)
-    try:
-        frames_dev = torch.from_numpy(frames).to(dev)
-        d = cfgs[0].max_dets
-        fs_mod.frame_step_batched(bundle, multi_pipe.stores, frames_dev,
-                                  *cfgs, reid_bucket=d, face_bucket=d)
-    finally:
-        recorder.remove()
+    recorded = []
+    for label, frames, cfgs, nets in points:
+        recorder = NormRecorder(bundle, BatchNorm, nets)
+        try:
+            d = cfgs[0].max_dets
+            fs_mod.frame_step_batched(
+                bundle, empty_stores(cfgs[0], frames.shape[0], dev),
+                torch.from_numpy(frames).to(dev), *cfgs, reid_bucket=d,
+                face_bucket=d)
+        finally:
+            recorder.remove()
+        if recorder.channels_last != sum(recorder.calls.values()):
+            raise AssertionError(
+                f"K6 ({label}): {recorder.channels_last} of "
+                f"{sum(recorder.calls.values())} norm inputs channels-last")
+        recorded.append((label, recorder.calls))
     torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(66)
+    channels_last = torch.channels_last
 
     def draw(shape, lo=None, hi=None):
         if lo is None:
             return torch.randn(shape, device=dev, generator=gen)
         return lo + (hi - lo) * torch.rand(shape, device=dev, generator=gen)
 
-    cases = [(shape, dtype, act, n) for (shape, dtype, act), n in
-             sorted(recorder.calls.items(), key=str)]
-    n_path = len(cases)
-    odd = [(3, 7, 5, 3), (2, 1280, 15, 20), (5, 33), (1, 1, 1, 1),
-           (2, 6, 9, 13)]
-    cases += [(shape, dtype, act, 0) for shape in odd
-              for dtype in (torch.float32, torch.bfloat16)
-              for act in bn_act.ACTS]
-    max_err, worst_ulp = 0.0, 0
-    totals = dict(ms=0.0, graph=0.0, plain=0.0, lib=0.0, bytes=0, flops=0,
-                  calls=0)
-    for k, (shape, dtype, act, count) in enumerate(cases):
+    def inputs(shape, dtype):
         c = shape[1]
         x = (2.0 * draw(shape)).to(dtype)
+        if x.dim() == 4:
+            x = x.to(memory_format=channels_last)
         mean, bias = 0.5 * draw((c,)), 0.5 * draw((c,))
         var, weight = draw((c,), 0.3, 1.8), draw((c,), 0.3, 1.8)
-        mul = torch.rsqrt(var + 1e-3) * weight
+        return x, mean, var, weight, bias, torch.rsqrt(var + 1e-3) * weight
+
+    odd = [(3, 7, 5, 3), (2, 1280, 15, 20), (5, 33), (1, 1, 1, 1),
+           (2, 6, 9, 13), (3, 20, 5, 7), (4, 24, 1, 1)]
+    shapes = sorted({key for _, calls in recorded for key in calls}, key=str)
+    n_path = len(shapes)
+    shapes += [(shape, dtype, act) for shape in odd
+               for dtype in (torch.float32, torch.bfloat16)
+               for act in bn_act.ACTS]
+    max_err, worst_ulp = 0.0, 0
+    for shape, dtype, act in shapes:
+        x, mean, _, _, bias, mul = inputs(shape, dtype)
+        before = bn_act.bn_act_cuda.launches_channels_last
         got = bn_act.bn_act_cuda(x, mean, mul, bias, act)
+        if bn_act.bn_act_cuda.launches_channels_last != before + 1:
+            raise AssertionError(f"K6: {shape} did not take the "
+                                 "channels-innermost path")
+        nchw = bn_act.bn_act_cuda(x.contiguous(), mean, mul, bias, act)
         want = bn_act.bn_act_plain(x, mean, mul, bias, act)
         torch.cuda.synchronize()
         ulps = ulp_apart(torch, got, want)
-        if ulps > (1 if act == "silu" else 0) or (
-                act != "silu" and not torch.equal(got, want)):
-            raise AssertionError(f"K6 != plain on {shape} {dtype} {act}: "
-                                 f"{ulps} units in the last place")
+        if ulps > (1 if act == "silu" else 0) or not torch.equal(got, nchw):
+            raise AssertionError(f"K6 != plain or NCHW on {shape} {dtype} "
+                                 f"{act}: {ulps} units in the last place")
         worst_ulp = max(worst_ulp, ulps)
         max_err = max(max_err, float((got.float() - want.float()).abs()
                                      .max()))
-        if count:
+    log(f"K6: {len(shapes)} cases ({n_path} norm shapes of "
+        f"{' and '.join(label for label, _ in recorded)}, {len(odd)} odd "
+        "shapes x 2 dtypes x 4 activations) on the channels-innermost path "
+        "bit-equal to the NCHW path; none / ReLU / ReLU6 bit for bit to the "
+        f"plain version, SiLU within {worst_ulp} unit in the last place")
+    first = None
+    for label, calls in recorded:
+        t = {k: 0.0 for k in ("cl", "cl_graph", "nchw", "nchw_graph",
+                              "plain", "lib")}
+        nbytes = flops = n_calls = 0
+        for (shape, dtype, act), count in sorted(calls.items(), key=str):
+            x, mean, var, weight, bias, mul = inputs(shape, dtype)
+            xc = x.contiguous()
             reps = 20 if x.numel() < 2 ** 24 else 5
-            ms = event_ms(torch, lambda: bn_act.bn_act_cuda(
+            for key, src in (("cl", x), ("nchw", xc)):
+                t[key] += count * event_ms(torch, lambda: bn_act.bn_act_cuda(
+                    src, mean, mul, bias, act), reps)
+                t[key + "_graph"] += count * graph_ms(
+                    torch, lambda: bn_act.bn_act_cuda(src, mean, mul, bias,
+                                                      act), 10, 5)
+            t["plain"] += count * event_ms(torch, lambda: bn_act.bn_act_plain(
                 x, mean, mul, bias, act), reps)
-            plain = event_ms(torch, lambda: bn_act.bn_act_plain(
-                x, mean, mul, bias, act), reps)
-            lib = event_ms(torch, lambda: eager_chain(
+            t["lib"] += count * event_ms(torch, lambda: eager_chain(
                 torch, F, x, mean, var, weight, bias, 1e-3, act), reps)
-            totals["ms"] += count * ms
-            totals["graph"] += count * graph_ms(
-                torch, lambda: bn_act.bn_act_cuda(x, mean, mul, bias, act),
-                10, 5)
-            totals["plain"] += count * plain
-            totals["lib"] += count * lib
             # One read and one write of the activation and the three
             # per-channel vectors; subtract, multiply, add and at most
             # four more operations for the activation per element.
-            totals["bytes"] += count * (2 * x.numel() * x.element_size()
-                                        + 3 * c * 4)
-            totals["flops"] += count * 7 * x.numel()
-            totals["calls"] += count
-    b_ms, b_by = bound(totals["bytes"], totals["flops"], F32_FLOPS)
-    top = sorted(((n * int(np.prod(shape)), shape, str(dtype)[6:], act, n)
-                  for shape, dtype, act, n in cases[:n_path]),
-                 reverse=True)[:4]
-    log(f"K6: {len(cases)} cases equal to the plain version ({n_path} norm "
-        f"shapes of an {STREAMS}-stream step, {len(odd)} odd shapes x 2 "
-        "dtypes x 4 activations): none / ReLU / ReLU6 bit for bit, SiLU "
-        f"within {worst_ulp} unit in the last place")
-    log(f"timing: K6 over the {totals['calls']} norms of one {STREAMS}-"
-        f"stream moderate-16 step ({n_path} shapes; the largest by elements "
-        f"x calls: {[t[1:] for t in top]}): kernel {totals['ms']:.4f} ms "
-        f"eager, {totals['graph']:.4f} ms from CUDA graphs (eager minus "
-        f"graph, the wrapper's host cost: "
-        f"{totals['ms'] - totals['graph']:.4f} ms), plain "
-        f"{totals['plain']:.4f} ms, the eager chain it replaced "
-        f"{totals['lib']:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
-        f"({totals['bytes'] / 1e6:.2f} MB: "
-        f"{totals['bytes'] / totals['graph'] / 1e9:.3f} TB/s from graphs); "
-        f"{card}")
-    return max_err, (totals["ms"], totals["plain"], b_ms, b_by,
-                     totals["lib"])
+            nbytes += count * (2 * x.numel() * x.element_size()
+                               + 3 * shape[1] * 4)
+            flops += count * 7 * x.numel()
+            n_calls += count
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        top = sorted(((n * int(np.prod(shape)), shape, str(dtype)[6:], act,
+                       n) for (shape, dtype, act), n in calls.items()),
+                     reverse=True)[:4]
+        log(f"timing: K6 over the {n_calls} norms of {label} ({len(calls)} "
+            f"shapes; the largest by elements x calls: "
+            f"{[x[1:] for x in top]}): channels-last kernel {t['cl']:.4f} "
+            f"ms eager, {t['cl_graph']:.4f} ms from CUDA graphs "
+            f"({nbytes / t['cl_graph'] / 1e9:.3f} TB/s); NCHW kernel on the "
+            f"contiguous copies {t['nchw']:.4f} ms eager, "
+            f"{t['nchw_graph']:.4f} ms from graphs "
+            f"({nbytes / t['nchw_graph'] / 1e9:.3f} TB/s); plain "
+            f"{t['plain']:.4f} ms, the eager chain K6 replaced "
+            f"{t['lib']:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.2f} MB); {card}")
+        if first is None:
+            first = (t["cl"], t["plain"], b_ms, b_by, t["lib"])
+    return max_err, first
 
 
 def k7_boxes(torch, rng, b, n, hw, dev):
@@ -4090,8 +4128,12 @@ def main() -> int:
     done("nosync")
     phase_async(torch, multi_pipe, multi_frames)
     done("async")
-    k6_err, k6_times = phase_k6(torch, F, bn_act, bundle, multi_pipe,
-                                multi_frames, multi_cfgs, card)
+    k6_err, k6_times = phase_k6(
+        torch, F, bn_act, bundle,
+        [(f"one {STREAMS}-stream moderate-16 step", multi_frames,
+          multi_cfgs, None),
+         ("the one-frame detector", main_frame[None], main_cfgs,
+          (bundle.detector,))], card)
     done("K6")
     k8_err, k8_times, floor = phase_k8(torch, nms, iou_matrix, bundle,
                                        main_frame, multi_frames, main_cfgs,

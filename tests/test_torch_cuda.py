@@ -544,6 +544,138 @@ def test_k6_refuses_what_it_does_not_take(dev):
         bn_act.bn_act_cuda(x, mean, mul, bias, "gelu")
 
 
+def _k6_nchw_reference(x, mean, mul, bias, act):
+    """K6's NCHW path (``bn_act_kernel``) on x's values: x made contiguous,
+    or, where x has one element a plane ([N, C], [N, C, 1, 1]), each element
+    twice along a new last axis (inner = 2) and the first copy kept."""
+    planes = x.numel() // (x.shape[0] * x.shape[1])
+    if planes > 1:
+        src = x.contiguous()
+        assert bn_act.bn_act_path(src) == "contiguous"
+        return bn_act.bn_act_cuda(src, mean, mul, bias, act)
+    src = torch.stack([x, x], dim=-1).contiguous()
+    assert bn_act.bn_act_path(src) == "contiguous"
+    return bn_act.bn_act_cuda(src, mean, mul, bias, act)[..., 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (8, 80, 240, 320),   # the 8-stream detector stem
+    (1, 1280, 15, 20),   # the one-frame detector's smallest plane
+    (128, 256, 96, 32),  # the 8-stream body encoder's stage 1 at 384x128
+    (50, 24, 64, 64),    # the face encoder, C = 24: three columns a row
+    (3, 20, 5, 7),       # C % 8 != 0: whole vectors in float32 only
+    (3, 7, 5, 3),        # C odd: a channel a thread
+    (128, 2048),         # the BNNeck, [N, C]
+    (50, 1280, 1, 1),    # [N, C, 1, 1]
+])
+def test_k6_channels_last_equals_its_nchw_result(dev, shape, dtype):
+    """K6's channels-innermost path (``bn_act_kernel_cl``) against its NCHW
+    path on the same values, bit for bit for all four activations (one
+    ``bn_act_one``), its output laid out as x; the counters tell the two
+    paths apart."""
+    rng = np.random.default_rng(sum(shape) + 7)
+    x, mean, mul, bias = _bn_inputs(rng, shape, dtype, dev)
+    if x.dim() == 4:
+        x = x.to(memory_format=torch.channels_last)
+    assert bn_act.bn_act_path(x) == "channels_last"
+    for act in bn_act.ACTS:
+        want = _k6_nchw_reference(x, mean, mul, bias, act)
+        before = (bn_act.bn_act_cuda.launches,
+                  bn_act.bn_act_cuda.launches_channels_last)
+        got = bn_act.bn_act(x, mean, mul, bias, act)
+        torch.cuda.synchronize()
+        assert (bn_act.bn_act_cuda.launches,
+                bn_act.bn_act_cuda.launches_channels_last) == (
+                    before[0] + 1, before[1] + 1)
+        assert got.stride() == x.stride() and got.dtype == x.dtype
+        assert torch.equal(got, want), act
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k6_channels_last_unaligned_view_and_nan(dev, dtype):
+    """A channels-last view that starts off a 16-byte boundary takes the
+    scalar form (a channel a thread) and still equals the NCHW path; NaN
+    passes through every activation."""
+    rng = np.random.default_rng(21)
+    x, mean, mul, bias = _bn_inputs(rng, (4, 16, 6, 5), dtype, dev)
+    x = x.to(memory_format=torch.channels_last)
+    base = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    odd = base[1:].as_strided(x.shape, x.stride())
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0
+    assert bn_act.bn_act_path(odd) == "channels_last"
+    for t in (odd, x):
+        t[0, 3, 2, 1] = float("nan")
+        for act in bn_act.ACTS:
+            got = bn_act.bn_act_cuda(t, mean, mul, bias, act)
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            torch.testing.assert_close(
+                got, _k6_nchw_reference(t, mean, mul, bias, act), rtol=0,
+                atol=0, equal_nan=True)
+            assert torch.isnan(got[0, 3, 2, 1])
+
+
+# (body name, streams, bucket): the benchmark's three configurations.
+LAYOUT_STEPS = [("mot17_sbs_S50_NMx3x256x128", 1, 50),
+                ("mot20_sbs_S50_NMx3x384x128", 8, 16),
+                ("transreid_vit_base_s12_msmt17_NMx3x256x128", 1, 50)]
+
+
+@pytest.mark.parametrize("body,streams,bucket", LAYOUT_STEPS,
+                         ids=["mot17_256", "mot20_384", "transreid_256"])
+def test_graphed_step_runs_channels_last_without_layout_transposes(
+        dev, body, streams, bucket):
+    """A full-width step of each configuration (both encoders at a full
+    bucket), captured in a CUDA graph and replayed under torch.profiler:
+    no cuDNN layout transpose (nchwToNhwc / nhwcToNchw), and every K6
+    launch of the step on the channels-innermost path."""
+    bundle = assets.build_bundle(body_reid_name=body, seed=3, device=dev,
+                                 dtype=torch.bfloat16)
+    hw = assets.parse_body_reid_input_hw(body)
+    trk = TrackerConfig(max_dets=bucket,
+                        body_feature_dim=bundle.body_encoder.feature_dim)
+    nms_cfg = NMSConfig(max_boxes_per_class=bucket)
+    pipe_cfg = PipelineConfig(body_reid_input_hw=hw)
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.integers(
+        0, 255, (streams, 1080, 1920, 3), dtype=np.uint8)).to(dev)
+    stores = host.empty_stores(trk, streams, dev)
+
+    def step():
+        return fs.frame_step_batched(bundle, stores, frames, trk, nms_cfg,
+                                     pipe_cfg, None, bucket, bucket)
+
+    k6 = bn_act.bn_act_cuda
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = (k6.launches, k6.launches_channels_last)
+        with torch.cuda.graph(graph):
+            step()
+        launches = (k6.launches - before[0],
+                    k6.launches_channels_last - before[1])
+        graph.replay()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    print(f"{body}: K6 launches {launches}; {len(names)} kernels")
+    assert launches[0] > 0 and launches[1] == launches[0], launches
+    assert any("bn_act_kernel_cl" in n for n in names), names
+    transposes = [n for n in names
+                  if "nchwToNhwc" in n or "nhwcToNchw" in n]
+    assert not transposes, transposes
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [
