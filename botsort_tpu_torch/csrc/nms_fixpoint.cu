@@ -372,23 +372,12 @@ nms_fixpoint_kernel(const float4* __restrict__ boxes,
 using KernelFn = void (*)(const float4*, const uint8_t*, uint8_t*, uint32_t*,
                           int, Threshold);
 
-// The kernel for a block size and candidate count, or null: 1024 threads
-// (ops/nms.py::THREADS) in the wrapper; 256 and 512 only in chip_smoke.py's
-// timing.
+// The kernel for a block size and candidate count, or null: blocks of 1024
+// threads (ops/nms.py::THREADS) only.
 KernelFn pick(int threads, int p) {
-  const bool large = p > kSmemCandidates;
-  switch (threads) {
-    case 256:
-      return large ? nms_fixpoint_kernel<256, true>
-                   : nms_fixpoint_kernel<256, false>;
-    case 512:
-      return large ? nms_fixpoint_kernel<512, true>
-                   : nms_fixpoint_kernel<512, false>;
-    case 1024:
-      return large ? nms_fixpoint_kernel<1024, true>
-                   : nms_fixpoint_kernel<1024, false>;
-    default: return nullptr;
-  }
+  if (threads != 1024) return nullptr;
+  return p > kSmemCandidates ? nms_fixpoint_kernel<1024, true>
+                             : nms_fixpoint_kernel<1024, false>;
 }
 
 // Sets a kernel's attributes once per device: dynamic shared memory up to

@@ -181,9 +181,7 @@ def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
     contiguous, all on one CUDA device -> x's shape, dtype and layout.
 
     ``bn_act_path`` picks the kernel from x's strides. Launched on the
-    current stream; nothing is synchronised. ``bn_act_cuda.launches``
-    counts launches, ``bn_act_cuda.launches_channels_last`` those of the
-    channels-innermost kernel.
+    current stream; nothing is synchronised.
     """
     _check_act(act)
     if not x.is_cuda:
@@ -222,14 +220,7 @@ def bn_act_cuda(x: torch.Tensor, mean: torch.Tensor, mul: torch.Tensor,
                     kernels.current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"bn_act launch failed: CUDA error {rc}")
-    bn_act_cuda.launches += 1
-    if path == "channels_last":
-        bn_act_cuda.launches_channels_last += 1
     return out
-
-
-bn_act_cuda.launches = 0
-bn_act_cuda.launches_channels_last = 0
 
 
 # K6b's launch: blocks per channel are chosen so that about this many
@@ -298,8 +289,7 @@ def bn_act_backward_cuda(grad_out: torch.Tensor, x: torch.Tensor,
     ...] of one dtype (float32 or bfloat16), contiguous; mean / mul / bias
     [C] float32 contiguous; all on one CUDA device. Launched on the current
     stream (two kernels: the pass over the elements, then the sums of each
-    channel's partials); nothing is synchronised.
-    ``bn_act_backward_cuda.launches`` counts calls."""
+    channel's partials); nothing is synchronised."""
     _check_act(act)
     if not x.is_cuda:
         raise ValueError("bn_act_backward_cuda takes CUDA tensors; the plain "
@@ -347,11 +337,7 @@ def bn_act_backward_cuda(grad_out: torch.Tensor, x: torch.Tensor,
             kernels.current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"bn_act_backward launch failed: CUDA error {rc}")
-    bn_act_backward_cuda.launches += 1
     return grad_x, sums[0], sums[1]
-
-
-bn_act_backward_cuda.launches = 0
 
 
 def bn_act_grads(mul: torch.Tensor, sum_gy: torch.Tensor,

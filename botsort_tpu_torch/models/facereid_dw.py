@@ -136,7 +136,6 @@ def dw_conv3x3_cuda(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     contiguous on one CUDA device -> [N, C, H, W] in x's dtype.
 
     Launched on the current stream; nothing is synchronised.
-    ``dw_conv3x3_cuda.launches`` counts launches.
     """
     if not x.is_cuda:
         raise ValueError("dw_conv3x3_cuda takes CUDA tensors; the plain "
@@ -164,11 +163,7 @@ def dw_conv3x3_cuda(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
                                       kernels.current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"dw_conv3x3 launch failed: CUDA error {rc}")
-    dw_conv3x3_cuda.launches += 1
     return out
-
-
-dw_conv3x3_cuda.launches = 0
 
 
 @torch.library.custom_op("botsort_tpu_torch::dw_conv3x3", mutates_args=(),

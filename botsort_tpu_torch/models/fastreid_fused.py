@@ -530,7 +530,7 @@ def stem_stage1_cuda(x: torch.Tensor,
 
     One call runs 16 CUDA kernels on the current stream (12 convolution
     launches, the max pool, three attention kernels); nothing is
-    synchronised. ``stem_stage1_cuda.launches`` counts calls.
+    synchronised.
     """
     if not x.is_cuda:
         raise ValueError("stem_stage1_cuda takes CUDA tensors; the plain "
@@ -560,11 +560,7 @@ def stem_stage1_cuda(x: torch.Tensor,
                                     kernels.current_stream(x.device))
     if rc != 0:
         raise RuntimeError(f"stem_stage1 launch failed: CUDA error {rc}")
-    stem_stage1_cuda.launches += 1
     return out
-
-
-stem_stage1_cuda.launches = 0
 
 
 def _conv_fields(fc: FoldedConv) -> List[torch.Tensor]:

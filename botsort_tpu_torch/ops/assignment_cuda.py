@@ -77,9 +77,6 @@ def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
 
     One warp per stream (one block above N + D = 256), launched on the
     current stream; nothing is synchronised.
-    ``cascade_solve_cuda.launches`` counts launches at
-    B = 1 (K1), ``cascade_solve_cuda.batched_launches`` those at B > 1
-    (K2).
     """
     if not costs.is_cuda:
         raise ValueError("cascade_solve_cuda takes CUDA tensors; the plain "
@@ -113,15 +110,7 @@ def cascade_solve_cuda(costs: torch.Tensor, masks: torch.Tensor,
             kernels.current_stream(dev))
     if rc != 0:
         raise RuntimeError(f"cascade_lap launch failed: CUDA error {rc}")
-    if bsz == 1:
-        cascade_solve_cuda.launches += 1
-    else:
-        cascade_solve_cuda.batched_launches += 1
     return cfr, rfc
-
-
-cascade_solve_cuda.launches = 0
-cascade_solve_cuda.batched_launches = 0
 
 
 def jv_solve_cuda(ext: torch.Tensor, p0: torch.Tensor,
@@ -132,8 +121,7 @@ def jv_solve_cuda(ext: torch.Tensor, p0: torch.Tensor,
     int32 (see ops.assignment.jv_solve_plain for the contract).
 
     One warp per problem (one block above S = 256), launched on the
-    current stream; nothing is synchronised. ``jv_solve_cuda.launches``
-    counts launches.
+    current stream; nothing is synchronised.
     """
     if not ext.is_cuda:
         raise ValueError("jv_solve_cuda takes CUDA tensors; the plain "
@@ -163,8 +151,4 @@ def jv_solve_cuda(ext: torch.Tensor, p0: torch.Tensor,
             kernels.current_stream(dev))
     if rc != 0:
         raise RuntimeError(f"jv_lap launch failed: CUDA error {rc}")
-    jv_solve_cuda.launches += 1
     return owner
-
-
-jv_solve_cuda.launches = 0

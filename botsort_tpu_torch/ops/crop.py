@@ -217,8 +217,7 @@ def crop_resize_cuda(images: torch.Tensor, boxes_tlbr: torch.Tensor,
     (or float32, not in int8 mode) contiguous and boxes [B, N, 4] on one
     CUDA device -> [B, N, out_h, out_w, 3] float32. One launch on the
     current stream (the kernel computes ``_sample_grid``'s taps itself);
-    nothing is synchronised. ``crop_resize_cuda.launches`` counts
-    launches."""
+    nothing is synchronised."""
     if not images.is_cuda:
         raise ValueError("crop_resize_cuda takes CUDA tensors; the plain "
                          "version is crop_resize_plain")
@@ -258,11 +257,7 @@ def crop_resize_cuda(images: torch.Tensor, boxes_tlbr: torch.Tensor,
             kernels.current_stream(images.device))
     if rc != 0:
         raise RuntimeError(f"crop_resize launch failed: CUDA error {rc}")
-    crop_resize_cuda.launches += 1
     return out
-
-
-crop_resize_cuda.launches = 0
 
 
 @torch.library.custom_op("botsort_tpu_torch::crop_resize", mutates_args=(),

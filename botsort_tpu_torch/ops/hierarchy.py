@@ -109,8 +109,7 @@ def greedy_scan_cuda(iou: torch.Tensor, dist: torch.Tensor,
     float32, used0 [P, T] bool, round_active [P, R] bool on one CUDA
     device, any B, T and R; above WARP_TARGETS the keys and used bits go
     to a scratch tensor (``torch.empty`` on the current stream, so a graph
-    capture takes it from the graph's pool). ``launches`` counts
-    launches."""
+    capture takes it from the graph's pool)."""
     if not iou.is_cuda:
         raise ValueError("greedy_scan_cuda takes CUDA tensors; the plain "
                          "version is greedy_scan_plain")
@@ -147,11 +146,7 @@ def greedy_scan_cuda(iou: torch.Tensor, dist: torch.Tensor,
             rounds, kernels.current_stream(iou.device))
     if rc != 0:
         raise RuntimeError(f"hierarchy_scan launch failed: CUDA error {rc}")
-    greedy_scan_cuda.launches += 1
     return picks
-
-
-greedy_scan_cuda.launches = 0
 
 
 @torch.library.custom_op("botsort_tpu_torch::hierarchy_scan",

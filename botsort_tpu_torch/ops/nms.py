@@ -38,8 +38,8 @@ from botsort_tpu_torch.utils.consts import tracing
 SMEM_CANDIDATES = 1024
 # K8's largest cluster (16 blocks: a non-portable size, which the H100
 # schedules) and its block size, the one the card ran fastest at the
-# steps' candidates with ``cluster_size``'s clusters (chip_smoke.py's K8
-# phase also times 256 and 512).
+# steps' candidates with ``cluster_size``'s clusters, ahead of 256 and 512
+# (the only block size the library holds).
 MAX_CLUSTER = 16
 THREADS = 1024
 
@@ -153,8 +153,7 @@ def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
     synchronised. top_boxes [..., P, 4] float32 and top_valid [..., P]
     bool on one CUDA device, any P; above SMEM_CANDIDATES the dominance
     words go to a scratch tensor (``torch.empty`` on the current stream,
-    so a graph capture takes it from the graph's pool). ``launches``
-    counts launches."""
+    so a graph capture takes it from the graph's pool)."""
     if not top_boxes.is_cuda:
         raise ValueError("nms_fixpoint_cuda takes CUDA tensors; the plain "
                          "version is nms_fixpoint_plain")
@@ -186,11 +185,7 @@ def nms_fixpoint_cuda(top_boxes: torch.Tensor, top_valid: torch.Tensor,
             kernels.current_stream(boxes.device))
     if rc != 0:
         raise RuntimeError(f"nms_fixpoint launch failed: CUDA error {rc}")
-    nms_fixpoint_cuda.launches += 1
     return keep
-
-
-nms_fixpoint_cuda.launches = 0
 
 
 @torch.library.custom_op("botsort_tpu_torch::nms_fixpoint", mutates_args=(),

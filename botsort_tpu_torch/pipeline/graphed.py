@@ -39,12 +39,8 @@ step's own frames until the last segment is captured, so the pool hands
 none of them to a later segment.
 
 A capture or a replay that fails raises; nothing here falls back to the
-eager step. Kernel wrappers count their launches in Python, which a replay
-does not run: the cache records how many launches of each kernel a capture
-enqueued (``LAUNCH_COUNTERS``) and adds them per replay, so the counts stay
-the number of times each kernel really ran. A switch's branches are
-counted apart: only the host knows which one ran, once it has read the
-step's result, and tells the cache with ``count_branches``.
+eager step. The cache counts no kernels: what a replay ran is counted from
+a ``torch.profiler`` trace, by kernel name.
 
 A traced facade enqueues its step under ``utils/profiling.py::recording``.
 The cache then captures the step's stage marks as event-record nodes,
@@ -62,27 +58,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from botsort_tpu_torch.models import bn_act, facereid_dw, fastreid_fused
-from botsort_tpu_torch.ops import assignment_cuda, crop, hierarchy, nms
 from botsort_tpu_torch.pipeline import switch
 from botsort_tpu_torch.utils import profiling
 
 WARMUP_CALLS = 1
-
-# (wrapper, counter attribute) of every kernel wrapper a step can launch.
-LAUNCH_COUNTERS = (
-    (assignment_cuda.cascade_solve_cuda, "launches"),
-    (assignment_cuda.cascade_solve_cuda, "batched_launches"),
-    (assignment_cuda.jv_solve_cuda, "launches"),
-    (fastreid_fused.stem_stage1_cuda, "launches"),
-    (facereid_dw.dw_conv3x3_cuda, "launches"),
-    (bn_act.bn_act_cuda, "launches"),
-    (bn_act.bn_act_cuda, "launches_channels_last"),
-    (crop.crop_resize_cuda, "launches"),
-    (nms.nms_fixpoint_cuda, "launches"),
-    (hierarchy.greedy_scan_cuda, "launches"),
-)
-
 
 def step_key(kind: str, frames_shape: Sequence[int],
              reid_bucket: Optional[int], face_bucket: Optional[int],
@@ -97,31 +76,16 @@ def step_key(kind: str, frames_shape: Sequence[int],
     return (kind, b, t, h, w, reid_bucket, face_bucket, bool(gmc_given))
 
 
-def _read_counters() -> List[int]:
-    return [getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS]
-
-
-def _add_counts(counts: Sequence[int]) -> None:
-    for (wrapper, attr), n in zip(LAUNCH_COUNTERS, counts):
-        if n:
-            setattr(wrapper, attr, getattr(wrapper, attr) + n)
-
-
 class _Entry:
-    """One captured step: its replay, its output buffers, the kernel
-    launches one replay stands for outside any switch, per switch its
-    branches and each branch's launches, what the replay needs kept alive
-    (the segments' graphs) and its stage marks (None: captured
-    untraced)."""
+    """One captured step: its replay, its output buffers, what the replay
+    needs kept alive (the segments' graphs) and its stage marks (None:
+    captured untraced)."""
 
     def __init__(self, replay: Callable[[], None],
-                 outputs: List[torch.Tensor], launches: List[int],
-                 switches: List[tuple], keep: object,
+                 outputs: List[torch.Tensor], keep: object,
                  marks: Optional[profiling.Marks] = None):
         self.replay = replay
         self.outputs = outputs
-        self.launches = launches
-        self.switches = switches
         self.keep = keep
         self.marks = marks
 
@@ -191,27 +155,13 @@ class GraphCache:
 
     def _capture(self, fn, static_in):
         """Capture ``fn(*static_in)``, in segments at its switches; returns
-        its replay, its output buffers, the launches of the work outside
-        the switches, the switches (branches, launches per branch) and the
-        items to keep alive."""
+        its replay, its output buffers and the items to keep alive."""
         items: List[tuple] = []
-        switches: List[tuple] = []
-        start = _read_counters()
-        mark = [start]
-        base = [0] * len(LAUNCH_COUNTERS)
-
-        def since_mark() -> List[int]:
-            now = _read_counters()
-            out = [a - b for a, b in zip(now, mark[0])]
-            mark[0] = now
-            return out
-
         open_segment = [self._begin()]
 
         def split(value, branches, inputs, out):
             items.append(("segment", self._end(open_segment.pop())))
-            base[:] = [a + b for a, b in zip(base, since_mark())]
-            graphs, counts = [], []
+            graphs = []
             for b in branches:
                 token = self._begin()
                 try:
@@ -219,9 +169,7 @@ class GraphCache:
                         b.run(*inputs, out)
                 finally:
                     graphs.append(self._end(token))
-                counts.append(since_mark())
             items.append(("switch", value, branches, graphs, inputs, out))
-            switches.append((branches, counts))
             open_segment.append(self._begin())
 
         try:
@@ -233,20 +181,15 @@ class GraphCache:
         finally:
             if open_segment:
                 items.append(("segment", self._end(open_segment.pop())))
-        base[:] = [a + b for a, b in zip(base, since_mark())]
-        # A capture enqueues and runs nothing: take its ticks back.
-        for (wrapper, attr), n in zip(LAUNCH_COUNTERS, start):
-            setattr(wrapper, attr, n)
         replay = self._program(items, fn, static_in, outputs)
-        return replay, outputs, base, switches, items
+        return replay, outputs, items
 
     def run(self, key: Tuple, fn: Callable[..., Sequence[torch.Tensor]],
             inputs: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
         """``fn(*inputs)`` through the graph captured for ``key`` (captured
         now if this is the key's first use). ``fn`` must be the same
         function of its inputs on every call with one key. Returns fresh
-        tensors. The launches of a switch's branches are not counted here
-        (``count_branches``)."""
+        tensors."""
         marks = profiling.current_marks()
         static_in = self._static_inputs(inputs)
         for dst, src in zip(static_in, inputs):
@@ -273,18 +216,4 @@ class GraphCache:
                 entry.replay()
             marks.take(entry.marks)
         self.replays += 1
-        _add_counts(entry.launches)
         return [None if o is None else o.clone() for o in entry.outputs]
-
-    def has_switches(self, key: Tuple) -> bool:
-        return bool(self._entries[key].switches)
-
-    def count_branches(self, key: Tuple, values: Sequence[int]) -> None:
-        """Count the launches of the branches one replay of ``key`` ran,
-        given the switches' values in run order as the host read them back
-        (the step's FrameResult holds what they were computed from)."""
-        for (branches, counts), v in zip(self._entries[key].switches,
-                                         values):
-            k = switch.branch_index(int(v), branches)
-            if k is not None:
-                _add_counts(counts[k])

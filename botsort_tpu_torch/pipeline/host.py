@@ -49,7 +49,6 @@ from botsort_tpu_torch.pipeline.frame_step import (
     frame_step_batched_temporal,
     reid_bucket_set,
     stream_result,
-    switch_values,
 )
 from botsort_tpu_torch.pipeline.graphed import GraphCache, step_key
 from botsort_tpu_torch.track.cascade import TrackOutputs
@@ -105,15 +104,12 @@ def _result_from(fields) -> FrameResult:
 class PackedResult(NamedTuple):
     """A FrameResult on the device as one buffer: ``packed`` [bytes] uint8
     holds the fields back to back (each starting on an 8-byte boundary),
-    ``layout`` their (shape, dtype) in field order; ``on_host``, where
-    given, is called with the host FrameResult (the graph cache counts a
-    switch's branch launches from it). A traced facade's step also gives
-    its stage ``marks`` and ``done``, an event recorded after the step's
-    last work (None on a device other than CUDA)."""
+    ``layout`` their (shape, dtype) in field order. A traced facade's step
+    also gives its stage ``marks`` and ``done``, an event recorded after
+    the step's last work (None on a device other than CUDA)."""
 
     packed: torch.Tensor
     layout: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
-    on_host: Optional[Any] = None
     marks: Optional[Marks] = None
     done: Optional[Any] = None
 
@@ -130,10 +126,7 @@ class PackedResult(NamedTuple):
             fields.append(raw[off:off + nbytes].view(_NUMPY_DTYPES[dtype])
                           .reshape(shape))
             off += -(-nbytes // 8) * 8
-        res = _result_from(fields)
-        if self.on_host is not None:
-            self.on_host(res)
-        return res
+        return _result_from(fields)
 
 
 def pack_result(result: FrameResult) -> PackedResult:
@@ -320,7 +313,7 @@ class _Facade:
             return [packed.packed, *_store_tensors(new)]
 
         inputs = [frames_dev, gmc, *_store_tensors(stores)]
-        on_host = done = None
+        done = None
         marks = (Marks(self.timers, self.device) if self.timers.tracing
                  else None)
         with recording(marks) if marks is not None else _NULL:
@@ -338,15 +331,11 @@ class _Facade:
                 cache.meta[key] = layout[0]
             else:
                 layout.append(cache.meta[key])
-            if cache.has_switches(key):
-                cfgs = (self.tracker_cfg, self.nms_cfg, self.pipe_cfg)
-                on_host = lambda res: cache.count_branches(  # noqa: E731
-                    key, switch_values(res, *cfgs))
         if marks is not None and marks.timed:
             done = torch.cuda.Event()
             done.record()
         return _store_from(out[1:]), PackedResult(out[0], layout[0],
-                                                  on_host, marks, done)
+                                                  marks, done)
 
     def save_session(self, path: str) -> None:
         """Write the tracking session: the stores (runtime/checkpoint.py),

@@ -205,7 +205,6 @@ class ConditionalProgram:
         lib = _lib()
         self._graph = ctypes.c_void_p(None)
         self._exec = ctypes.c_void_p(None)
-        self.switches = 0
         with torch.cuda.device(self.device):
             _check(lib.graph_cond_create(ctypes.byref(self._graph)),
                    "cudaGraphCreate")
@@ -231,7 +230,6 @@ class ConditionalProgram:
                     self._graph, ctypes.byref(last),
                     ctypes.c_void_p(value.data_ptr()), n, lo, hi, bodies),
                     "K9 and its conditional nodes")
-                self.switches += 1
             _check(lib.graph_cond_instantiate(self._graph,
                                               ctypes.byref(self._exec)),
                    "cudaGraphInstantiate")
@@ -249,13 +247,8 @@ class ConditionalProgram:
 
 def launch_conditional(program: ConditionalProgram) -> None:
     """Launch ``program`` on the current stream of its device, without
-    waiting. K9 runs once a switch in it: ``launch_conditional.launches``
-    counts those runs."""
+    waiting. K9 runs once a switch in it."""
     rc = _lib().graph_cond_launch(
         program._exec,
         ctypes.c_void_p(kernels.current_stream(program.device)))
     _check(rc, "cudaGraphLaunch")
-    launch_conditional.launches += program.switches
-
-
-launch_conditional.launches = 0

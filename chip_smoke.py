@@ -34,12 +34,14 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               CUDA graphs (the default). Every FrameResult field of every
               frame and the final store must be bit-equal, over a bucket
               change and a forced overflow re-run; K1 must launch once per
-              step run (a replay counts what its capture enqueued, a
-              capture's warm-up call is one more); the last eager frame's
+              step run and once per warm-up call of a new graph
+              (torch.profiler, by kernel name, in every update of both
+              runs, each one profile); the last eager frame's
               cascade re-run with the plain solver on the card must give
               the same tracks. Prints both medians, device kernels and
               host launch calls a frame (torch.profiler) and the busy
-              share. K7 must launch once a step run and once a non-zero
+              share (timed over the frames once more, unprofiled). K7
+              must launch once a step run and once a non-zero
               bucket, K8 once a step run (the NMS fixpoint runs to its end:
               one NMS program, no re-run; every step of every phase that
               drives a facade must report it converged), K10 once a step
@@ -51,7 +53,7 @@ Drives the port's paths on the card and fails loudly if any phase fails:
   9. multi    the same for BatchedBoTSORTPipeline at 8 streams, full width,
               over 8 steps of 8 seeded 1080p frames at the moderate-16
               point, with K2 once per step run, K8 and K10 once per step
-              run; counts K6's and K7's launches; the crops' cost as in
+              run, every K6 launch channels-last; the crops' cost as in
               main.
       nosync  one loaded full-width frame_step, its replay from the graph
               and an 8-stream update_async under
@@ -68,17 +70,16 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               its NCHW path on the contiguous copy; both paths timed over
               each step's norms against the plain version and the eager
               chain it replaced, beside its bound. The multi phase checks
-              that every K6 launch of its replayed steps is channels-last.
+              that every K6 launch of its updates is channels-last.
       K8      the NMS fixpoint kernel against its plain version, bit for
               bit, on the candidates the loaded one-stream and the
               8-stream steps give it (recorded from their frames) and on a
-              suppression chain of length P = 512, through the wrapper and
-              launched directly (``k8_sweep``) at block sizes 256, 512 and
-              1024 and at cluster sizes 2-16; the cluster size
-              (ops/nms.py::launch_shape) and block size each input
-              launches with; the iterations each needs; CUDA-event, graph
-              and plain times beside the bound, the graph time per block
-              size and per cluster size, and the
+              suppression chain of length P = 512, through the wrapper (one
+              launch) and launched directly (``k8_sweep``) at cluster
+              sizes 2-16; the cluster size (ops/nms.py::launch_shape) each
+              input launches with, in blocks of 1,024 threads; the
+              iterations each needs; CUDA-event, graph and plain times
+              beside the bound, the graph time per cluster size, and the
               16-iteration PyTorch chain it replaced (its time and device
               kernels a call), in this call; the empty-node floor (a CUDA
               graph of 100 one-element kernels, ms a node), printed again
@@ -102,9 +103,10 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               for at most 16, pre_nms_top_k = 16 instead: few_bodies)
               and the 8-stream point (0 and up to 16): each step bit-equal
               to the static-bucket graph at the buckets its branches
-              encode, one capture a facade, K9 twice a replay, K7 once a
-              step and once a branch taken, K8 and K10 once a step;
-              graphed medians and device ms
+              encode, one capture a facade, K9 twice an update, K7 once a
+              step and once a branch taken, K8 and K10 once a step (each
+              update counted; the first also holds its warm-up call);
+              graphed medians (under the profiler) and device ms
               a step per regime; a replay and an 8-stream update_async
               under the sync debug mode.
       temporal TemporalBatchedBoTSORTPipeline at full width, B = 8, T = 2,
@@ -112,7 +114,8 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               graphs: the first groups equal T chained frame_step_batched
               calls at equal buckets (their perception taken from the same
               batch of B*T frames); K2 launches T times per step run, K10
-              once (all B*T frames' problems in one launch).
+              once (all B*T frames' problems in one launch), K7 once and
+              once a non-zero bucket.
       K10     the hierarchy's claims kernel against its plain version
               (greedy_scan_plain) on the card, bit for bit, on the inputs
               the loaded one-stream, the 8-stream and the temporal steps
@@ -185,9 +188,10 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               over 8 frames every FrameResult field and the final stores
               equal the live facade's, the graphs call the kernels as
               torch.ops.botsort_tpu_torch ops (K8's and K10's among them),
-              and K1/K2, K6, K7, K8 and K10 count on replay. Prints export
-              and load
-              seconds, bytes and live against loaded replay medians.
+              and every update launches K1/K2, K7, K8 and K10 as its step
+              runs do and K6 as often as the live facade's. Prints export
+              and
+              load seconds, bytes and live against loaded replay medians.
  15. serve    cli/serve.py's server on a localhost thread with a numpy
               decoder, cold and after warm_up captured the program of
               every bucket pair at 1080p: the JSON of 4 frames equals a
@@ -200,13 +204,15 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               called directly (the dispatchers' eager route) and through
               their custom ops (torch.ops.botsort_tpu_torch, the route a
               trace takes), runs in the order direct, op, op, direct:
-              equal results and launches, and both routes' medians (the
-              dispatcher's host cost).
+              equal results, every update launching K1, K7, K8 and K10 as
+              its step runs say, equal launch totals of the runs, and both
+              routes' medians (the dispatcher's host cost).
  18. train    train/reid_trainer.py's make_trainer on the full-width
               FastReIDSBS (bfloat16 convolutions, float32 masters) at
               256x128, 64 crops of 16 identities, a warm-up step and 6
               timed steps on (cuda:0,): the losses, ms a step, K6 and K6b
-              launches a step (one each per norm), peak memory.
+              launches in each timed step (one each per norm), peak
+              memory.
  19. K6b      the batch norm + activation backward kernel against its
               plain version on every norm shape of a training step and on
               odd shapes in float32 and bfloat16 with the four activations:
@@ -220,23 +226,31 @@ Drives the port's paths on the card and fails loudly if any phase fails:
               frames) beside the bfloat16 point, both replayed from CUDA
               graphs: frame medians, the body encoder at one frame's 50
               crops int8 against bfloat16, the cosine of their embeddings
-              (> 0.97); K1 and K6 launch on the int8 path.
+              (> 0.97); every update launches K1, K7, K8 and K10 as its
+              step runs say, and K6.
  21. mesh     MeshBatchedBoTSORTPipeline with 16 streams over (cuda:0,
               cuda:0), moderate-16: every FrameResult field and track list
               of slice 0 equals BatchedBoTSORTPipeline's over the first 8
-              at every step; K2 and K6 launch on the mesh path.
+              at every step; every update launches K2, K7, K8 and K10 as
+              both slices' step runs say, and K6.
  22. envelope the 8-stream moderate-16 aggregate frames/s, replayed from
               CUDA graphs, at body ReID 256x128 and 384x128: the numbers
               runtime/envelope.py quotes.
 
-The line before the last is a JSON object describing every kernel; the
-last line is {"ok": true, "device": {...}}. Run from the repository root:
+Every launch count is read from torch.profiler by the kernel's
+__global__ name (tests/torch_profile.py), each counted call between two
+marker kernels on the card's timeline: every update of a facade's run
+(the run one profile), or the kernel's own call. The line before the last
+is a JSON object describing every kernel ("launches": those counted in a
+phase's graphed run, warm-up calls included); the last line is
+{"ok": true, "device": {...}}. Run from the repository root:
 
     python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
@@ -248,6 +262,11 @@ import time
 from unittest import mock
 
 import numpy as np
+
+# The repository's root and its tests/ (torch_profile, torch_scenes).
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+from torch_profile import counting, kernel_counts  # noqa: E402
 
 LIMITS = (0.8, 0.5, 0.7)
 N_TRACKS, N_DETS = 64, 50
@@ -281,7 +300,21 @@ K7_CASES = (("detector input", 1, 1, (480, 640)),
             ("face crops", 1, 50, (128, 128)),
             ("body crops", STREAMS, 50, (256, 128)),
             ("face crops", STREAMS, 50, (128, 128)))
+# The kernels' __global__ symbols, as torch.profiler names them
+# (tests/torch_profile.py): every launch count comes from a profile. K1
+# and K2 are one template (one launch for a B-stream problem, B for B
+# one-stream ones), K4 runs 16 kernels a call (one ``stem0_kernel``), K6
+# has two paths and K10 two forms.
+K1_KERNEL = "cascade_lap_kernel"
+K3_KERNEL = "jv_lap_kernel"
+K4_KERNEL = "stem0_kernel"
+K5_KERNEL = "dw3x3_kernel"
+K6_KERNELS = ("bn_act_kernel", "bn_act_kernel_cl")
+K6_CL_KERNEL = "bn_act_kernel_cl"
+K6B_KERNEL = "bn_act_backward_kernel"
 K7_KERNEL = "crop_resize_kernel"
+K8_KERNEL = "nms_fixpoint_kernel"
+K10_KERNELS = ("hierarchy_scan_warp", "hierarchy_scan_block")
 K8_SOURCE = "botsort_tpu_torch/csrc/nms_fixpoint.cu"
 # K8 replaces no TPU kernel: the JAX package's suppression fixpoint is a
 # lax.while_loop inside the jitted step (botsort_tpu/ops/nms.py:88-103).
@@ -598,10 +631,9 @@ def phase_k2(torch, assignment, assignment_cuda, dev):
         tensors = [torch.from_numpy(np.stack(x)).to(dev)
                    for x in zip(*insts)]
         costs, masks, big = assignment.prepare_cascade(*tensors, LIMITS)
-        before = cuda.batched_launches
         got = cuda(costs, masks, big, LIMITS)
-        if cuda.batched_launches != before + 1:
-            raise AssertionError("an 8-stream solve was not one launch")
+        check_launches(f"K2 batch {k}", kernel_counts(
+            lambda: cuda(costs, masks, big, LIMITS)), {K1_KERNEL: 1})
         want = assignment.cascade_solve_plain(costs, masks, big, LIMITS)
         singles = [cuda(costs[s:s + 1], masks[s:s + 1], big[s:s + 1],
                         LIMITS) for s in range(STREAMS)]
@@ -632,15 +664,30 @@ def objective(cost, rows, cols, cfr, limit):
             + half * (rows.sum() - n_matched + cols.sum() - n_matched))
 
 
-def phase_oracle(torch, assignment, assignment_cuda, batches):
+def phase_oracle(torch, assignment, batches):
     """K1's and K2's results against three chained solve_masked calls (K3
     on the card) per stream: equal matchings on the random batches; on the
     tie-heavy ones, where another optimum is as good, equal objectives
     (float64, 1e-5) on the problems K2 solved (passes 2 and 3 from K2's own
-    pass 1). Returns K3's launch count on this path and the max index
-    error."""
-    jv = assignment_cuda.jv_solve_cuda
-    jv.launches = 0
+    pass 1). Returns K3's launch count on this path (torch.profiler) and
+    the max index error."""
+    found = []
+    counts = kernel_counts(lambda: found.append(oracle_batches(
+        torch, assignment, batches)))
+    max_err, worst_gap, n_ties = found[-1]
+    k3 = counts[K3_KERNEL]
+    if k3 != 3 * STREAMS * len(batches):
+        raise AssertionError(f"solve_masked launched K3 {k3} times")
+    log(f"oracle: K1 and K2 equal three chained K3 solves on "
+        f"{STREAMS * len(batches) - n_ties} streams; on {n_ties} tie-heavy "
+        f"streams K2's objectives equal K3's (largest gap {worst_gap:.3g}); "
+        f"{k3} K3 launches")
+    return k3, max_err
+
+
+def oracle_batches(torch, assignment, batches):
+    """phase_oracle's comparisons; returns (max index error, largest
+    objective gap, tie-heavy streams)."""
     max_err, worst_gap, n_ties = 0, 0.0, 0
     for k, (tensors, prepared, k2_out, ties) in enumerate(batches):
         for s in range(STREAMS):
@@ -682,14 +729,7 @@ def phase_oracle(torch, assignment, assignment_cuda, batches):
                         index_err(torch, getattr(k1_out[p], name), w,
                                   f"K1 != K3 chain, batch {k} stream {s} "
                                   f"pass {p + 1} {name}"))
-    launches = jv.launches
-    if launches != 3 * STREAMS * len(batches):
-        raise AssertionError(f"solve_masked launched K3 {launches} times")
-    log(f"oracle: K1 and K2 equal three chained K3 solves on "
-        f"{STREAMS * len(batches) - n_ties} streams; on {n_ties} tie-heavy "
-        f"streams K2's objectives equal K3's (largest gap {worst_gap:.3g}); "
-        f"{launches} K3 launches")
-    return launches, max_err
+    return max_err, worst_gap, n_ties
 
 
 def phase_small(torch, assets, dev):
@@ -747,9 +787,7 @@ class CascadeRecorder:
 
     def replay_plain(self, torch, assignment, assignment_cuda, cascade):
         """The last call again with the plain solver on the card; fails
-        unless its outputs are equal and no kernel launched."""
-        cuda = assignment_cuda.cascade_solve_cuda
-        counts = (cuda.launches, cuda.batched_launches)
+        unless its outputs are equal and no cascade kernel ran."""
 
         def plain_on_card(costs, masks, big, limits,
                           max_iters=assignment.MAX_ITERS):
@@ -757,11 +795,18 @@ class CascadeRecorder:
                                                   max_iters)
 
         stores, args, out = self.last
+        found = []
         with torch.no_grad(), mock.patch.object(
                 assignment_cuda, "cascade_solve_cuda", plain_on_card):
-            _, plain_out = cascade.tracker_update_batched(stores, *args)
-        if (cuda.launches, cuda.batched_launches) != counts:
-            raise AssertionError("the plain re-run launched a kernel")
+            counts = kernel_counts(lambda: found.append(
+                cascade.tracker_update_batched(stores, *args)[1]))
+        # The plain solver's own kernels show that the window holds the
+        # call.
+        if counts[K1_KERNEL] or sum(counts.values()) < 1:
+            raise AssertionError(f"the plain re-run launched {counts}, not "
+                                 "the plain solver without the cascade "
+                                 "kernel")
+        plain_out = found[-1]
         for name, want, got in zip(plain_out._fields, plain_out, out):
             if not torch.equal(want, got):
                 raise AssertionError(f"tracks.{name}: kernel path != "
@@ -831,6 +876,63 @@ def profiled_events(torch, fn, steps):
     return [e for e in events if e.time_range.start >= syncs[0]]
 
 
+def launches(counts, kernel):
+    """The launches of ``kernel`` (a symbol or a tuple of one kernel's
+    symbols) in ``counts``."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    return sum(counts[n] for n in names)
+
+
+def check_launches(what, counts, want):
+    """Fail unless ``counts`` holds each kernel of ``want`` as often as it
+    says."""
+    for kernel, n in want.items():
+        if launches(counts, kernel) != n:
+            raise AssertionError(f"{what}: {kernel} launched "
+                                 f"{launches(counts, kernel)} times, not {n}")
+
+
+def run_launches(rows, kernel):
+    """The launches of ``kernel`` over a counted run's updates
+    (``drive(..., count=True)``)."""
+    return sum(launches(r["counts"], kernel) for r in rows)
+
+
+def check_run_kernels(what, rows, want=None, slices=1, channels_last=False):
+    """Hold every update of a counted run (``drive(..., count=True)``) to
+    what its step runs stand for: ``want(rb, fb)`` (default
+    ``step_run_launches``) for each run of each of ``slices`` facade
+    slices, and once more for each warm-up call of a run that captured a
+    new graph (the warm-up runs the step eagerly, the capture runs
+    nothing); with ``channels_last`` every K6 launch of an update on the
+    channels-innermost path."""
+    from botsort_tpu_torch.pipeline.graphed import WARMUP_CALLS
+
+    want = want or step_run_launches
+    for i, r in enumerate(rows):
+        expected = collections.Counter()
+        for rb, fb, new in r["runs"]:
+            for kernel, n in want(rb, fb).items():
+                expected[kernel] += n * (slices + WARMUP_CALLS * new)
+        check_launches(f"{what}: update {i + 1} over runs {r['runs']}",
+                       r["counts"], expected)
+        cl = r["counts"][K6_CL_KERNEL]
+        if channels_last and (cl < 1 or
+                              launches(r["counts"], K6_KERNELS) != cl):
+            raise AssertionError(
+                f"{what}: update {i + 1}: {cl} of K6's "
+                f"{launches(r['counts'], K6_KERNELS)} launches on the "
+                "channels-innermost path")
+
+
+def step_run_launches(rb, fb):
+    """What a replayed frame step launches at a static bucket pair: the
+    cascade, K8 and K10 once; K7 for the detector input and once a
+    non-zero bucket."""
+    return {K1_KERNEL: 1, K7_KERNEL: 1 + (rb > 0) + (fb > 0), K8_KERNEL: 1,
+            K10_KERNELS: 1}
+
+
 def device_us(torch, e):
     """An event's device microseconds, or None for a host event."""
     if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -885,7 +987,7 @@ def crop_cost(torch, label, unit, graphed, make_float32, inputs, card,
     out = {}
     for name in ("float32", "default", "float32"):
         pipe = pipes[name]
-        rows = drive(torch, pipe, inputs, lambda: 0, gmc=gmc)
+        rows = drive(torch, pipe, inputs, gmc=gmc)
         out.setdefault(name, []).extend(steady_ms(rows))
     shares = {}
     for name, pipe in pipes.items():
@@ -914,22 +1016,51 @@ def forget_counts(pipeline):
         pipeline._last_max_live, pipeline._last_max_face = 0, 0
 
 
-def drive(torch, pipeline, inputs, launches_of, force_at=None, gmc=None,
-          check=None):
+def graph_cache(pipeline):
+    """A facade's graph cache (a mesh's: its first slice's, which the
+    slices on its device share), or None."""
+    if pipeline._graphs is None and hasattr(pipeline, "_slices"):
+        return pipeline._slices[0]._graphs
+    return pipeline._graphs
+
+
+def drive(torch, pipeline, inputs, force_at=None, gmc=None, check=None,
+          count=False):
     """A facade over ``inputs`` (one update each); per step its host-clock
     time to the end of the device's work, its step runs as (reid bucket,
-    face bucket, whether the run captured a new graph), the kernel's
-    launch-count difference, its tracks and its host FrameResult."""
+    face bucket, whether the run captured a new graph), its tracks and its
+    host FrameResult; with ``count``, the whole run is one torch.profiler
+    run (tests/torch_profile.py) and each step also holds the device
+    kernels its update ran (``counts``, by symbol), its own from the card's
+    timeline, and its time includes the profiler's cost. A profile that
+    lost an update's events fails the run."""
     runs = []
     real_step = pipeline._step
+    cache = graph_cache(pipeline)
 
     def step(*a):
-        cache = pipeline._graphs
         known = len(cache.keys()) if cache is not None else 0
         out = real_step(*a)
         runs.append((a[2], a[3],
                      cache is not None and len(cache.keys()) > known))
         return out
+
+    def update(i, x):
+        if i == force_at:
+            forget_counts(pipeline)
+        n_runs = len(runs)
+        t0 = time.perf_counter()
+        tracks = pipeline.update(x) if gmc is None else \
+            pipeline.update(x, gmc[i])
+        torch.cuda.synchronize()
+        ms = 1000.0 * (time.perf_counter() - t0)
+        if not np.all(pipeline.last_result.nms_converged):
+            raise AssertionError(f"step {i + 1}: the NMS fixpoint did "
+                                 "not converge")
+        if check is not None:
+            check(pipeline.last_result)
+        rows.append(dict(ms=ms, runs=runs[n_runs:], tracks=tracks,
+                         result=pipeline.last_result))
 
     # The patch goes again by deleting it: a bound method of the pipeline
     # left in its own __dict__ is a reference cycle, which would leave the
@@ -940,46 +1071,21 @@ def drive(torch, pipeline, inputs, launches_of, force_at=None, gmc=None,
     pipeline._step = step
     rows = []
     try:
-        for i, x in enumerate(inputs):
-            if i == force_at:
-                forget_counts(pipeline)
-            n_runs, before = len(runs), launches_of()
-            t0 = time.perf_counter()
-            tracks = pipeline.update(x) if gmc is None else \
-                pipeline.update(x, gmc[i])
-            torch.cuda.synchronize()
-            ms = 1000.0 * (time.perf_counter() - t0)
-            if not np.all(pipeline.last_result.nms_converged):
-                raise AssertionError(f"step {i + 1}: the NMS fixpoint did "
-                                     "not converge")
-            if check is not None:
-                check(pipeline.last_result)
-            rows.append(dict(ms=ms, runs=runs[n_runs:],
-                             launches=launches_of() - before, tracks=tracks,
-                             result=pipeline.last_result))
+        if count:
+            with counting() as counter:
+                for i, x in enumerate(inputs):
+                    counter(lambda: update(i, x))
+            for r, counts in zip(rows, counter.counts):
+                r["counts"] = counts
+        else:
+            for i, x in enumerate(inputs):
+                update(i, x)
     finally:
         if own:
             pipeline._step = real_step
         else:
             del pipeline._step
     return rows
-
-
-def expected_launches(row, per_run=1, ran=lambda run: True):
-    """Launches a step's runs stand for: one per replay (or eager run), and
-    the warm-up calls of a run that captured a new graph."""
-    from botsort_tpu_torch.pipeline.graphed import WARMUP_CALLS
-
-    return per_run * sum(1 + WARMUP_CALLS * new
-                         for rb, fb, new in row["runs"] if ran((rb, fb)))
-
-
-def k7_expected(rows):
-    """K7 launches the steps of ``rows`` stand for: a step run crops the
-    detector input, and the body and face crops of a non-zero bucket."""
-    return sum(expected_launches(dict(runs=[run]), 1 + (run[0] > 0)
-                                 + (run[1] > 0))
-               for r in rows for run in r["runs"])
 
 
 def steady_ms(rows):
@@ -1012,23 +1118,23 @@ def same_results(torch, host, rows_a, rows_b, stores_a, stores_b, what):
             raise AssertionError(f"{what}: final store field {k} differs")
 
 
-def report_point(torch, label, unit, pipes, rows, frames_per_step, card,
-                 profile_input, gmc=None):
+def report_point(torch, label, unit, pipes, inputs, frames_per_step, card):
     """Medians, launches per step and busy share of the eager and the
-    replayed facade of one operating point; returns {mode: (median ms,
+    replayed facade of one operating point, each timed over ``inputs``
+    once more, outside any profile; returns {mode: (median ms,
     frames/s)}."""
     out = {}
     for mode in ("eager", "graphed"):
-        ms = steady_ms(rows[mode])
+        pipe = pipes[mode]
+        rows = drive(torch, pipe, inputs)
+        ms = steady_ms(rows)
         median = statistics.median(ms)
         fps = frames_per_step * len(ms) / (sum(ms) / 1000.0)
-        pipe = pipes[mode]
-        fn = (lambda: pipe.update(profile_input)) if gmc is None else (
-            lambda: pipe.update(profile_input, gmc))
-        n_dev, n_host, dev_ms = step_profile(torch, fn)
+        n_dev, n_host, dev_ms = step_profile(
+            torch, lambda: pipe.update(inputs[-1]))
         log(f"timing: {label} {mode}: median {median:.3f} ms a {unit} over "
             f"{len(ms)} steady {unit}s (all: "
-            f"{[round(r['ms'], 3) for r in rows[mode]]}), {fps:.2f} "
+            f"{[round(r['ms'], 3) for r in rows]}), {fps:.2f} "
             f"frames/s; under torch.profiler: {n_dev:.0f} device kernels "
             f"and copies a {unit}, {n_host:.0f} host launch calls a {unit}"
             f"{'' if n_host else ' (not measured)'}, {dev_ms:.3f} ms of "
@@ -1049,7 +1155,7 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
     async material and the eager run's cascade inputs."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, hierarchy, nms
+    from botsort_tpu_torch.ops import crop
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -1061,7 +1167,6 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
               for _ in range(8)]
-    cuda = assignment_cuda.cascade_solve_cuda
     recorder = CascadeRecorder(fs_mod)
     solver_rec = SolverRecorder(assignment)
     check = lambda res: check_finite(res, nms_cfg)  # noqa: E731
@@ -1069,36 +1174,20 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
     with mock.patch.object(fs_mod, "tracker_update_batched", recorder), \
             mock.patch.object(assignment, "solve_cascade_masked",
                               solver_rec):
-        rows["eager"] = drive(torch, pipes["eager"], frames,
-                              lambda: cuda.launches, force_at=4, check=check)
+        rows["eager"] = drive(torch, pipes["eager"], frames, force_at=4,
+                              check=check, count=True)
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log("main: last eager frame's tracks with the plain solver equal K1's")
-    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
-    k10 = hierarchy.greedy_scan_cuda
-    cuda.launches = cuda.batched_launches = k7.launches = k8.launches = 0
-    k10.launches = 0
-    rows["graphed"] = drive(torch, pipes["graphed"], frames,
-                            lambda: cuda.launches, force_at=4, check=check)
-    main_launches, k7_launches = cuda.launches, k7.launches
-    k8_launches, k10_launches = k8.launches, k10.launches
-    if k7_launches != k7_expected(rows["graphed"]):
-        raise AssertionError(f"main: K7 launched {k7_launches} times, not "
-                             "once a step run and once a non-zero bucket")
-    for name, n in (("K8", k8_launches), ("K10", k10_launches)):
-        if n != sum(expected_launches(r) for r in rows["graphed"]):
-            raise AssertionError(f"main: {name} launched {n} times, not "
-                                 "once a step run")
-    if cuda.batched_launches:
-        raise AssertionError("the one-stream path launched K2")
+    rows["graphed"] = drive(torch, pipes["graphed"], frames, force_at=4,
+                            check=check, count=True)
     same_results(torch, host, rows["eager"], rows["graphed"],
                  pipes["eager"].store, pipes["graphed"].store,
                  "main: graphed != eager")
     for mode in rows:
-        for i, r in enumerate(rows[mode]):
-            if r["launches"] != expected_launches(r) or r["launches"] < 1:
-                raise AssertionError(
-                    f"main {mode}: frame {i + 1} launched K1 "
-                    f"{r['launches']} times over runs {r['runs']}")
+        check_run_kernels(f"main {mode}", rows[mode])
+    main_launches, k7_launches, k8_launches, k10_launches = (
+        run_launches(rows["graphed"], k)
+        for k in (K1_KERNEL, K7_KERNEL, K8_KERNEL, K10_KERNELS))
     cache = pipes["graphed"]._graphs
     n_runs = sum(len(r["runs"]) for r in rows["graphed"])
     if cache.replays != n_runs or cache.captures != len(cache.keys()):
@@ -1109,16 +1198,19 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
     n_tracks = [len(r["tracks"]) for r in rows["graphed"]]
     res = rows["graphed"][-1]["result"]
     log(f"main: graphed equals eager on every FrameResult field of "
-        f"{len(frames)} frames and on the final store; K1 launches per "
-        f"frame {[r['launches'] for r in rows['graphed']]} over runs "
-        f"{[r['runs'] for r in rows['graphed']]}; {cache.captures} graphs "
+        f"{len(frames)} frames and on the final store; K1 once a step run "
+        f"and a warm-up call (torch.profiler, every update of both runs), "
+        f"per frame "
+        f"{[launches(r['counts'], K1_KERNEL) for r in rows['graphed']]} "
+        f"over runs {[r['runs'] for r in rows['graphed']]}; "
+        f"{cache.captures} graphs "
         f"for buckets {buckets}, {cache.replays} replays; live tracks per "
         f"frame {n_tracks}, bodies in the last frame "
         f"{int(res.det_valid[0].sum())}")
     if max(n_tracks) < 1:
         raise AssertionError("no live tracks on any frame")
     report_point(torch, "BoTSORTPipeline.update (loaded, one stream)",
-                 "frame", pipes, rows, 1, card, frames[-1])
+                 "frame", pipes, frames, 1, card)
     staged = pipes["graphed"]._staging["frame"].dtype
     if staged != torch.uint8:
         raise AssertionError(f"main: the staged frames are {staged}")
@@ -1136,14 +1228,13 @@ def phase_main(torch, bundle, assignment, assignment_cuda, card):
             pipes["graphed"], frames[-1], cfgs, solver_rec.calls)
 
 
-def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
+def phase_multi(torch, bundle, assignment, assignment_cuda, card):
     """BatchedBoTSORTPipeline, 8 streams, moderate-16, eager and replayed
     over the same frames; returns K2's and K6's launches in the replayed
     run, the replayed medians and the pipeline; then the crops' cost
     (``crop_cost``)."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track import cascade
@@ -1158,50 +1249,26 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
     rng = np.random.default_rng(1)
     steps = [rng.integers(0, 255, (STREAMS,) + FRAME_HW + (3,), dtype=np.uint8)
              for _ in range(8)]
-    cuda = assignment_cuda.cascade_solve_cuda
-    k6 = bn_act.bn_act_cuda
     recorder = CascadeRecorder(fs_mod)
     check = lambda res: check_finite(res, nms_cfg, STREAMS)  # noqa: E731
     rows = {}
     with mock.patch.object(fs_mod, "tracker_update_batched", recorder):
-        rows["eager"] = drive(torch, pipes["eager"], steps,
-                              lambda: cuda.batched_launches, force_at=4,
-                              check=check)
+        rows["eager"] = drive(torch, pipes["eager"], steps, force_at=4,
+                              check=check, count=True)
     recorder.replay_plain(torch, assignment, assignment_cuda, cascade)
     log(f"multi: last eager step's tracks with the plain solver equal K2's "
         f"on all {STREAMS} streams")
-    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
-    k10 = hierarchy.greedy_scan_cuda
-    cuda.launches = cuda.batched_launches = k6.launches = k7.launches = 0
-    k6.launches_channels_last = k8.launches = k10.launches = 0
-    rows["graphed"] = drive(torch, pipes["graphed"], steps,
-                            lambda: cuda.batched_launches, force_at=4,
-                            check=check)
-    k2_launches, k6_launches = cuda.batched_launches, k6.launches
-    if k6.launches_channels_last != k6_launches:
-        raise AssertionError(
-            f"multi: {k6.launches_channels_last} of K6's {k6_launches} "
-            "launches on the channels-innermost path")
-    k7_launches, k8_launches = k7.launches, k8.launches
-    k10_launches = k10.launches
-    for name, n in (("K8", k8_launches), ("K10", k10_launches)):
-        if n != sum(expected_launches(r) for r in rows["graphed"]):
-            raise AssertionError(f"multi: {name} launched {n} times, not "
-                                 "once a step run")
-    if k7_launches != k7_expected(rows["graphed"]):
-        raise AssertionError(f"multi: K7 launched {k7_launches} times, not "
-                             "once a step run and once a non-zero bucket")
-    if cuda.launches:
-        raise AssertionError("the 8-stream path launched one-stream K1")
+    rows["graphed"] = drive(torch, pipes["graphed"], steps, force_at=4,
+                            check=check, count=True)
     same_results(torch, host, rows["eager"], rows["graphed"],
                  pipes["eager"].stores, pipes["graphed"].stores,
                  "multi: graphed != eager")
+    # One cascade launch a step run for all the streams: K2, never K1.
     for mode in rows:
-        for i, r in enumerate(rows[mode]):
-            if r["launches"] != expected_launches(r) or r["launches"] < 1:
-                raise AssertionError(
-                    f"multi {mode}: step {i + 1} launched K2 "
-                    f"{r['launches']} times over runs {r['runs']}")
+        check_run_kernels(f"multi {mode}", rows[mode], channels_last=True)
+    k2_launches, k6_launches, k7_launches, k8_launches, k10_launches = (
+        run_launches(rows["graphed"], k) for k in
+        (K1_KERNEL, K6_KERNELS, K7_KERNEL, K8_KERNEL, K10_KERNELS))
     cache = pipes["graphed"]._graphs
     n_runs = sum(len(r["runs"]) for r in rows["graphed"])
     if cache.replays != n_runs or cache.captures != len(cache.keys()):
@@ -1211,12 +1278,13 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
         raise AssertionError(f"multi: no bucket change or re-run: {buckets}")
     n_tracks = [[len(t) for t in r["tracks"]] for r in rows["graphed"]]
     log(f"multi: graphed equals eager on every FrameResult field of "
-        f"{len(steps)} steps and on the final stores; K2 launches per step "
-        f"{[r['launches'] for r in rows['graphed']]} over runs "
-        f"{[r['runs'] for r in rows['graphed']]}; {cache.captures} graphs "
-        f"for buckets {buckets}, {cache.replays} replays; K6 launches in "
-        f"the replayed run {k6_launches}, all channels-last; live tracks "
-        f"per stream "
+        f"{len(steps)} steps and on the final stores; K2 once a step run "
+        f"and a warm-up call for all {STREAMS} streams (torch.profiler, "
+        f"every update of both runs), {k2_launches} in the graphed run "
+        f"over runs {[r['runs'] for r in rows['graphed']]}; "
+        f"{cache.captures} graphs for buckets {buckets}, {cache.replays} "
+        f"replays; K6 launches in the graphed run {k6_launches}, all "
+        f"channels-last in both runs; live tracks per stream "
         f"{n_tracks[-1]}")
     if max(max(n) for n in n_tracks) < 1:
         raise AssertionError("no live tracks on any stream")
@@ -1224,7 +1292,7 @@ def phase_multi(torch, bundle, assignment, assignment_cuda, bn_act, card):
         raise AssertionError("the networks did not run K6")
     point = report_point(
         torch, f"BatchedBoTSORTPipeline.update ({STREAMS} streams, "
-        "moderate-16)", "step", pipes, rows, STREAMS, card, steps[-1])
+        "moderate-16)", "step", pipes, steps, STREAMS, card)
     log(f"multi: K7 launches in the replayed run {k7_launches}, K8 "
         f"{k8_launches} (one launch for the {STREAMS} x 4 NMS problems of a "
         f"step run), K10 {k10_launches} (one for the {3 * STREAMS} "
@@ -1349,14 +1417,10 @@ def empty_node_floor(torch, dev, nodes=100, replays=20):
                     replays=replays)
 
 
-# The block sizes the K8 library holds; ops/nms.py launches THREADS.
-K8_BLOCK_THREADS = (256, 512, 1024)
-
-
-def k8_direct(torch, nms, boxes, valid, thr, cluster, threads):
-    """K8's library launched directly, not counted, at a cluster size and
-    block size of the caller's: a function that launches it into a fresh
-    keep tensor and returns it."""
+def k8_direct(torch, nms, boxes, valid, thr, cluster):
+    """K8's library launched directly at a cluster size of the caller's:
+    a function that launches it into a fresh keep tensor and returns
+    it."""
     lib = nms._lib()
     problems, p = valid.shape[0] * valid.shape[1], valid.shape[-1]
 
@@ -1368,27 +1432,26 @@ def k8_direct(torch, nms, boxes, valid, thr, cluster, threads):
         rc = lib.nms_fixpoint_launch(
             boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
             None if scratch is None else scratch.data_ptr(), problems, p,
-            float(np.float32(thr)), cluster, threads,
+            float(np.float32(thr)), cluster, nms.THREADS,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"K8 at cluster size {cluster}, {threads} "
-                               f"threads: CUDA error {rc}")
+            raise RuntimeError(f"K8 at cluster size {cluster}: CUDA error "
+                               f"{rc}")
         return keep
 
     return run
 
 
-def k8_sweep(torch, nms, boxes, valid, thr, want, shapes):
-    """Graph ms of K8 at each (cluster size, block size) of ``shapes``,
-    each launch first checked bit-equal to ``want``."""
+def k8_sweep(torch, nms, boxes, valid, thr, want, sizes):
+    """Graph ms of K8 at each cluster size of ``sizes``, each launch first
+    checked bit-equal to ``want``."""
     out = []
-    for c, n in shapes:
-        run = k8_direct(torch, nms, boxes, valid, thr, c, n)
+    for c in sizes:
+        run = k8_direct(torch, nms, boxes, valid, thr, c)
         got = run()
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"K8 != plain at cluster size {c}, {n} "
-                                 "threads")
+            raise AssertionError(f"K8 != plain at cluster size {c}")
         out.append(graph_ms(torch, run))
     return out
 
@@ -1397,10 +1460,10 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
              cfgs, card):
     """K8 against nms_fixpoint_plain on the card, bit for bit, at the
     loaded one-stream and the 8-stream steps' candidates and on a chain of
-    length P; the cluster size and block size each input launches with;
-    iterations; CUDA-event, graph and plain times, the graph time per
-    block size (at the launched cluster size) and per cluster size (at
-    nms.THREADS threads), each of those launches bit-equal too, the old
+    length P, one launch each (torch.profiler); the cluster size each
+    input launches with; iterations; CUDA-event, graph and plain times, the
+    graph time per cluster size, each of those launches bit-equal too, the
+    old
     16-iteration chain's time and device kernels in this call, the bound,
     and the empty-node floor. Returns
     (max element difference, (ms, plain ms, bound ms, bound by, library
@@ -1435,6 +1498,8 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
         iters = fixpoint_iterations(torch, iou_matrix, boxes, valid, thr)
         run = lambda b=boxes, v=valid: nms.nms_fixpoint_cuda(  # noqa: E731
             b, v, thr)
+        check_launches(f"K8 {label}", kernel_counts(run),
+                       {K8_KERNEL: 1})
         old = lambda b=boxes, v=valid: old_nms_chain(  # noqa: E731
             torch, iou_matrix, b, v, thr)
         ms, ms_graph = event_ms(torch, run, 50), graph_ms(torch, run)
@@ -1459,25 +1524,18 @@ def phase_k8(torch, nms, iou_matrix, bundle, main_frame, multi_frames,
             f"call; bound {b_ms:.6f} ms by {b_by} ({nbytes} B, {pairs:.0f} "
             f"IoU pairs); library: none (no PyTorch call suppresses); "
             f"empty-node floor {floor:.4f} ms; {card}")
-        log(f"timing: K8 {label}: graph ms per block size at cluster size "
-            f"{cluster}, bit-equal at each: " + ", ".join(
-                f"{n} threads {t:.4f}" for n, t in zip(
-                    K8_BLOCK_THREADS, k8_sweep(
-                        torch, nms, boxes, valid, thr, want,
-                        [(cluster, n) for n in K8_BLOCK_THREADS]))))
         sizes = (2, 3, 4, 6, 8, 12, 16)
         log(f"timing: K8 {label}: graph ms per cluster size at "
             f"{nms.THREADS} threads (clusters that fit at once), bit-equal "
             "at each: " + ", ".join(
                 f"{c} {t:.4f} ({nms.max_active_clusters(c, p, dev)})"
                 for c, t in zip(sizes, k8_sweep(
-                    torch, nms, boxes, valid, thr, want,
-                    [(c, nms.THREADS) for c in sizes]))))
+                    torch, nms, boxes, valid, thr, want, sizes))))
         if first is None:
             first = (ms, plain, b_ms, b_by, None)
         max_err = max(max_err, err)
     log(f"K8: equal to the plain version bit for bit on all "
-        f"{len(cases)} inputs at every block size and cluster size")
+        f"{len(cases)} inputs at every cluster size")
     max_err = max(max_err, k8_large(torch, nms, iou_matrix, bundle,
                                     main_frame, cfgs, card))
     return max_err, first, floor
@@ -1658,30 +1716,27 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
     with 0, at most 16 (``few_bodies``) and more than 16 live bodies, and
     at the 8-stream moderate-16 point with 0 and up to 16.
     Each step bit-equal (FrameResult and stores) to the static-bucket
-    graph at the buckets its branches encode; one capture a facade; K9
-    twice a replay, K7 once a step and once a branch taken, K8 and K10
-    once a step. Prints the live counts, graphed medians and device ms a step per
-    regime, K9's device time, and a replay (8 streams: update_async) under
-    the sync debug mode. Returns (K9 launches, K9's (ms, plain ms, bound
-    ms, bound by, library ms))."""
+    graph at the buckets its branches encode; one capture a facade; each
+    update (torch.profiler, one profile a regime) launches K9 twice, K7
+    once and once a branch taken, K8 and K10 once, the first update also
+    its warm-up's. Prints the live counts, graphed medians (the updates
+    timed under the profiler) and device ms a step per regime, K9's
+    device time, and a replay (8 streams: update_async) under the sync
+    debug mode. Returns (K9 launches in the counted updates, K9's (ms,
+    plain ms, bound ms, bound by, library ms))."""
     import dataclasses
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host, switch
 
-    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
-    k10 = hierarchy.greedy_scan_cuda
-    k9 = switch.launch_conditional
     nms_cfg = NMSConfig()
     sw_pipe = PipelineConfig(host_bucket_dispatch=False)
     st_pipe = PipelineConfig()
     r = sw_pipe.max_reid_batch
     dev = bundle.device
-    k9.launches = 0
-    k9_runs = []
+    k9_launches = 0
     points = (("loaded one stream", 0, loaded_cfg(TrackerConfig), 10),
               (f"{STREAMS} streams moderate-16", STREAMS,
                loaded_cfg(TrackerConfig, max_dets=16), 11))
@@ -1709,44 +1764,48 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
                 st = host.BoTSORTPipeline(bundle, trk, ncfg, st_pipe)
             n_switch = len(switch.bucket_branches(None, dp, r))
             rows = []
-            for i, f in enumerate(frames):
-                pre = sw.stores if streams else sw.store
-                before = (k9.launches, k7.launches, k8.launches,
-                          k10.launches)
-                t0 = time.perf_counter()
-                sw.update(f)
-                torch.cuda.synchronize()
-                ms = 1e3 * (time.perf_counter() - t0)
-                ran = (k9.launches - before[0], k7.launches - before[1],
-                       k8.launches - before[2], k10.launches - before[3])
-                res = sw.last_result
-                if not np.all(res.nms_converged):
-                    raise AssertionError("switch: NMS did not converge")
-                values = fs_mod.switch_values(res, trk, ncfg, sw_pipe)
-                widths = switch_widths(values, d, r)
-                # K7: a step's detector crop and a crop a branch taken;
-                # the first step's warm-up ran every branch once more.
-                k7_want = 1 + sum(w > 0 for w in widths) + (
-                    (1 + 2 * n_switch) if i == 0 else 0)
-                if ran != (2, k7_want, 1 + (i == 0), 1 + (i == 0)):
-                    raise AssertionError(f"switch ({label}, {name}): step "
-                                         f"{i + 1} launched (K9, K7, K8, "
-                                         f"K10) "
-                                         f"{ran}, widths {widths}")
-                new, packed = st._step(pre, st._upload("frame", f), *widths)
-                want = packed.to_host()
-                same_results(torch, host, [dict(result=want)],
-                             [dict(result=res)], new,
-                             sw.stores if streams else sw.store,
-                             f"switch ({label}, {name}): step {i + 1} != "
-                             f"the static graph at buckets {widths}")
-                live = np.asarray(res.det_valid)[..., 0, :d].sum(-1)
-                rows.append((ms, values, widths, live.tolist()))
+            with counting() as counter:
+                for i, f in enumerate(frames):
+                    pre = sw.stores if streams else sw.store
+
+                    def update():
+                        t0 = time.perf_counter()
+                        sw.update(f)
+                        torch.cuda.synchronize()
+                        return 1e3 * (time.perf_counter() - t0)
+
+                    ms = counter(update)
+                    res = sw.last_result
+                    if not np.all(res.nms_converged):
+                        raise AssertionError("switch: NMS did not converge")
+                    values = fs_mod.switch_values(res, trk, ncfg, sw_pipe)
+                    widths = switch_widths(values, d, r)
+                    new, packed = st._step(pre, st._upload("frame", f),
+                                           *widths)
+                    want = packed.to_host()
+                    same_results(torch, host, [dict(result=want)],
+                                 [dict(result=res)], new,
+                                 sw.stores if streams else sw.store,
+                                 f"switch ({label}, {name}): step {i + 1} "
+                                 f"!= the static graph at buckets {widths}")
+                    live = np.asarray(res.det_valid)[..., 0, :d].sum(-1)
+                    rows.append((ms, values, widths, live.tolist()))
+            for i, (counts, row) in enumerate(zip(counter.counts, rows)):
+                # K9 twice a replay; K7 for the detector input and inside
+                # each branch taken; the first update's warm-up ran the step
+                # eagerly with every branch of both switches.
+                widths = row[2]
+                check_launches(
+                    f"switch ({label}, {name}): update {i + 1}, widths "
+                    f"{widths}", counts,
+                    {K9_KERNEL: 2, K7_KERNEL: 1 + sum(w > 0 for w in widths)
+                     + (1 + 2 * n_switch) * (i == 0),
+                     K8_KERNEL: 1 + (i == 0), K10_KERNELS: 1 + (i == 0)})
+                k9_launches += counts[K9_KERNEL]
             cache = sw._graphs
             if cache.captures != 1 or cache.keys()[0][5:7] != (None, None):
                 raise AssertionError(f"switch ({label}, {name}): "
                                      f"{cache.captures} captures")
-            k9_runs.append(k9.launches)
             step = (lambda p=sw, x=frames[-1]: p.update(x))
             n_dev, _, dev_ms = step_profile(torch, step)
             k9_ms, k9_n, _ = kernel_share(torch, step, K9_KERNEL)
@@ -1787,10 +1846,9 @@ def phase_switch(torch, bundle, card, k9_plain_ms):
             del sw, st, cache
             gc.collect()  # before the next facade's captures (``drive``)
             torch.cuda.empty_cache()
-    launches = k9.launches
     # K9 reads one int32 and sets one handle a branch.
     b_ms, b_by = bound(4 + 8 * 2, 2 * 2, F32_FLOPS)
-    return launches, (k9_point[0], k9_plain_ms, b_ms, b_by, None)
+    return k9_launches, (k9_point[0], k9_plain_ms, b_ms, b_by, None)
 
 
 def phase_async(torch, multi_pipe, frames):
@@ -1835,15 +1893,16 @@ def phase_async(torch, multi_pipe, frames):
         f"({sum(len(t) for t in tracks)} tracks)")
 
 
-def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
+def phase_temporal(torch, bundle, card, batched_point):
     """TemporalBatchedBoTSORTPipeline at full width, B = 8, T = 2,
     moderate-16, seeded per-stream affines: equal to T chained
-    frame_step_batched calls at equal buckets, K2 launched T times a step
-    run, K10 once. Returns K2's, K7's and K10's launches and the first
-    group's frames [B, T, H, W, 3]."""
+    frame_step_batched calls at equal buckets; every update
+    (torch.profiler) launches K2 T times, K7 once and once a non-zero
+    bucket, K8 and K10 once, a step run and a warm-up call. Returns K2's,
+    K7's and K10's launches in the run and the first group's frames
+    [B, T, H, W, 3]."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, hierarchy
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.track.state import empty_stores
@@ -1861,9 +1920,6 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     gmc[..., :, 2] += rng.uniform(-8, 8, gmc.shape[:-2] + (2,))
     scale = 1.0 + rng.uniform(-0.02, 0.02, gmc.shape[:-2])
     gmc[..., 0, 0] = gmc[..., 1, 1] = scale
-    cuda, k7 = assignment_cuda.cascade_solve_cuda, crop.crop_resize_cuda
-    k10 = hierarchy.greedy_scan_cuda
-    cuda.launches = cuda.batched_launches = k7.launches = k10.launches = 0
 
     def check(res):
         if res.det_boxes.shape[:2] != (STREAMS, t_batch):
@@ -1872,22 +1928,12 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
             if not np.isfinite(x).all():
                 raise AssertionError("temporal: non-finite output")
 
-    rows = drive(torch, pipe, groups, lambda: cuda.batched_launches,
-                 force_at=3, gmc=gmc, check=check)
-    k2_temporal, k7_temporal = cuda.batched_launches, k7.launches
-    k10_temporal = k10.launches
-    if k7_temporal != k7_expected(rows):
-        raise AssertionError(f"temporal: K7 launched {k7_temporal} times, "
-                             "not once a step run and once a non-zero "
-                             "bucket")
-    if k10_temporal != sum(expected_launches(r) for r in rows):
-        raise AssertionError(f"temporal: K10 launched {k10_temporal} "
-                             "times, not once a step run")
-    for i, r in enumerate(rows):
-        if r["launches"] != expected_launches(r, per_run=t_batch):
-            raise AssertionError(
-                f"temporal: step {i + 1} launched K2 {r['launches']} times "
-                f"over runs {r['runs']} (expected {t_batch} a run)")
+    rows = drive(torch, pipe, groups, force_at=3, gmc=gmc, check=check,
+                 count=True)
+    check_run_kernels("temporal", rows, lambda rb, fb: {
+        **step_run_launches(rb, fb), K1_KERNEL: t_batch})
+    k2_temporal, k7_temporal, k10_temporal = (
+        run_launches(rows, k) for k in (K1_KERNEL, K7_KERNEL, K10_KERNELS))
 
     # The reference: T chained frame_step_batched calls at the step's final
     # buckets, each frame's perception taken from the perception of all
@@ -1923,8 +1969,10 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     n_tracks = [[len(t) for t in frame] for frame in rows[-1]["tracks"]]
     log(f"temporal: B={STREAMS} T={t_batch}, seeded affines: the first 2 "
         f"groups equal {t_batch} chained frame_step_batched calls on every "
-        f"field; K2 launches per step {[r['launches'] for r in rows]} over "
-        f"runs {[r['runs'] for r in rows]}, K10 {k10_temporal} in all; live "
+        f"field; K2 {t_batch} launches a step run and a warm-up call "
+        f"(torch.profiler, every update), per update "
+        f"{[launches(r['counts'], K1_KERNEL) for r in rows]} over runs "
+        f"{[r['runs'] for r in rows]}, K10 {k10_temporal} in all; live "
         f"tracks of the last group {n_tracks}")
     if max(max(n) for n in n_tracks) < 1:
         raise AssertionError("temporal: no live tracks")
@@ -1937,8 +1985,9 @@ def phase_temporal(torch, bundle, assignment_cuda, card, batched_point):
     log(f"timing: TemporalBatchedBoTSORTPipeline.update ({STREAMS} streams "
         f"x {t_batch} frames, moderate-16, graphed) median {median:.3f} ms "
         f"a step over {len(ms)} steady steps (all: "
-        f"{[round(r['ms'], 3) for r in rows]}), {fps:.2f} frames/s; the "
-        f"{STREAMS}-stream step of this call: {batched_point[0]:.3f} ms, "
+        f"{[round(r['ms'], 3) for r in rows]}; under torch.profiler), "
+        f"{fps:.2f} frames/s; the {STREAMS}-stream step of this call: "
+        f"{batched_point[0]:.3f} ms, "
         f"{batched_point[1]:.2f} frames/s; {card}")
     return k2_temporal, k7_temporal, k10_temporal, groups[0]
 
@@ -2058,9 +2107,10 @@ def phase_k10(torch, bundle, main_frame, multi_frames, temporal_frames,
     unrolled loop it replaced from a graph with its device kernels a call,
     the bound and the floor. Then the graphed loaded one-stream and
     8-stream facades with K10 and with the plain loop patched in (the only
-    place that patches it) over the same frames: bit-equal, K10 silent in
-    the patched runs; device kernels and device ms a step profiled in the
-    order plain, K10, K10, plain, and the steady medians. Returns (max
+    place that patches it) over the same frames: bit-equal, each update
+    counted (torch.profiler) and K10 silent in the patched runs; device
+    kernels and device ms a step profiled in the order plain, K10, K10,
+    plain, and the steady medians (timed under the profiler). Returns (max
     index difference, (ms, plain ms, bound ms, bound by, library ms)) at
     the loaded one-stream step's inputs."""
     import contextlib
@@ -2092,6 +2142,8 @@ def phase_k10(torch, bundle, main_frame, multi_frames, temporal_frames,
         p, b, t = args[0].shape
         r = args[3].shape[1]
         run = lambda a=args: k10(*a)  # noqa: E731
+        check_launches(f"K10 {label}", kernel_counts(run),
+                       {K10_KERNELS: 1})
         plain = lambda a=args: hierarchy.greedy_scan_plain(*a)  # noqa: E731
         ms, ms_graph = event_ms(torch, run, 100), graph_ms(torch, run)
         plain_ms = event_ms(torch, plain, 3)
@@ -2138,14 +2190,12 @@ def phase_k10(torch, bundle, main_frame, multi_frames, temporal_frames,
             pipes[mode] = (host.BatchedBoTSORTPipeline(bundle, streams, *cfgs)
                            if streams else host.BoTSORTPipeline(bundle, *cfgs))
             with patched(mode):
-                rows[mode] = drive(torch, pipes[mode], frames,
-                                   lambda: k10.launches)
-            n = sum(r["launches"] for r in rows[mode])
-            want = 0 if mode == "plain" else sum(
-                expected_launches(r) for r in rows[mode])
-            if n != want:
-                raise AssertionError(f"K10 ({label}, {mode}): K10 launched "
-                                     f"{n} times, not {want}")
+                rows[mode] = drive(torch, pipes[mode], frames, count=True)
+            # The plain mode's updates hold K1, K7 and K8 but no K10.
+            check_run_kernels(f"K10 ({label}, {mode})", rows[mode],
+                              lambda rb, fb, n=int(mode == "K10"): {
+                                  **step_run_launches(rb, fb),
+                                  K10_KERNELS: n})
         stores = {m: (p.stores if streams else p.store)
                   for m, p in pipes.items()}
         same_results(torch, host, rows["K10"], rows["plain"], stores["K10"],
@@ -2374,7 +2424,7 @@ def perturb_weights_(torch, assets, model, rng):
     return model
 
 
-def phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card):
+def phase_onnx(torch, assets, bundle, card):
     """The release files' route into the port, on the card machine with no
     JAX: full-width wire files of seeded float32 networks (norms and
     biases perturbed) in the release layouts, each imported through
@@ -2393,7 +2443,6 @@ def phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card):
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
     from botsort_tpu_torch.models.common import cast_compute
-    from botsort_tpu_torch.ops import crop, nms
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.pipeline.frame_step import ModelBundle
     from botsort_tpu_torch.runtime import import_onnx as imp
@@ -2515,14 +2564,13 @@ def phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card):
               for _ in range(8)]
     check = lambda res: check_finite(res, cfgs[1])  # noqa: E731
     pipes, rows, launched = {}, {}, {}
-    counters = (assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda,
-                crop.crop_resize_cuda, nms.nms_fixpoint_cuda)
     for which, b in (("source", ref), ("loaded", loaded)):
         pipes[which] = host.BoTSORTPipeline(b, *cfgs)
-        before = [c.launches for c in counters]
-        rows[which] = drive(torch, pipes[which], frames, lambda: 0,
-                            force_at=4, check=check)
-        launched[which] = [c.launches - n for c, n in zip(counters, before)]
+        rows[which] = drive(torch, pipes[which], frames, force_at=4,
+                            check=check, count=True)
+        check_run_kernels(f"onnx {which}", rows[which])
+        launched[which] = [run_launches(rows[which], k) for k in
+                           (K1_KERNEL, K6_KERNELS, K7_KERNEL, K8_KERNEL)]
         if min(launched[which]) < 1:
             raise AssertionError(f"onnx: the {which} run launched K1, K6, "
                                  f"K7, K8 {launched[which]} times")
@@ -2543,26 +2591,23 @@ def phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card):
          for n, nb, s, nt in stats}) + f"; {card}")
 
 
-def phase_export(torch, bundle, assignment_cuda, bn_act, card):
+def phase_export(torch, bundle, card):
     """The program of one bucket pair exported (runtime/exported.py),
     saved, loaded and replayed from CUDA graphs: load_pipeline at the
     loaded one-stream point (K1) and load_batched_pipeline at 8 streams,
     moderate-16 (K2). Over 8 seeded frames every FrameResult field and the
     final stores equal the live facade's, replayed from graphs at the same
-    bucket set; K1/K2, K6, K7, K8 and K10 are counted on replay, K6, K7, K8
-    and K10 as often as in the live run."""
+    bucket set; every update of both (torch.profiler) launches K1/K2, K7,
+    K8 and K10 as its step runs do, and K6 as often as the live facade's
+    update."""
     import shutil
     import tempfile
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import host
     from botsort_tpu_torch.runtime import exported
 
-    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
-    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
-    k10 = hierarchy.greedy_scan_cuda
     tmp = tempfile.mkdtemp(prefix="botsort_export_")
     points = (("one stream, loaded", 0, loaded_cfg(TrackerConfig), 0),
               (f"{STREAMS} streams, moderate-16", STREAMS,
@@ -2598,50 +2643,30 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
                     path, bundle, streams, programs=programs)
                 live = host.BatchedBoTSORTPipeline(bundle, streams, *cfgs)
                 shape = (streams,) + FRAME_HW + (3,)
-                launches_of = lambda: cuda.batched_launches  # noqa: E731
-                other = lambda: cuda.launches  # noqa: E731
             else:
                 loaded = exported.load_pipeline(path, bundle,
                                                 programs=programs)
                 live = host.BoTSORTPipeline(bundle, *cfgs)
                 shape = FRAME_HW + (3,)
-                launches_of = lambda: cuda.launches  # noqa: E731
-                other = lambda: cuda.batched_launches  # noqa: E731
             live._buckets = [d]  # the exported bucket set
             rng = np.random.default_rng(seed)
             frames = [rng.integers(0, 255, shape, dtype=np.uint8)
                       for _ in range(8)]
-            rows, k6_runs, k7_runs, k8_runs, k10_runs = {}, {}, {}, {}, {}
+            rows, runs = {}, {}
             for mode, pipe in (("live", live), ("loaded", loaded)):
-                cuda.launches = cuda.batched_launches = k6.launches = 0
-                k7.launches = k8.launches = k10.launches = 0
-                rows[mode] = drive(torch, pipe, frames, launches_of)
-                k6_runs[mode], k7_runs[mode] = k6.launches, k7.launches
-                k8_runs[mode], k10_runs[mode] = k8.launches, k10.launches
-                if other():
-                    raise AssertionError(f"export {mode}: the other "
-                                         "solver kernel launched")
-            kernel_launches = sum(r["launches"] for r in rows["loaded"])
+                rows[mode] = drive(torch, pipe, frames, count=True)
+                check_run_kernels(f"export ({label}, {mode})", rows[mode])
+                runs[mode] = [run_launches(rows[mode], k)
+                              for k in (K1_KERNEL, K6_KERNELS, K7_KERNEL,
+                                        K8_KERNEL, K10_KERNELS)]
             same_results(torch, host, rows["live"], rows["loaded"],
                          live.stores if streams else live.store,
                          loaded.stores if streams else loaded.store,
                          f"export ({label}): loaded != live")
-            for i, r in enumerate(rows["loaded"]):
-                if r["launches"] != expected_launches(r) or \
-                        r["launches"] < 1:
-                    raise AssertionError(
-                        f"export ({label}): step {i + 1} launched the "
-                        f"solver {r['launches']} times over {r['runs']}")
-            if k6_runs["loaded"] != k6_runs["live"] or \
-                    k6_runs["loaded"] < len(frames):
-                raise AssertionError(f"export ({label}): K6 {k6_runs}")
-            if k7_runs["loaded"] != k7_runs["live"] or k7_runs["loaded"] != \
-                    k7_expected(rows["loaded"]):
-                raise AssertionError(f"export ({label}): K7 {k7_runs}")
-            for name, runs in (("K8", k8_runs), ("K10", k10_runs)):
-                if runs["loaded"] != runs["live"] or runs["loaded"] != \
-                        sum(expected_launches(r) for r in rows["loaded"]):
-                    raise AssertionError(f"export ({label}): {name} {runs}")
+            k6 = {m: [launches(r["counts"], K6_KERNELS) for r in rows[m]]
+                  for m in rows}
+            if k6["loaded"] != k6["live"] or min(k6["loaded"]) < 1:
+                raise AssertionError(f"export ({label}): K6 an update {k6}")
             nbytes = [e["bytes"] for e in entries]
             secs = [round(e["export_seconds"], 3) for e in entries]
             med = {m: statistics.median(steady_ms(rows[m])) for m in rows}
@@ -2651,15 +2676,13 @@ def phase_export(torch, bundle, assignment_cuda, bn_act, card):
                 f"in {load_s:.3f} s; the graph calls {ops}; over "
                 f"{len(frames)} frames replayed from graphs every "
                 f"FrameResult field and the final stores equal the live "
-                f"facade's; solver launches {kernel_launches} over runs "
-                f"{[r['runs'] for r in rows['loaded']]}, K6 launches "
-                f"{k6_runs['loaded']} (live {k6_runs['live']}), K7 launches "
-                f"{k7_runs['loaded']} (live {k7_runs['live']}), K8 launches "
-                f"{k8_runs['loaded']} (live {k8_runs['live']}), K10 launches "
-                f"{k10_runs['loaded']} (live {k10_runs['live']})")
+                f"facade's; launches of the runs (torch.profiler, every "
+                f"update; K1 or K2, K6, K7, K8, K10) {runs['loaded']} (live "
+                f"{runs['live']}) over runs "
+                f"{[r['runs'] for r in rows['loaded']]}")
             log(f"timing: export ({label}): replayed median live "
                 f"{med['live']:.3f} ms, loaded {med['loaded']:.3f} ms a "
-                f"step in this call; {card}")
+                f"step in this call, under torch.profiler; {card}")
             del live, loaded, programs
             gc.collect()  # before the next point's captures (``drive``)
             torch.cuda.empty_cache()
@@ -2814,27 +2837,23 @@ def phase_store(torch, bundle):
         f"tracks)")
 
 
-def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
-                  card):
+def phase_oproute(torch, bundle, dispatchers, card):
     """The loaded one-stream point run eagerly over 8 frames, four times:
     with every dispatcher in ``dispatchers`` (the modules that hold one)
     calling its kernel's wrapper directly, as eager calls do, and with
     each routed through its custom op, as a trace is (their ``tracing``
     patched to say so), in the order direct, op, op, direct. Every
-    FrameResult field, the final stores and the K1 and K6 launches are
-    equal across the runs, K7's, K8's and K10's too; prints each run's
-    median and the two routes' (the dispatcher's host cost on the eager
-    step)."""
+    FrameResult field and the final stores are equal across the runs;
+    every update of each run (torch.profiler) launches K1, K7, K8 and K10
+    as its step runs say, and the runs' totals of those and of K6 are
+    equal; prints each run's median and the two routes' (the dispatcher's
+    host cost on the eager step)."""
     import contextlib
 
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
-    from botsort_tpu_torch.ops import crop, hierarchy, nms
     from botsort_tpu_torch.pipeline import host
 
-    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
-    k7, k8 = crop.crop_resize_cuda, nms.nms_fixpoint_cuda
-    k10 = hierarchy.greedy_scan_cuda
     cfgs = (loaded_cfg(TrackerConfig), NMSConfig(), PipelineConfig())
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, FRAME_HW + (3,), dtype=np.uint8)
@@ -2847,36 +2866,38 @@ def phase_oproute(torch, bundle, assignment_cuda, bn_act, dispatchers,
                 for m in dispatchers:
                     stack.enter_context(
                         mock.patch.object(m, "tracing", lambda: True))
-            cuda.launches = cuda.batched_launches = k6.launches = 0
-            k7.launches = k8.launches = k10.launches = 0
-            rows = drive(torch, pipe, frames, lambda: cuda.launches)
+            rows = drive(torch, pipe, frames, count=True)
+        check_run_kernels(f"oproute ({route})", rows)
         runs.append((route, rows, pipe.store,
-                     (cuda.launches, cuda.batched_launches, k6.launches,
-                      k7.launches, k8.launches, k10.launches)))
+                     tuple(run_launches(rows, k) for k in (
+                         K1_KERNEL, K6_KERNELS, K7_KERNEL, K8_KERNEL,
+                         K10_KERNELS))))
     _, rows0, store0, launches0 = runs[0]
-    for route, rows, store, launches in runs[1:]:
+    for route, rows, store, run_counts in runs[1:]:
         same_results(torch, host, rows0, rows, store0, store,
                      f"oproute: the {route} route's run differs")
-        if launches != launches0:
-            raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8, "
-                                 f"K10) {launches} against {launches0}")
-    if launches0[0] < len(frames) or launches0[1] or launches0[2] < 1 or \
-            min(launches0[3:]) < len(frames):
-        raise AssertionError(f"oproute: launches (K1, K2, K6, K7, K8, K10) "
-                             f"{launches0}")
+        if run_counts != launches0:
+            raise AssertionError(f"oproute: launches of a run (K1, K6, K7, "
+                                 f"K8, K10) {run_counts} against "
+                                 f"{launches0}")
+    if min(launches0) < 1:
+        raise AssertionError(f"oproute: launches of a run (K1, K6, K7, K8, "
+                             f"K10) {launches0}")
     med = {}
     for route, rows, _, _ in runs:
         med.setdefault(route, []).extend(steady_ms(rows))
     each = [(route, round(statistics.median(steady_ms(rows)), 3))
             for route, rows, _, _ in runs]
     d, o = (statistics.median(med[r]) for r in ("direct", "op"))
-    calls = (launches0[0] + sum(launches0[2:])) / len(frames)
+    calls = sum(launches0) / len(frames)
     log(f"oproute: {len(frames)} eager frames at the loaded one-stream "
         f"point, kernels called directly and through torch.ops."
         f"botsort_tpu_torch, runs in the order direct, op, op, direct: "
-        f"every FrameResult field, the final stores and the launches equal "
-        f"(K1, K2, K6, K7, K8, K10 per run: {launches0})")
-    log(f"timing: oproute: eager one-stream step median {d:.3f} ms direct, "
+        f"every FrameResult field, the final stores and every update's "
+        f"launches as its step runs say (torch.profiler), the runs' "
+        f"totals equal (K1, K6, K7, K8, K10: {launches0})")
+    log(f"timing: oproute: eager one-stream step median (under "
+        f"torch.profiler) {d:.3f} ms direct, "
         f"{o:.3f} ms through the custom ops ({o - d:+.3f} ms, "
         f"{1e3 * (o - d) / calls:+.1f} us a kernel call over {calls:.1f} "
         f"calls a frame); each run's median {each}, spread of the direct "
@@ -2993,11 +3014,7 @@ def phase_k6(torch, F, bn_act, bundle, points, card):
     max_err, worst_ulp = 0.0, 0
     for shape, dtype, act in shapes:
         x, mean, _, _, bias, mul = inputs(shape, dtype)
-        before = bn_act.bn_act_cuda.launches_channels_last
         got = bn_act.bn_act_cuda(x, mean, mul, bias, act)
-        if bn_act.bn_act_cuda.launches_channels_last != before + 1:
-            raise AssertionError(f"K6: {shape} did not take the "
-                                 "channels-innermost path")
         nchw = bn_act.bn_act_cuda(x.contiguous(), mean, mul, bias, act)
         want = bn_act.bn_act_plain(x, mean, mul, bias, act)
         torch.cuda.synchronize()
@@ -3008,9 +3025,18 @@ def phase_k6(torch, F, bn_act, bundle, points, card):
         worst_ulp = max(worst_ulp, ulps)
         max_err = max(max_err, float((got.float() - want.float()).abs()
                                      .max()))
+
+    def launch_all():
+        for shape, dtype, act in shapes:
+            x, mean, _, _, bias, mul = inputs(shape, dtype)
+            bn_act.bn_act_cuda(x, mean, mul, bias, act)
+
+    check_launches("K6: every case", kernel_counts(launch_all),
+                   {K6_CL_KERNEL: len(shapes), K6_KERNELS: len(shapes)})
     log(f"K6: {len(shapes)} cases ({n_path} norm shapes of "
         f"{' and '.join(label for label, _ in recorded)}, {len(odd)} odd "
         "shapes x 2 dtypes x 4 activations) on the channels-innermost path "
+        "(torch.profiler: one bn_act_kernel_cl launch a case) "
         "bit-equal to the NCHW path; none / ReLU / ReLU6 bit for bit to the "
         f"plain version, SiLU within {worst_ulp} unit in the last place")
     first = None
@@ -3286,17 +3312,19 @@ class CallCounter:
         self.last_input = args[0].detach().clone()
 
 
-def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
-                  facereid_dw, card, unlowered, arch):
+def phase_lowered(torch, bundle, fastreid_fused, facereid_dw, card,
+                  unlowered, arch):
     """The 8-stream path with both lowered encoders of the bundle's
-    architecture ``arch`` (assets.FULL), replayed from CUDA graphs; returns
-    the K4 and K5 launch counts of its run."""
+    architecture ``arch`` (assets.FULL), replayed from CUDA graphs; every
+    update (torch.profiler) launches, a step run and a warm-up call, K4
+    once and K5 once a depthwise layer where its bucket crops, K2, K8 and
+    K10 once and K7 as ``step_run_launches`` says; returns the K4 and K5
+    launches of the run."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
     from botsort_tpu_torch.models.common import cast_compute
     from botsort_tpu_torch.models.facereid import FaceReID
     from botsort_tpu_torch.models.fastreid import FastReIDSBS
-    from botsort_tpu_torch.ops import hierarchy
     from botsort_tpu_torch.pipeline import frame_step as fs_mod
     from botsort_tpu_torch.pipeline.frame_step import ModelBundle
     from botsort_tpu_torch.pipeline.host import BatchedBoTSORTPipeline
@@ -3325,37 +3353,20 @@ def phase_lowered(torch, bundle, assignment_cuda, fastreid_fused,
     rng = np.random.default_rng(1)  # phase_multi's frames
     steps = [rng.integers(0, 255, (STREAMS,) + FRAME_HW + (3,), dtype=np.uint8)
              for _ in range(6)]
-    k4, k5 = fastreid_fused.stem_stage1_cuda, facereid_dw.dw_conv3x3_cuda
-    cuda, k10 = assignment_cuda.cascade_solve_cuda, hierarchy.greedy_scan_cuda
-    k4.launches = k5.launches = k10.launches = 0
-    cuda.launches = cuda.batched_launches = 0
-    rows = drive(torch, pipeline, steps,
-                 lambda: np.array([k4.launches, k5.launches,
-                                   cuda.batched_launches, k10.launches]),
-                 force_at=3)
-    k4_launches, k5_launches = k4.launches, k5.launches
-    if cuda.launches:
-        raise AssertionError("the lowered 8-stream path launched K1")
-    table = []
-    for r in rows:
-        want = (expected_launches(r, ran=lambda b: b[0] is None or b[0] > 0),
-                expected_launches(r, n_dw,
-                                  ran=lambda b: b[1] is None or b[1] > 0),
-                expected_launches(r), expected_launches(r))
-        table.append(dict(runs=r["runs"], k4=int(r["launches"][0]),
-                          k5=int(r["launches"][1]),
-                          k2=int(r["launches"][2]),
-                          k10=int(r["launches"][3]),
-                          tracks=sum(len(t) for t in r["tracks"])))
-        if tuple(r["launches"]) != want:
-            raise AssertionError(
-                f"lowered: a step launched K4, K5, K2, K10 "
-                f"{tuple(r['launches'])} times, expected {want} (K4 once and "
-                f"K5 {n_dw} times per step run with crops, K2 and K10 once "
-                f"per step run): {r['runs']}")
-    log(f"lowered: per step {json.dumps(table)}")
-    if min(t["k4"] for t in table) < 1 or min(t["k5"] for t in table) < 1:
-        raise AssertionError("a lowered step ran without K4 or K5")
+    rows = drive(torch, pipeline, steps, force_at=3, count=True)
+    check_run_kernels("lowered", rows, lambda rb, fb: {
+        **step_run_launches(rb, fb), K4_KERNEL: int(rb > 0),
+        K5_KERNEL: n_dw * (fb > 0)})
+    k4_launches, k5_launches = (run_launches(rows, k)
+                                for k in (K4_KERNEL, K5_KERNEL))
+    table = [dict(runs=r["runs"], tracks=sum(len(t) for t in r["tracks"]),
+                  k4=r["counts"][K4_KERNEL], k5=r["counts"][K5_KERNEL])
+             for r in rows]
+    log(f"lowered: per step {json.dumps(table)}; a step run and a warm-up "
+        f"call launch K4 once and K5 {n_dw} times where its bucket crops "
+        f"(torch.profiler, every update)")
+    if k4_launches < 1 or k5_launches < 1:
+        raise AssertionError("the lowered run launched no K4 or no K5")
     if max(t["tracks"] for t in table) < 1:
         raise AssertionError("no live tracks on the lowered path")
 
@@ -3731,12 +3742,14 @@ K6B_SOURCE = "botsort_tpu_torch/csrc/bn_act_backward.cu"
 K6B_REPLACES = "autodiff of botsort_tpu/models/common.py:62"
 
 
-def phase_train(torch, bn_act, assets, cast_compute, dev, card):
+def phase_train(torch, assets, cast_compute, dev, card):
     """make_trainer on the full-width FastReIDSBS (bfloat16 convolutions,
     float32 masters) at 256x128, TRAIN_BATCH crops of TRAIN_IDS identities,
-    TRAIN_STEPS steps on (cuda:0,): losses, ms a step, K6 and K6b launches a
-    step, peak memory. Returns (K6b launches, the norm calls of one step:
-    {(shape, dtype, act): count})."""
+    TRAIN_STEPS steps on (cuda:0,): losses, ms a step (under
+    torch.profiler), K6 and K6b launches of each step (torch.profiler),
+    peak memory. Returns (K6b
+    launches a step, the norm calls of one step: {(shape, dtype, act):
+    count})."""
     from botsort_tpu_torch.models.common import BatchNorm
     from botsort_tpu_torch.models.fastreid import FastReIDSBS
     from botsort_tpu_torch.train import reid_trainer
@@ -3757,34 +3770,39 @@ def phase_train(torch, bn_act, assets, cast_compute, dev, card):
     finally:
         recorder.remove()
     torch.cuda.synchronize()
-    k6, k6b = bn_act.bn_act_cuda, bn_act.bn_act_backward_cuda
     torch.cuda.reset_peak_memory_stats()
-    k6.launches = k6b.launches = 0
     losses, ms = [], []
-    for _ in range(TRAIN_STEPS):
+
+    def one_step():
+        nonlocal state
         t0 = time.perf_counter()
         state, loss = train_step(state, images, labels)
         losses.append(float(loss))
         ms.append(1000.0 * (time.perf_counter() - t0))
-    launches = (k6.launches, k6b.launches)
+
+    with counting() as counter:
+        for _ in range(TRAIN_STEPS):
+            counter(one_step)
     peak = torch.cuda.max_memory_allocated()
     n_norms = sum(recorder.calls.values())
-    if launches[0] != TRAIN_STEPS * n_norms or \
-            launches[1] != TRAIN_STEPS * n_norms:
-        raise AssertionError(f"train: K6 / K6b launches {launches} over "
-                             f"{TRAIN_STEPS} steps of {n_norms} norms")
+    for i, counts in enumerate(counter.counts):
+        step_launches = (launches(counts, K6_KERNELS), counts[K6B_KERNEL])
+        if step_launches != (n_norms, n_norms):
+            raise AssertionError(f"train: step {i + 1} launched K6 / K6b "
+                                 f"{step_launches} times for {n_norms} norms")
     if not all(np.isfinite(losses)) or state.step != TRAIN_STEPS + 1:
         raise AssertionError(f"train: losses {losses}, step {state.step}")
     log(f"train: make_trainer on FastReIDSBS (SBS-S50, bfloat16 convs, "
         f"float32 masters, {len(state.params)} leaves) at 256x128, batch "
         f"{TRAIN_BATCH} ({TRAIN_IDS} identities x "
         f"{TRAIN_BATCH // TRAIN_IDS}), {TRAIN_STEPS} steps on (cuda:0,): "
-        f"losses {losses}; K6 {launches[0] // TRAIN_STEPS} and K6b "
-        f"{launches[1] // TRAIN_STEPS} launches a step")
+        f"losses {losses}; K6 {step_launches[0]} and K6b "
+        f"{step_launches[1]} launches a step (torch.profiler)")
     log(f"timing: train step median {statistics.median(ms):.3f} ms (all "
-        f"{[round(m, 3) for m in ms]}; host clock, each step ends in the "
-        f"loss's readback), peak allocated {peak} bytes; {card}")
-    return launches[1], recorder.calls
+        f"{[round(m, 3) for m in ms]}; host clock under torch.profiler, each "
+        f"step ends in the loss's readback), peak allocated {peak} bytes; "
+        f"{card}")
+    return step_launches[1], recorder.calls
 
 
 def aten_backward(torch, grad, x, mean, var, weight, eps, act):
@@ -3896,12 +3914,13 @@ def phase_k6b(torch, bn_act, calls, dev, card):
                      totals["lib"])
 
 
-def phase_int8(torch, bundle, assignment_cuda, bn_act, card):
+def phase_int8(torch, bundle, card):
     """The loaded one-stream point with quantize_bundle(which=("body",))
     beside the bfloat16 point, both replayed from CUDA graphs in this call:
     frame medians, the body encoder at 50 crops int8 against bfloat16, and
     the cosine of int8 to bfloat16 embeddings of one frame's crops (JAX's
-    bar: > 0.97). K1 and K6 must launch on the int8 path."""
+    bar: > 0.97). Every update of both (torch.profiler) launches K1, K7, K8
+    and K10 as its step runs say, and K6."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
     from botsort_tpu_torch.models import quantize
@@ -3922,20 +3941,20 @@ def phase_int8(torch, bundle, assignment_cuda, bn_act, card):
               for m in qbundle.body_encoder.modules())
     log(f"int8: quantize_bundle (body, scope mid) in "
         f"{time.perf_counter() - t0:.2f} s: {n_q} int8 convolutions")
-    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
     check = lambda res: check_finite(res, nms_cfg)  # noqa: E731
     rows, pipes = {}, {}
     for name, b in (("bf16", bundle), ("int8", qbundle)):
         pipes[name] = host.BoTSORTPipeline(b, *cfgs)
-        cuda.launches = k6.launches = 0
-        rows[name] = drive(torch, pipes[name], frames, lambda: cuda.launches,
-                           check=check)
-        if name == "int8" and (cuda.launches < len(frames)
-                               or k6.launches < 1):
-            raise AssertionError(f"int8: K1 {cuda.launches}, K6 "
-                                 f"{k6.launches} launches")
-        log(f"int8: {name} path K1 launches {cuda.launches}, K6 "
-            f"{k6.launches} over {len(frames)} frames")
+        rows[name] = drive(torch, pipes[name], frames, check=check,
+                           count=True)
+        check_run_kernels(f"int8 ({name})", rows[name])
+        k1, k6 = (run_launches(rows[name], k)
+                  for k in (K1_KERNEL, K6_KERNELS))
+        k6_each = [launches(r["counts"], K6_KERNELS) for r in rows[name]]
+        if min(k6_each) < 1:
+            raise AssertionError(f"int8: {name} K6 an update {k6_each}")
+        log(f"int8: {name} path K1 launches {k1}, K6 {k6} over "
+            f"{len(frames)} frames (torch.profiler, every update)")
     med = {k: statistics.median(steady_ms(r)) for k, r in rows.items()}
     # One frame's body crops, both encoders.
     res = rows["int8"][-1]["result"]
@@ -3958,17 +3977,19 @@ def phase_int8(torch, bundle, assignment_cuda, bn_act, card):
         f"bfloat16 embeddings min {float(cos.min()):.6f}, median "
         f"{float(cos.median()):.6f} (JAX's bar > 0.97)")
     log(f"timing: int8 loaded one-stream frame median {med['int8']:.3f} ms "
-        f"against bfloat16 {med['bf16']:.3f} ms (graphed, this call); body "
+        f"against bfloat16 {med['bf16']:.3f} ms (graphed, this call, under "
+        f"torch.profiler); body "
         f"encoder at {crops.shape[0]} crops: int8 {enc['int8'][0]:.4f} ms "
         f"eager, {enc['int8'][1]:.4f} ms from a graph; bfloat16 "
         f"{enc['bf16'][0]:.4f} / {enc['bf16'][1]:.4f} ms; {card}")
 
 
-def phase_mesh(torch, bundle, assignment_cuda, bn_act, card):
+def phase_mesh(torch, bundle, card):
     """MeshBatchedBoTSORTPipeline over (cuda:0, cuda:0) at 2 x STREAMS
     streams, moderate-16, beside BatchedBoTSORTPipeline over the first
     STREAMS: every FrameResult field of slice 0 and its track lists
-    bit-equal at every step; K2 and K6 launch on the mesh path."""
+    bit-equal at every step; every update (torch.profiler) launches K2,
+    K7, K8 and K10 as its two slices' step runs say, and K6."""
     from botsort_tpu_torch.config import (NMSConfig, PipelineConfig,
                                           TrackerConfig)
     from botsort_tpu_torch.pipeline import host
@@ -3982,18 +4003,13 @@ def phase_mesh(torch, bundle, assignment_cuda, bn_act, card):
     rng = np.random.default_rng(12)
     steps = [rng.integers(0, 255, (n,) + FRAME_HW + (3,), dtype=np.uint8)
              for _ in range(6)]
-    cuda, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
-    cuda.batched_launches = k6.launches = 0
-    ms = []
-    for i, frames in enumerate(steps):
-        t0 = time.perf_counter()
-        got = mesh.update(frames)
-        torch.cuda.synchronize()
-        ms.append(1000.0 * (time.perf_counter() - t0))
-        launches = (cuda.batched_launches, k6.launches)
-        want = single.update(frames[:STREAMS])
-        cuda.batched_launches, k6.launches = launches
-        a, b = mesh.last_result, single.last_result
+    rows = drive(torch, mesh, steps, count=True)
+    # Both slices replay one graph a step run; the first slice's run of a
+    # new key also warms it up.
+    check_run_kernels("mesh", rows, slices=2)
+    wants = drive(torch, single, [frames[:STREAMS] for frames in steps])
+    for i, (row, want) in enumerate(zip(rows, wants)):
+        a, b = row["result"], want["result"]
         for name, x, y in [(f, x[:STREAMS], y) for f, x, y in zip(
                 a._fields[:-1], a[:-1], b[:-1])] + [
                 (f"tracks.{f}", x[:STREAMS], y) for f, x, y in zip(
@@ -4001,21 +4017,25 @@ def phase_mesh(torch, bundle, assignment_cuda, bn_act, card):
             if x.dtype != y.dtype or not np.array_equal(x, y):
                 raise AssertionError(f"mesh: step {i + 1} slice 0 {name} "
                                      "differs from the batched step")
-        if [[t.track_id for t in s] for s in got[:STREAMS]] != \
-                [[t.track_id for t in s] for s in want]:
+        if [[t.track_id for t in s] for s in row["tracks"][:STREAMS]] != \
+                [[t.track_id for t in s] for s in want["tracks"]]:
             raise AssertionError(f"mesh: step {i + 1} track lists differ")
-    k2_runs, k6_runs = launches
-    if k2_runs < 2 * len(steps) or k6_runs < 1:
-        raise AssertionError(f"mesh: K2 {k2_runs}, K6 {k6_runs} launches")
+    k2, k6 = ([launches(r["counts"], k) for r in rows]
+              for k in (K1_KERNEL, K6_KERNELS))
+    if min(k6) < 1:
+        raise AssertionError(f"mesh: K6 an update {k6}")
+    ms = [r["ms"] for r in rows]
     steady = ms[2:]
     log(f"mesh: {n} streams over (cuda:0, cuda:0), {len(steps)} steps: "
         f"slice 0 equals BatchedBoTSORTPipeline over the first {STREAMS} "
-        f"on every FrameResult field and track list; K2 launches {k2_runs}, "
-        f"K6 {k6_runs}; live tracks per stream "
-        f"{[len(t) for t in got]}")
+        f"on every FrameResult field and track list; K2 launches an update "
+        f"{k2} over runs {[r['runs'] for r in rows]} (two slices), K6 {k6} "
+        f"(torch.profiler); live tracks per stream "
+        f"{[len(t) for t in rows[-1]['tracks']]}")
     log(f"timing: mesh {n}-stream step median {statistics.median(steady):.3f}"
         f" ms ({n * len(steady) / (sum(steady) / 1000.0):.2f} frames/s "
-        f"aggregate; all {[round(m, 3) for m in ms]}); {card}")
+        f"aggregate; all {[round(m, 3) for m in ms]}; under "
+        f"torch.profiler); {card}")
 
 
 def phase_envelope(torch, bundle, card):
@@ -4035,7 +4055,7 @@ def phase_envelope(torch, bundle, card):
         pipe = host.BatchedBoTSORTPipeline(
             bundle, STREAMS, loaded_cfg(TrackerConfig, max_dets=16),
             NMSConfig(), PipelineConfig(body_reid_input_hw=hw))
-        rows = drive(torch, pipe, steps, lambda: 0)
+        rows = drive(torch, pipe, steps)
         ms = steady_ms(rows)
         out[hw] = STREAMS * len(ms) / (sum(ms) / 1000.0)
         log(f"timing: envelope {STREAMS} streams moderate-16 body ReID "
@@ -4057,7 +4077,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test needs one",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
     from botsort_tpu_torch.models import (bn_act, facereid_dw, fastreid,
@@ -4102,8 +4121,7 @@ def main() -> int:
     done("K3")
     k2_batches, k2_err = phase_k2(torch, assignment, assignment_cuda, dev)
     done("K2")
-    k3_launches, oracle_err = phase_oracle(torch, assignment,
-                                           assignment_cuda, k2_batches)
+    k3_launches, oracle_err = phase_oracle(torch, assignment, k2_batches)
     done("oracle")
     phase_small(torch, assets, dev)
     done("small")
@@ -4121,7 +4139,7 @@ def main() -> int:
     done("main")
     (k2_launches, k6_launches, k7_multi, k8_multi, k10_multi, unlowered,
      multi_pipe, multi_frames, multi_cfgs) = phase_multi(
-         torch, bundle, assignment, assignment_cuda, bn_act, card)
+         torch, bundle, assignment, assignment_cuda, card)
     done("multi")
     phase_nosync(torch, bundle, main_pipe, main_frame, main_cfgs, multi_pipe,
                  multi_frames)
@@ -4153,7 +4171,7 @@ def main() -> int:
         f"{card}")
     done("switch")
     k2_temporal, k7_temporal, k10_temporal, temporal_frames = phase_temporal(
-        torch, bundle, assignment_cuda, card, unlowered)
+        torch, bundle, card, unlowered)
     done("temporal")
     k10_err, k10_times = phase_k10(torch, bundle, main_frame, multi_frames,
                                    temporal_frames, main_cfgs, multi_cfgs,
@@ -4163,7 +4181,7 @@ def main() -> int:
     done("K10")
     phase_checkpoint(torch, assets, bundle)
     done("checkpoint")
-    phase_onnx(torch, assets, bundle, assignment_cuda, bn_act, card)
+    phase_onnx(torch, assets, bundle, card)
     torch.cuda.empty_cache()
     done("onnx")
     face_inputs, k5_err = phase_k5(torch, facereid_dw, dev)
@@ -4172,8 +4190,8 @@ def main() -> int:
                                 cast_compute, dev)
     done("K4")
     k4_launches, k5_launches = phase_lowered(
-        torch, bundle, assignment_cuda, fastreid_fused, facereid_dw, card,
-        unlowered, assets.FULL)
+        torch, bundle, fastreid_fused, facereid_dw, card, unlowered,
+        assets.FULL)
     done("lowered")
     phase_coherent(torch, assignment, assignment_cuda, main_cascades, dev,
                    card)
@@ -4188,27 +4206,27 @@ def main() -> int:
     times["K9"] = k9_times
     times["K10"] = k10_times
     done("timings")
-    phase_export(torch, bundle, assignment_cuda, bn_act, card)
+    phase_export(torch, bundle, card)
     done("export")
     phase_serve(torch, bundle, card)
     done("serve")
     phase_store(torch, bundle)
     done("store")
-    phase_oproute(torch, bundle, assignment_cuda, bn_act,
+    phase_oproute(torch, bundle,
                   (assignment, bn_act, crop, nms, hierarchy, facereid_dw,
                    fastreid_fused), card)
     done("oproute")
     torch.cuda.empty_cache()
-    k6b_launches, train_norms = phase_train(torch, bn_act, assets,
-                                            cast_compute, dev, card)
+    k6b_launches, train_norms = phase_train(torch, assets, cast_compute,
+                                            dev, card)
     done("train")
     k6b_err, times["K6b"] = phase_k6b(torch, bn_act, train_norms, dev, card)
     done("K6b")
     torch.cuda.empty_cache()
-    phase_int8(torch, bundle, assignment_cuda, bn_act, card)
+    phase_int8(torch, bundle, card)
     done("int8")
     torch.cuda.empty_cache()
-    phase_mesh(torch, bundle, assignment_cuda, bn_act, card)
+    phase_mesh(torch, bundle, card)
     done("mesh")
     torch.cuda.empty_cache()
     phase_envelope(torch, bundle, card)

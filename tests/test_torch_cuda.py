@@ -3,7 +3,8 @@ the frame step replayed from a CUDA graph against the eager step (also
 with the encoders' bucket switch as conditional graph nodes).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card
-and skips without one. The file imports neither JAX nor the JAX package,
+and skips without one. Which kernels a call ran, and how often, is read
+from torch.profiler by the kernels' names (torch_profile.py). The file imports neither JAX nor the JAX package,
 so it runs on a machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -25,11 +26,12 @@ from botsort_tpu_torch.models.common import cast_compute
 from botsort_tpu_torch.ops import (assignment, assignment_cuda, crop,
                                    hierarchy, nms)
 from botsort_tpu_torch.pipeline import frame_step as fs
-from botsort_tpu_torch.pipeline import graphed, host, switch
+from botsort_tpu_torch.pipeline import graphed, host
 from botsort_tpu_torch.runtime import assets, kernels
 from botsort_tpu_torch.track.state import empty_stores
 # By its own name (pytest puts this directory on the path): a site package
 # named ``tests`` would shadow the directory as ``tests.torch_scenes``.
+from torch_profile import kernel_counts
 from torch_scenes import (HIER_KINDS, HIER_ROUNDS, LIVE, REGIMES, WIDTH,
                           TorchCountDetector, boundary_boxes,
                           hierarchy_case, hierarchy_problems, level_frames)
@@ -37,6 +39,18 @@ from torch_scenes import (HIER_KINDS, HIER_ROUNDS, LIVE, REGIMES, WIDTH,
 pytestmark = pytest.mark.cuda
 
 LIMITS = (0.8, 0.5, 0.7)
+
+# The symbols of K6's two paths and K10's two forms.
+K6 = ("bn_act_kernel", "bn_act_kernel_cl")
+K10 = ("hierarchy_scan_warp", "hierarchy_scan_block")
+
+
+def _k6(counts):
+    return sum(counts[k] for k in K6)
+
+
+def _k10(counts):
+    return sum(counts[k] for k in K10)
 
 
 @pytest.fixture
@@ -131,10 +145,11 @@ def test_wrappers_launch_on_the_current_stream(dev):
 
 def test_dispatcher_launches_k1_for_cuda_tensors(dev):
     inst = _instance(np.random.default_rng(4), 64, 50)
-    before = assignment_cuda.cascade_solve_cuda.launches
-    got = assignment.solve_cascade_masked(
-        *[torch.from_numpy(a).to(dev) for a in inst], LIMITS)
-    assert assignment_cuda.cascade_solve_cuda.launches == before + 1
+    on_card = [torch.from_numpy(a).to(dev) for a in inst]
+    got = assignment.solve_cascade_masked(*on_card, LIMITS)
+    counts = kernel_counts(
+        lambda: assignment.solve_cascade_masked(*on_card, LIMITS))
+    assert counts["cascade_lap_kernel"] == 1, counts
     want = assignment.solve_cascade_masked(
         *[torch.from_numpy(a) for a in inst], LIMITS)
     for g, w in zip(got, want):
@@ -155,11 +170,9 @@ def test_wrapper_rejects_malformed_inputs(dev):
          good[2]),
         (good[0], good[1].cpu(), good[2]),
     ]
-    before = assignment_cuda.cascade_solve_cuda.launches
     for args in bad:
         with pytest.raises(ValueError):
             assignment_cuda.cascade_solve_cuda(*args, LIMITS)
-    assert assignment_cuda.cascade_solve_cuda.launches == before
 
 
 def test_k2_batch_equals_plain_and_k1(dev):
@@ -171,16 +184,20 @@ def test_k2_batch_equals_plain_and_k1(dev):
     insts[3] = _instance(rng, 64, 50, p_row=0.0)
     batched = [torch.from_numpy(np.stack(x)).to(dev) for x in zip(*insts)]
     costs, masks, big = assignment.prepare_cascade(*batched, LIMITS)
-    before = (assignment_cuda.cascade_solve_cuda.launches,
-              assignment_cuda.cascade_solve_cuda.batched_launches)
     got = assignment_cuda.cascade_solve_cuda(costs, masks, big, LIMITS)
-    assert assignment_cuda.cascade_solve_cuda.batched_launches == \
-        before[1] + 1
+    counts = kernel_counts(lambda: assignment_cuda.cascade_solve_cuda(
+        costs, masks, big, LIMITS))
+    assert counts["cascade_lap_kernel"] == 1, counts
     want = assignment.cascade_solve_plain(costs, masks, big, LIMITS)
-    singles = [assignment_cuda.cascade_solve_cuda(
-        costs[b:b + 1], masks[b:b + 1], big[b:b + 1], LIMITS)
-        for b in range(8)]
-    assert assignment_cuda.cascade_solve_cuda.launches == before[0] + 8
+
+    def one_stream_launches():
+        return [assignment_cuda.cascade_solve_cuda(
+            costs[b:b + 1], masks[b:b + 1], big[b:b + 1], LIMITS)
+            for b in range(8)]
+
+    singles = one_stream_launches()
+    counts = kernel_counts(one_stream_launches)
+    assert counts["cascade_lap_kernel"] == 8, counts
     torch.cuda.synchronize()
     for k in range(2):
         assert torch.equal(got[k], want[k])
@@ -218,10 +235,10 @@ def test_solve_masked_launches_k3_for_cuda_tensors(dev):
     rng = np.random.default_rng(8)
     cost = rng.uniform(0, 1.2, (64, 50)).astype(np.float32)
     rv, cv = rng.uniform(0, 1, 64) < 0.7, rng.uniform(0, 1, 50) < 0.7
-    before = assignment_cuda.jv_solve_cuda.launches
-    got = assignment.solve_masked(
-        *[torch.from_numpy(a).to(dev) for a in (cost, rv, cv)], 0.8)
-    assert assignment_cuda.jv_solve_cuda.launches == before + 1
+    on_card = [torch.from_numpy(a).to(dev) for a in (cost, rv, cv)]
+    got = assignment.solve_masked(*on_card, 0.8)
+    counts = kernel_counts(lambda: assignment.solve_masked(*on_card, 0.8))
+    assert counts["jv_lap_kernel"] == 1, counts
     want = assignment.solve_masked(
         *[torch.from_numpy(a) for a in (cost, rv, cv)], 0.8)
     assert torch.equal(got.col_for_row.cpu(), want.col_for_row)
@@ -241,11 +258,9 @@ def test_jv_wrapper_rejects_malformed_inputs(dev):
         (ext, p0, order, n_live.cpu()),
         (ext.transpose(1, 2), p0, order, n_live),
     ]
-    before = assignment_cuda.jv_solve_cuda.launches
     for args in bad:
         with pytest.raises(ValueError):
             assignment_cuda.jv_solve_cuda(*args)
-    assert assignment_cuda.jv_solve_cuda.launches == before
 
 
 # The face encoder's 13 stride-1 depthwise layers at 128x128, (H, W, C).
@@ -306,10 +321,10 @@ def test_face_kernel_mode_launches_k5_per_layer(dev):
     face = cast_compute(face, torch.bfloat16).to(dev).eval()
     img = torch.from_numpy(rng.uniform(0, 255, (4, 128, 128, 3)).astype(
         np.float32)).to(dev)
-    before = facereid_dw.dw_conv3x3_cuda.launches
     with torch.no_grad():
         got = face(img)
-    assert facereid_dw.dw_conv3x3_cuda.launches == before + 13
+        counts = kernel_counts(lambda: face(img))
+    assert counts["dw3x3_kernel"] == 13, counts
     with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
         mp.setattr(facereid_dw, "dw_conv3x3_cuda",
                    facereid_dw.dw_conv3x3_plain)
@@ -323,11 +338,9 @@ def test_k5_wrapper_rejects_malformed_inputs(dev):
     bad = [(x.half(), taps), (x, taps.double()), (x, taps[:, :-1]),
            (x.transpose(2, 3), taps), (x.cpu(), taps), (x, taps.cpu()),
            (x[0], taps)]
-    before = facereid_dw.dw_conv3x3_cuda.launches
     for args in bad:
         with pytest.raises(ValueError):
             facereid_dw.dw_conv3x3_cuda(*args)
-    assert facereid_dw.dw_conv3x3_cuda.launches == before
 
 
 def _trunk(dev, seed, **layout):
@@ -427,10 +440,10 @@ def test_fused_trunk_launches_k4_once(dev):
     model = _trunk(dev, 9, stage_blocks=(3, 1, 1, 1))
     x = torch.from_numpy(np.random.default_rng(10).normal(
         0, 1, (2, 3, 256, 128)).astype(np.float32)).to(dev, torch.bfloat16)
-    before = fastreid_fused.stem_stage1_cuda.launches
     with torch.no_grad():
         got = model(x)
-    assert fastreid_fused.stem_stage1_cuda.launches == before + 1
+        counts = kernel_counts(lambda: model(x))
+    assert counts["stem0_kernel"] == 1, counts
     model.fused_stem = False
     with torch.no_grad():
         want = model(x)
@@ -448,11 +461,9 @@ def test_k4_wrapper_rejects_malformed_inputs(dev):
            (x.cpu(), folded), (x[..., :2].contiguous(), folded),
            (torch.zeros((1, 32, 12, 3), dtype=torch.bfloat16, device=dev),
             folded), (x, cpu_folded)]
-    before = fastreid_fused.stem_stage1_cuda.launches
     for args in bad:
         with pytest.raises(ValueError):
             fastreid_fused.stem_stage1_cuda(*args)
-    assert fastreid_fused.stem_stage1_cuda.launches == before
 
 
 # --- K6: batch norm + activation ------------------------------------------
@@ -495,10 +506,11 @@ def test_k6_equals_plain(dev, shape, dtype):
     place of the dtype (the two exponentials may round differently)."""
     rng = np.random.default_rng(sum(shape))
     x, mean, mul, bias = _bn_inputs(rng, shape, dtype, dev)
+    counts = kernel_counts(lambda: [bn_act.bn_act(x, mean, mul, bias, act)
+                                    for act in bn_act.ACTS])
+    assert _k6(counts) == len(bn_act.ACTS), counts
     for act in bn_act.ACTS:
-        before = bn_act.bn_act_cuda.launches
         got = bn_act.bn_act(x, mean, mul, bias, act)
-        assert bn_act.bn_act_cuda.launches == before + 1
         want = bn_act.bn_act_plain(x, mean, mul, bias, act)
         torch.cuda.synchronize()
         assert got.shape == x.shape and got.dtype == x.dtype
@@ -573,22 +585,21 @@ def _k6_nchw_reference(x, mean, mul, bias, act):
 def test_k6_channels_last_equals_its_nchw_result(dev, shape, dtype):
     """K6's channels-innermost path (``bn_act_kernel_cl``) against its NCHW
     path on the same values, bit for bit for all four activations (one
-    ``bn_act_one``), its output laid out as x; the counters tell the two
-    paths apart."""
+    ``bn_act_one``), its output laid out as x; the kernels' symbols tell
+    the two paths apart."""
     rng = np.random.default_rng(sum(shape) + 7)
     x, mean, mul, bias = _bn_inputs(rng, shape, dtype, dev)
     if x.dim() == 4:
         x = x.to(memory_format=torch.channels_last)
     assert bn_act.bn_act_path(x) == "channels_last"
+    counts = kernel_counts(lambda: [bn_act.bn_act(x, mean, mul, bias, act)
+                                    for act in bn_act.ACTS])
+    assert counts["bn_act_kernel_cl"] == len(bn_act.ACTS), counts
+    assert counts["bn_act_kernel"] == 0, counts
     for act in bn_act.ACTS:
         want = _k6_nchw_reference(x, mean, mul, bias, act)
-        before = (bn_act.bn_act_cuda.launches,
-                  bn_act.bn_act_cuda.launches_channels_last)
         got = bn_act.bn_act(x, mean, mul, bias, act)
         torch.cuda.synchronize()
-        assert (bn_act.bn_act_cuda.launches,
-                bn_act.bn_act_cuda.launches_channels_last) == (
-                    before[0] + 1, before[1] + 1)
         assert got.stride() == x.stride() and got.dtype == x.dtype
         assert torch.equal(got, want), act
 
@@ -631,7 +642,7 @@ def test_graphed_step_runs_channels_last_without_layout_transposes(
     """A full-width step of each configuration (both encoders at a full
     bucket), captured in a CUDA graph and replayed under torch.profiler:
     no cuDNN layout transpose (nchwToNhwc / nhwcToNchw), and every K6
-    launch of the step on the channels-innermost path."""
+    launch of the replay on the channels-innermost path."""
     bundle = assets.build_bundle(body_reid_name=body, seed=3, device=dev,
                                  dtype=torch.bfloat16)
     hw = assets.parse_body_reid_input_hw(body)
@@ -648,7 +659,6 @@ def test_graphed_step_runs_channels_last_without_layout_transposes(
         return fs.frame_step_batched(bundle, stores, frames, trk, nms_cfg,
                                      pipe_cfg, None, bucket, bucket)
 
-    k6 = bn_act.bn_act_cuda
     with torch.no_grad():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -656,22 +666,14 @@ def test_graphed_step_runs_channels_last_without_layout_transposes(
             step()  # warm-up outside the capture
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = (k6.launches, k6.launches_channels_last)
         with torch.cuda.graph(graph):
             step()
-        launches = (k6.launches - before[0],
-                    k6.launches_channels_last - before[1])
-        graph.replay()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            graph.replay()
-            torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()]
-    print(f"{body}: K6 launches {launches}; {len(names)} kernels")
-    assert launches[0] > 0 and launches[1] == launches[0], launches
-    assert any("bn_act_kernel_cl" in n for n in names), names
-    transposes = [n for n in names
+        counts = kernel_counts(graph.replay)
+    print(f"{body}: K6 launches {_k6(counts)}, channels-last "
+          f"{counts['bn_act_kernel_cl']}; {sum(counts.values())} kernels")
+    assert counts["bn_act_kernel_cl"] > 0
+    assert counts["bn_act_kernel_cl"] == _k6(counts), counts
+    transposes = [n for n in counts
                   if "nchwToNhwc" in n or "nhwcToNchw" in n]
     assert not transposes, transposes
 
@@ -693,11 +695,13 @@ def test_k6b_equals_plain(dev, shape, dtype):
     x, mean, mul, bias = _bn_inputs(rng, shape, dtype, dev)
     grad = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
         dev, dtype)
+    counts = kernel_counts(lambda: [bn_act.bn_act_backward_cuda(
+        grad, x, mean, mul, bias, act) for act in bn_act.ACTS])
+    for kernel in ("bn_act_backward_kernel", "bn_act_backward_sums"):
+        assert counts[kernel] == len(bn_act.ACTS), counts
     for act in bn_act.ACTS:
-        before = bn_act.bn_act_backward_cuda.launches
         got = bn_act.bn_act_backward_cuda(grad, x, mean, mul, bias, act)
         again = bn_act.bn_act_backward_cuda(grad, x, mean, mul, bias, act)
-        assert bn_act.bn_act_backward_cuda.launches == before + 2
         want = bn_act.bn_act_backward_plain(grad, x, mean, mul, bias, act)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again)), act
@@ -725,10 +729,15 @@ def test_training_route_launches_k6b(dev):
     bn.running_var.requires_grad_()
     x = torch.from_numpy(rng.normal(size=(4, 16, 8, 8)).astype(
         np.float32)).to(dev, torch.bfloat16).requires_grad_()
-    k6, k6b = bn_act.bn_act_cuda.launches, bn_act.bn_act_backward_cuda.launches
-    bn(x, "relu").float().sum().backward()
-    assert bn_act.bn_act_cuda.launches == k6 + 1
-    assert bn_act.bn_act_backward_cuda.launches == k6b + 1
+
+    def forward_backward():
+        for t in (x, *bn.parameters(), bn.running_mean, bn.running_var):
+            t.grad = None
+        bn(x, "relu").float().sum().backward()
+
+    counts = kernel_counts(forward_backward)
+    assert _k6(counts) == 1, counts
+    assert counts["bn_act_backward_kernel"] == 1, counts
     with torch.no_grad():
         g = torch.ones_like(x)
         gx, s_gy, s_gyx = bn_act.bn_act_backward_plain(
@@ -787,9 +796,10 @@ def test_k7_equals_plain(dev, mode, b, hw, n, out_hw):
     CPU (which the CPU tests hold to the JAX package)."""
     rng = np.random.default_rng(b + n)
     frames, boxes = _crop_case(rng, b, hw, max(n, 7), torch.uint8, dev)
-    before = crop.crop_resize_cuda.launches
     got = crop.crop_resize(frames, boxes, out_hw, mode)
-    assert crop.crop_resize_cuda.launches == before + 1
+    counts = kernel_counts(lambda: crop.crop_resize(frames, boxes, out_hw,
+                                                    mode))
+    assert counts["crop_resize_kernel"] == 1, counts
     want = crop.crop_resize_plain(frames, boxes, out_hw, mode)
     torch.cuda.synchronize()
     assert got.shape == (b, max(n, 7)) + out_hw + (3,)
@@ -831,10 +841,10 @@ def test_k7_op_on_the_card_equals_its_cpu_implementation(dev):
     frames, boxes = _crop_case(np.random.default_rng(6), 2, (90, 120), 9,
                                torch.uint8, "cpu")
     for mode in crop.MODES:
-        before = crop.crop_resize_cuda.launches
-        got, want = _op_pair(torch.ops.botsort_tpu_torch.crop_resize,
-                             [frames, boxes, 48, 64, mode], dev)
-        assert crop.crop_resize_cuda.launches == before + 1
+        got, want, counts = _op_pair(
+            torch.ops.botsort_tpu_torch.crop_resize,
+            [frames, boxes, 48, 64, mode], dev)
+        assert counts["crop_resize_kernel"] == 1, counts
         assert torch.equal(got.cpu(), want), mode
 
 
@@ -911,13 +921,15 @@ def test_mini_step_crops_with_k7(dev, pipe_cfg):
         modes.append(mode)
         return out
 
-    before = crop.crop_resize_cuda.launches
-    with mock.patch.object(crop, "crop_resize", checked):
+    def step():
+        modes.clear()
         fs.frame_step_batched(bundle, empty_stores(MINI_TRK, 2, dev),
                               frames, MINI_TRK, MINI_NMS, pipe_cfg, None, 8,
                               8)
-    torch.cuda.synchronize()
-    assert crop.crop_resize_cuda.launches - before == 3
+
+    with mock.patch.object(crop, "crop_resize", checked):
+        counts = kernel_counts(step)
+    assert counts["crop_resize_kernel"] == 3, counts
     assert modes == [crop.crop_mode(pipe_cfg, torch.uint8)] * 3
 
 
@@ -925,11 +937,10 @@ def test_mini_step_crops_with_k7(dev, pipe_cfg):
 def test_mini_graphed_step_equals_eager(dev, streams):
     """The facades with and without CUDA graphs over the same frames:
     every FrameResult field and the final stores bit-equal, across bucket
-    changes and a forced overflow re-run; K1 / K2 counted once per step run
-    under replay."""
+    changes and a forced overflow re-run; each captured step launches the
+    cascade once a replay (K2: one launch for every stream)."""
     bundle = assets.build_bundle(mini=True, seed=2, device=dev,
                                  dtype=torch.bfloat16)
-    cuda = assignment_cuda.cascade_solve_cuda
 
     def make(graphs):
         if streams == 1:
@@ -953,15 +964,9 @@ def test_mini_graphed_step_equals_eager(dev, streams):
                 else:
                     p._last_max_live, p._last_max_face = 0, 0
         eager.update(arg)
-        before = (cuda.launches, cuda.batched_launches, len(runs))
         graphed.update(arg)
         torch.cuda.synchronize()
         _same_result(eager.last_result, graphed.last_result)
-        n_runs = len(runs) - before[2]
-        counted = (cuda.launches - before[0]) if streams == 1 else (
-            cuda.batched_launches - before[1])
-        # Every run replays once; a key's first use also warms up eagerly.
-        assert n_runs <= counted <= 2 * n_runs, (t, n_runs, counted)
     assert len({r for r in runs}) >= 2, runs          # a bucket change
     assert len(runs) > 6, runs                        # the overflow re-run
     a = eager.store if streams == 1 else eager.stores
@@ -970,6 +975,60 @@ def test_mini_graphed_step_equals_eager(dev, streams):
         assert (x is None and y is None) or torch.equal(x, y)
     g = graphed._graphs
     assert g.captures == len(g.keys()) and g.replays == len(runs)
+    for key in g.keys():
+        counts = kernel_counts(g._entries[key].replay)
+        assert counts["cascade_lap_kernel"] == 1, (key, counts)
+
+
+def test_profile_counts_are_exact_after_an_earlier_profile(dev):
+    """``kernel_counts`` in a process that has already run torch.profiler
+    (a second run can lose its first events), three rounds in a row:
+    exactly N K6 launches from N eager calls, and N times a step's K6
+    launches (counted at the wrapper while the step ran eagerly) from N
+    replays of the captured MINI step."""
+    x, mean, mul, bias = _bn_inputs(np.random.default_rng(3), (2, 8, 6, 5),
+                                    torch.float32, dev)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        bn_act.bn_act_cuda(x, mean, mul, bias)
+        torch.cuda.synchronize()
+    bundle = assets.build_bundle(mini=True, seed=2, device=dev,
+                                 dtype=torch.bfloat16)
+    frames = torch.from_numpy(_mini_frames(1, 2, 4)[0]).to(dev)
+    stores = host.empty_stores(MINI_TRK, 2, dev)
+
+    def step():
+        fs.frame_step_batched(bundle, stores, frames, MINI_TRK, MINI_NMS,
+                              MINI_PIPE, None, 8, 8)
+
+    calls = []
+    real = bn_act.bn_act_cuda
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    with torch.no_grad():
+        with mock.patch.object(bn_act, "bn_act_cuda", counted):
+            step()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()  # warm-up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+    per_step = len(calls)
+    assert per_step > 1
+    for _ in range(3):
+        for n in (1, 5):
+            counts = kernel_counts(lambda: [bn_act.bn_act_cuda(
+                x, mean, mul, bias) for _ in range(n)])
+            assert _k6(counts) == counts["bn_act_kernel"] == n, counts
+            counts = kernel_counts(lambda: [graph.replay()
+                                            for _ in range(n)])
+            assert _k6(counts) == n * per_step, (n, per_step, counts)
 
 
 def test_mini_step_never_synchronises(dev):
@@ -1073,14 +1132,15 @@ def test_banded_upload_lands_every_frame_on_the_card(dev):
 
 
 def _op_pair(op, args, dev):
-    """The op on the card's arguments and on their CPU copies."""
+    """The op on the card's arguments and on their CPU copies, and the
+    kernels the card's call runs."""
     on_card = [a.to(dev) if isinstance(a, torch.Tensor) else
                [t.to(dev) for t in a] if isinstance(a, list) and a and
                isinstance(a[0], torch.Tensor) else a for a in args]
     got = op(*on_card)
     want = op(*args)
     torch.cuda.synchronize()
-    return got, want
+    return got, want, kernel_counts(lambda: op(*on_card))
 
 
 def test_cascade_and_jv_ops_on_the_card_equal_their_cpu_implementation(dev):
@@ -1093,19 +1153,15 @@ def test_cascade_and_jv_ops_on_the_card_equal_their_cpu_implementation(dev):
         insts = [_instance(rng, 40, 30) for _ in range(b)]
         tensors = [torch.from_numpy(np.stack(x)) for x in zip(*insts)]
         costs, masks, big = assignment.prepare_cascade(*tensors, LIMITS)
-        cuda = assignment_cuda.cascade_solve_cuda
-        before = (cuda.launches, cuda.batched_launches)
-        got, want = _op_pair(ops.cascade_solve,
-                             [costs, masks, big, list(LIMITS), 4096], dev)
-        assert (cuda.launches, cuda.batched_launches) == (
-            before[0] + (b == 1), before[1] + (b > 1))
+        got, want, counts = _op_pair(
+            ops.cascade_solve, [costs, masks, big, list(LIMITS), 4096], dev)
+        assert counts["cascade_lap_kernel"] == 1, (b, counts)
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g.cpu(), w)
     probs = [_jv_problem(rng, 60, 25) for _ in range(2)]
     args = [torch.from_numpy(np.stack(x)) for x in zip(*probs)] + [4096]
-    before = assignment_cuda.jv_solve_cuda.launches
-    got, want = _op_pair(ops.jv_solve, args, dev)
-    assert assignment_cuda.jv_solve_cuda.launches == before + 1
+    got, want, counts = _op_pair(ops.jv_solve, args, dev)
+    assert counts["jv_lap_kernel"] == 1, counts
     assert torch.equal(got.cpu(), want)
 
 
@@ -1119,25 +1175,23 @@ def test_encoder_ops_on_the_card_equal_their_cpu_implementation(dev):
     for dtype in (torch.float32, torch.bfloat16):
         x, mean, mul, bias = _bn_inputs(rng, (2, 24, 6, 10), dtype, "cpu")
         for act in bn_act.ACTS:
-            before = bn_act.bn_act_cuda.launches
-            got, want = _op_pair(ops.bn_act, [x, mean, mul, bias, act], dev)
-            assert bn_act.bn_act_cuda.launches == before + 1
+            got, want, counts = _op_pair(ops.bn_act,
+                                         [x, mean, mul, bias, act], dev)
+            assert _k6(counts) == 1, counts
             got = got.cpu()
             if act == "silu":
                 assert _ulp_apart(got, want) <= 2
             else:
                 assert torch.equal(got, want), act
     x, taps = _dw_case(rng, (3, 40, 12, 24), torch.bfloat16, "cpu")
-    before = facereid_dw.dw_conv3x3_cuda.launches
-    got, want = _op_pair(ops.dw_conv3x3, [x, taps], dev)
-    assert facereid_dw.dw_conv3x3_cuda.launches == before + 1
+    got, want, counts = _op_pair(ops.dw_conv3x3, [x, taps], dev)
+    assert counts["dw3x3_kernel"] == 1, counts
     assert torch.equal(got.cpu(), want)
     model = _trunk("cpu", 7, **FULL_STEM)
     tensors, plan = fastreid_fused.fold_tensors(model.folded_stem_stage1())
     x = _k4_input("cpu", 8, 2, 64, 32)
-    before = fastreid_fused.stem_stage1_cuda.launches
-    got, want = _op_pair(ops.stem_stage1, [x, tensors, plan], dev)
-    assert fastreid_fused.stem_stage1_cuda.launches == before + 1
+    got, want, counts = _op_pair(ops.stem_stage1, [x, tensors, plan], dev)
+    assert counts["stem0_kernel"] == 1, counts
     rel, worst = _rel(got.cpu(), want)
     assert rel <= 1e-2 and worst <= 0.05, (rel, worst)
 
@@ -1147,7 +1201,8 @@ def test_mini_exported_step_replayed_from_a_graph_equals_eager(dev,
     """A MINI bfloat16 step exported on the card (the program of the
     det-width bucket pair), loaded and replayed from CUDA graphs by
     load_pipeline: every FrameResult field and the final store bit-equal to
-    the eager live facade's; K1 and K6 counted on every replay."""
+    the eager live facade's; every captured program launches K1 once a
+    replay and K6 more than once."""
     from botsort_tpu_torch.runtime import exported
 
     bundle = assets.build_bundle(mini=True, seed=2, device=dev,
@@ -1159,16 +1214,17 @@ def test_mini_exported_step_replayed_from_a_graph_equals_eager(dev,
     assert loaded._graphs is not None
     eager = host.BoTSORTPipeline(bundle, MINI_TRK, MINI_NMS, MINI_PIPE,
                                  graphs=False)
-    k1, k6 = assignment_cuda.cascade_solve_cuda, bn_act.bn_act_cuda
     for t, frames in enumerate(_mini_frames(4, 1, 7)):
         eager.update(frames[0])
-        before = (k1.launches, k6.launches, loaded._graphs.replays)
+        replays = loaded._graphs.replays
         loaded.update(frames[0])
         torch.cuda.synchronize()
         _same_result(eager.last_result, loaded.last_result)
-        replays = loaded._graphs.replays - before[2]
-        assert k1.launches - before[0] >= replays >= 1
-        assert k6.launches - before[1] > replays
+        assert loaded._graphs.replays > replays
+    for key in loaded._graphs.keys():
+        counts = kernel_counts(loaded._graphs._entries[key].replay)
+        assert counts["cascade_lap_kernel"] == 1, (key, counts)
+        assert _k6(counts) > 1, (key, counts)
     for x, y in zip(host._store_tensors(eager.store),
                     host._store_tensors(loaded.store)):
         assert (x is None and y is None) or torch.equal(x, y)
@@ -1201,7 +1257,7 @@ def _k8_case(rng, problems, p, kind):
     (1, 2048, "chain"), (4, 6300, "random"), (32, 1100, "dense")])
 def test_k8_equals_plain(dev, problems, p, kind):
     """K8 against its plain version, bit for bit, at three thresholds
-    (one launch each, counted), shaped [G, C, P] and flat. "cN": a problem
+    (one launch each, counted from the profile), shaped [G, C, P] and flat. "cN": a problem
     count that takes cluster size N on the H100 (its SM count // N, or
     fewer where the card holds fewer clusters of N at once); "boundary":
     the pairs of tests/torch_scenes.py::boundary_boxes, whose IoU is each
@@ -1217,15 +1273,18 @@ def test_k8_equals_plain(dev, problems, p, kind):
     rng = np.random.default_rng(p + problems)
     boxes, valid = _k8_case(rng, problems, p, kind) \
         if kind != "boundary" else (None, None)
+    cases = []
     for thr in (0.3, 0.5, 0.8):
         if kind == "boundary":
             boxes, _ = boundary_boxes(thr)
             valid = np.ones(boxes.shape[:2], bool)
-        tb = torch.from_numpy(boxes).to(dev)
-        tv = torch.from_numpy(valid).to(dev)
-        before = nms.nms_fixpoint_cuda.launches
+        cases.append((torch.from_numpy(boxes).to(dev),
+                      torch.from_numpy(valid).to(dev), thr))
+    counts = kernel_counts(lambda: [nms.nms_fixpoint_cuda(*c)
+                                    for c in cases])
+    assert counts["nms_fixpoint_kernel"] == len(cases), counts
+    for tb, tv, thr in cases:
         got = nms.nms_fixpoint_cuda(tb, tv, thr)
-        assert nms.nms_fixpoint_cuda.launches == before + 1
         want = nms.nms_fixpoint_plain(tb, tv, thr)
         assert torch.equal(got, want), thr
     if problems % 2 == 0:
@@ -1242,8 +1301,8 @@ def test_k8_equals_plain(dev, problems, p, kind):
 def test_k8_replayed_from_a_graph_equals_eager(dev, problems, p, kinds, thr):
     """K8 captured in a CUDA graph by pipeline/graphed.py::GraphCache, as
     the facades capture a step, and replayed on two inputs: equal to the
-    eager launch and to the plain version, and counted as chip_smoke counts
-    it (the capture's warm-up calls, then one a replay). Above 1,024
+    eager launch and to the plain version, and launched once a replay.
+    Above 1,024
     candidates the dominance words go to a scratch tensor the wrapper
     allocates on the current stream (the graph's pool under capture)."""
     rng = np.random.default_rng(13)
@@ -1255,24 +1314,23 @@ def test_k8_replayed_from_a_graph_equals_eager(dev, problems, p, kinds, thr):
     def step(boxes, valid):
         return [nms.nms_fixpoint(boxes, valid, thr)]
 
-    before = nms.nms_fixpoint_cuda.launches
     for tb, tv in inputs + inputs:
         eager = nms.nms_fixpoint_cuda(tb, tv, thr)
         got, = cache.run(("k8",), step, [tb, tv])
         assert torch.equal(got, eager)
         assert torch.equal(got, nms.nms_fixpoint_plain(tb, tv, thr))
     assert cache.captures == 1 and cache.replays == 4
-    assert nms.nms_fixpoint_cuda.launches - before == 4 + cache.warmups + 4
+    counts = kernel_counts(lambda: cache.run(("k8",), step, inputs[0]))
+    assert counts["nms_fixpoint_kernel"] == 1, counts
 
 
 def test_k8_wrapper_refuses_and_op_equals_its_cpu_implementation(dev):
     rng = np.random.default_rng(41)
     boxes, valid = _k8_case(rng, 4, 96, "random")
     tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
-    before = nms.nms_fixpoint_cuda.launches
-    got, want = _op_pair(torch.ops.botsort_tpu_torch.nms_fixpoint,
-                         [tb, tv, 0.5], dev)
-    assert nms.nms_fixpoint_cuda.launches == before + 1
+    got, want, counts = _op_pair(torch.ops.botsort_tpu_torch.nms_fixpoint,
+                                 [tb, tv, 0.5], dev)
+    assert counts["nms_fixpoint_kernel"] == 1, counts
     assert got.is_cuda and torch.equal(got.cpu(), want)
     # No size is refused: 1,025 candidates, one above the shared-memory
     # words, launch and equal the plain version.
@@ -1280,7 +1338,9 @@ def test_k8_wrapper_refuses_and_op_equals_its_cpu_implementation(dev):
         rng, 1, 1025, "dense"))
     assert torch.equal(nms.nms_fixpoint_cuda(big, big_valid, 0.5),
                        nms.nms_fixpoint_plain(big, big_valid, 0.5))
-    assert nms.nms_fixpoint_cuda.launches == before + 2
+    counts = kernel_counts(lambda: nms.nms_fixpoint_cuda(big, big_valid,
+                                                         0.5))
+    assert counts["nms_fixpoint_kernel"] == 1, counts
     with pytest.raises(ValueError, match="float32"):
         nms.nms_fixpoint_cuda(tb.to(dev).double(), tv.to(dev), 0.5)
 
@@ -1318,21 +1378,27 @@ def test_mini_switch_graph_equals_static_bucket_graphs(dev, streams):
                                            MINI_NMS, cfg)
 
     sw, st = make(sw_cfg), make(pipe_cfg)
-    k7 = crop.crop_resize_cuda
     seen = set()
     for t, row in enumerate(SWITCH_ROWS):
         frames = np.stack(level_frames([REGIMES[r] for r in
                                         row[:streams]], seed=30 + t))
         arg = frames[0] if streams == 1 else frames
         store_before = st.store if streams == 1 else st.stores
-        before = (switch.launch_conditional.launches, k7.launches)
         sw.update(arg)
         torch.cuda.synchronize()
         values = fs.switch_values(sw.last_result, MINI_TRK, MINI_NMS,
                                   sw_cfg)
-        if t:  # the first step also warmed up and captured
-            assert switch.launch_conditional.launches - before[0] == 2
-            assert k7.launches - before[1] == 1 + sum(v > 0 for v in values)
+        # The program replayed on this step's inputs (still in the cache's
+        # input buffers): K9 once a switch, K7 once for the detector input
+        # and once inside each branch taken.
+        cache = sw._graphs
+        counts = kernel_counts(cache._entries[cache.keys()[0]].replay)
+        print(f"switch step {t}: values {values}, K9 "
+              f"{counts['set_conditionals_kernel']}, K7 "
+              f"{counts['crop_resize_kernel']}")
+        assert counts["set_conditionals_kernel"] == 2, counts
+        assert counts["crop_resize_kernel"] == 1 + sum(v > 0
+                                                       for v in values)
         buckets = [0 if v == 0 else 4 if v <= 4 else 8 for v in values]
         seen.add(buckets[0])
         new, packed = st._step(store_before, st._upload("f", frames if
@@ -1494,9 +1560,9 @@ def test_k10_equals_plain(dev, problems, n_bases, n_targets, kind):
     problem)."""
     args = _k10_args(problems, n_bases, n_targets, kind, dev,
                      seed=problems + n_targets)
-    before = hierarchy.greedy_scan_cuda.launches
     got = hierarchy.greedy_scan_cuda(*args)
-    assert hierarchy.greedy_scan_cuda.launches == before + 1
+    counts = kernel_counts(lambda: hierarchy.greedy_scan_cuda(*args))
+    assert _k10(counts) == 1, counts
     want = hierarchy.greedy_scan_plain(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
@@ -1526,8 +1592,7 @@ def test_k10_captured_without_synchronising(dev, problems, n_bases,
     """K10 captured in a CUDA graph by pipeline/graphed.py::GraphCache (a
     capture fails on any wait), then launched eagerly and replayed under
     set_sync_debug_mode("error") on two inputs: equal to each other and to
-    the plain version, and the launches count as chip_smoke counts them
-    (the capture's warm-up calls, then one a replay). Also above 1,024
+    the plain version, and K10 launched once a replay. Also above 1,024
     targets (a block a problem, its scratch tensor from the graph's pool
     under capture; random boxes and ties) and at R = 33 (claims past round
     32), in the warp and the block form."""
@@ -1539,7 +1604,6 @@ def test_k10_captured_without_synchronising(dev, problems, n_bases,
     def step(*args):
         return [hierarchy.greedy_scan(*args)]
 
-    before = hierarchy.greedy_scan_cuda.launches
     got, = cache.run(("k10",), step, inputs[0])   # the capture
     for args in inputs + inputs:
         torch.cuda.synchronize()
@@ -1556,8 +1620,8 @@ def test_k10_captured_without_synchronising(dev, problems, n_bases,
         if max(pattern) > 32:
             assert (want[:, :, 32:] >= 0).any()
     assert cache.captures == 1 and cache.replays == 5
-    assert hierarchy.greedy_scan_cuda.launches - before == \
-        cache.warmups + 5 + 4
+    counts = kernel_counts(lambda: cache.run(("k10",), step, inputs[0]))
+    assert _k10(counts) == 1, counts
 
 
 def test_k10_reached_once_a_step_and_through_its_op(dev):
@@ -1568,15 +1632,17 @@ def test_k10_reached_once_a_step_and_through_its_op(dev):
         np.random.default_rng(s), 4, 50, 50, "dupes")[0] for s in range(3)]))
     valid = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, (3, 4, 50)) < 0.8)
-    before = hierarchy.greedy_scan_cuda.launches
-    on_card = fs.attach_hierarchy_batched(boxes.to(dev), valid.to(dev))
-    assert hierarchy.greedy_scan_cuda.launches == before + 1
+    boxes_dev, valid_dev = boxes.to(dev), valid.to(dev)
+    on_card = fs.attach_hierarchy_batched(boxes_dev, valid_dev)
+    counts = kernel_counts(
+        lambda: fs.attach_hierarchy_batched(boxes_dev, valid_dev))
+    assert _k10(counts) == 1, counts
     for g, w in zip(on_card, fs.attach_hierarchy_batched(boxes, valid)):
         assert torch.equal(g.cpu(), w)
     args = list(_k10_args(6, 50, 50, "grid", torch.device("cpu"), seed=4))
-    got, want = _op_pair(torch.ops.botsort_tpu_torch.hierarchy_scan, args,
-                         dev)
-    assert hierarchy.greedy_scan_cuda.launches == before + 2
+    got, want, counts = _op_pair(
+        torch.ops.botsort_tpu_torch.hierarchy_scan, args, dev)
+    assert _k10(counts) == 1, counts
     assert got.is_cuda and torch.equal(got.cpu(), want)
     iou, dist, used0, active = (a.to(dev) for a in args)
     # No size is refused: 1,025 targets (a block a problem) launch and
@@ -1584,7 +1650,8 @@ def test_k10_reached_once_a_step_and_through_its_op(dev):
     big = _k10_args(1, 2, 1025, "dupes", dev, seed=9)
     assert torch.equal(hierarchy.greedy_scan_cuda(*big),
                        hierarchy.greedy_scan_plain(*big))
-    assert hierarchy.greedy_scan_cuda.launches == before + 3
+    counts = kernel_counts(lambda: hierarchy.greedy_scan_cuda(*big))
+    assert counts["hierarchy_scan_block"] == 1, counts
     with pytest.raises(ValueError, match="float32"):
         hierarchy.greedy_scan_cuda(iou.double(), dist, used0, active)
     with pytest.raises(ValueError, match="float32"):
@@ -1615,7 +1682,6 @@ def test_mini_graphed_step_at_6300_candidates_equals_the_plain_nms(dev):
                                         graphs=True)
     reference = host.BoTSORTPipeline(bundle, MINI_TRK, nms_cfg, pipe_cfg,
                                      graphs=False)
-    before = nms.nms_fixpoint_cuda.launches
     for frames in _mini_frames(3, 1, 9):
         with mock.patch.object(nms, "nms_fixpoint", recorded):
             graphed_pipe.update(frames[0])
@@ -1625,7 +1691,10 @@ def test_mini_graphed_step_at_6300_candidates_equals_the_plain_nms(dev):
         _same_result(reference.last_result, graphed_pipe.last_result)
         assert graphed_pipe.last_result.det_valid.any()
     assert widths and set(widths) == {6300}
-    assert nms.nms_fixpoint_cuda.launches - before >= 3
+    cache = graphed_pipe._graphs
+    for key in cache.keys():
+        counts = kernel_counts(cache._entries[key].replay)
+        assert counts["nms_fixpoint_kernel"] == 1, (key, counts)
     for x, y in zip(host._store_tensors(reference.store),
                     host._store_tensors(graphed_pipe.store)):
         assert (x is None and y is None) or torch.equal(x, y)

@@ -17,6 +17,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import cv2
 import jax
@@ -188,12 +189,11 @@ def test_batched_cascade_equals_jax_lockstep_kernel():
     rng = np.random.default_rng(21)
     insts = [_cascade_instance(rng, n, d) for _ in range(3)]
     insts.append(_cascade_instance(rng, n, d, empty_cols=True))
-    before = (assignment_cuda.cascade_solve_cuda.launches,
-              assignment_cuda.cascade_solve_cuda.batched_launches)
-    got = tassign.solve_cascade_masked(
-        *[torch.from_numpy(a) for a in _stack(insts)], LIMITS)
-    assert (assignment_cuda.cascade_solve_cuda.launches,
-            assignment_cuda.cascade_solve_cuda.batched_launches) == before
+    # The dispatcher reaches the kernel's wrapper only for CUDA tensors.
+    with mock.patch.object(assignment_cuda, "cascade_solve_cuda",
+                           side_effect=AssertionError("K2 reached")):
+        got = tassign.solve_cascade_masked(
+            *[torch.from_numpy(a) for a in _stack(insts)], LIMITS)
     _assert_equals_lockstep(got, insts, n, d)
     assert (got[0].row_for_col[3] == -1).all()
 
